@@ -6,22 +6,49 @@
 Run from the root of the repository; it needs one CUDA device and the CUDA
 toolkit (``nvcc``).  Phases, each timed:
 
-1. Device and build: the card's name and power limit, and the time to
-   build ``src/repro_torch/kernels/csrc/segment_reduce.cu`` with nvcc.
-2. Kernel against plain: every row source (slab, ids, dual) x op (or, and,
-   xor, andnot, threshold, weighted threshold) at the main path's shapes
-   (256 segments, about 10^5 rows) and at small edge cases; words must be
-   bit-identical to the plain PyTorch version on the card and cards equal.
-   Kernel, plain and bytes-bound times are printed.
-3. The main path at real scale: an ``InvertedIndex`` over 2^24 documents
+1. Device and build: the card's name and power limit, and every kernel
+   source under ``src/repro_torch/kernels/csrc/`` built at once, one nvcc
+   each, in parallel.
+2. segment_reduce against plain: every row source (slab, ids, dual) x op
+   (or, and, xor, andnot, threshold, weighted threshold) at the main path's
+   shapes (256 segments, about 10^5 rows) and at small edge cases; words
+   must be bit-identical to the plain PyTorch version on the card and cards
+   equal.  Kernel, plain and bytes-bound times are printed.
+2b. The similarity score and select kernels against their plain versions:
+   1,024 ragged candidates (about 2.3 * 10^5 rows, empty candidates, one
+   at the maximum of 256 rows, duplicates that tie), every metric,
+   ``exclude`` in {-1, 0, T-1}, a zero query cardinality and cards near
+   2^31-1 for the score; k in {1, 10, 100, T} for the select, also on
+   scores with many ties.  Indices, intersections and float32 score bits
+   must be equal; the select must also equal ``torch.sort`` (stable),
+   whose time is printed beside the kernel's.
+3. Boolean queries at real scale: an ``InvertedIndex`` over 2^24 documents
    and 1,024 terms on a ``BitmapArena`` on the card (64 dense bitset
    terms, 960 sparse array terms), 64 queries of each boolean class run
    one at a time and coalesced through ``aggregate.execute_plans``, every
    answer checked against an independent numpy oracle; then the two other
-   kernel front ends (cold staged rows, no arena).  Launch counts are set
-   to 0 before this phase and read after it.
-4. One JSON line with the kernel's numbers, then the last line
-   ``{"ok": true, "device": {...}}``.
+   segment_reduce front ends (cold staged rows, no arena).
+4. Similarity at real scale on the same index: the engine built through
+   ``InvertedIndex.similar`` (its build time and device bytes), 64
+   member-term queries per metric at k = 10, 16 at k = 100 and 4 unknown
+   terms, each equal to an independent numpy oracle (packed sets, popcount
+   of the AND, float32 scores, stable argsort) and each launching the
+   score and the select kernel exactly once; latency, idle share and
+   kernel time per query.
+5. The ``QueryServer`` on the same index: 256 mixed tickets (32 of each
+   boolean class, 64 ``similar``) through ``run_until_idle``, every value
+   equal to the oracle (so to the single-query calls of phases 3 and 4,
+   which equal it), and in this fault-free run no retry, no host fallback
+   and no degraded ticket; tickets/s and ticket latency.  Then scripted
+   faults on a smaller index (2^20 documents, 64 terms): one
+   ``dispatch_raise`` retries once, a ``slab_mismatch`` after one postings
+   edit repatches only that row, and ``dispatch_raise`` always degrades
+   every ticket to the host, flagged, with the same answers.
+
+Launch counts are set to 0 just before each of phases 3, 4 and 5 and read
+just after it; a kernel that a phase's path runs and that launched no time
+there fails the script.  Then one JSON line with every kernel's numbers,
+and the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when there is no CUDA device, when the
 repository's sources are missing, or when any phase fails.  A detailed
@@ -53,10 +80,20 @@ CLASSES = ("and", "or", "xor", "andnot", "threshold", "threshold_w")
 OPS = (("or", None), ("and", None), ("xor", None), ("andnot", None),
        ("threshold", "per_segment"), ("threshold", "weights"))
 SOURCES = ("slab", "ids", "dual")
+SOURCES_CU = ("segment_reduce", "similarity_topk")   # csrc/<name>.cu
+METRICS = ("jaccard", "cosine", "containment")
+SIM_T = 1024                  # candidates at the main path: the terms
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _reset_counts() -> None:
+    """Set every kernel wrapper's launch counts to 0."""
+    from repro_torch.kernels import segment_ops, topk_ops
+    segment_ops.reset_launches()
+    topk_ops.reset_launches()
 
 
 # ---------------------------------------------------------------------------
@@ -141,6 +178,22 @@ def _time_ms(fn, reps):
     return out, start.elapsed_time(end) / reps
 
 
+def _device_ms(fn, reps):
+    """Mean device ms of ``fn`` over ``reps`` runs after one warm-up: the
+    sum of the card's event durations in a profiler window, per run.
+    Unlike CUDA events around a loop, it leaves out the host's time
+    between launches, which is most of it for a kernel of microseconds."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return _device_busy_us(prof, ())[0] / reps / 1e3
+
+
 def _bound(src, op, tmode, x, planes):
     """Least time for the work, in ms, and what bounds it: bytes (every
     needed row read once, outputs written once, index vectors read once)
@@ -217,6 +270,175 @@ def phase_kernels(dev, seed, failures, segments=256, max_len=781):
 
 
 # ---------------------------------------------------------------------------
+# phase 2b: the similarity score and select kernels against their plain
+# versions
+# ---------------------------------------------------------------------------
+
+def _cards_of(rows, starts):
+    """(T,) int32 popcount of each candidate's rows (plain torch, in
+    blocks of rows so the int64 popcount stays small)."""
+    from repro_torch.kernels.ref import popcount_words
+    per = torch.cat([popcount_words(rows[i:i + 8192])
+                     for i in range(0, rows.shape[0], 8192)])
+    t = starts.shape[0] - 1
+    seg = torch.searchsorted(starts[1:].long(),
+                             torch.arange(rows.shape[0], device=rows.device),
+                             right=True)
+    return torch.zeros(t, dtype=torch.int64, device=rows.device).index_add_(
+        0, seg, per.long()).to(torch.int32)
+
+
+def _topk_inputs(dev, seed, n_cand=SIM_T, n_cols=256):
+    """Main-path shapes: T = 1,024 candidates over 256 key columns, most
+    with 192-256 rows (at most one per column, as in an engine), eight
+    empty, one at the maximum of 256, and candidates 10-19 copies of
+    candidate 9 (exact ties); random words on the card."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    lens = rng.integers(192, n_cols + 1, n_cand)
+    lens[rng.choice(np.arange(20, n_cand - 2), 8, replace=False)] = 0
+    lens[n_cand - 2] = n_cols
+    lens[10:20] = lens[9]
+    starts = np.concatenate(([0], np.cumsum(lens))).astype(np.int32)
+    cols = [np.sort(rng.choice(n_cols, n, replace=False)) for n in lens]
+    for t in range(10, 20):
+        cols[t] = cols[9]
+    row_col = np.concatenate(cols).astype(np.int32)
+    rows = torch.randint(-2**31, 2**31, (int(starts[-1]), 2048),
+                         dtype=torch.int32, device=dev, generator=gen)
+    s9 = int(starts[9])
+    for t in range(10, 20):
+        rows[int(starts[t]):int(starts[t + 1])] = rows[s9:int(starts[10])]
+    q = torch.randint(-2**31, 2**31, (n_cols, 2048), dtype=torch.int32,
+                      device=dev, generator=gen)
+    st = torch.from_numpy(starts).to(dev)
+    from repro_torch.kernels.ref import popcount_words
+    return dict(rows=rows, row_col=torch.from_numpy(row_col).to(dev),
+                starts=st, q=q, q_card=int(popcount_words(q).sum()),
+                cards=_cards_of(rows, st), lens=lens)
+
+
+def _score_bound(x):
+    n, t = x["rows"].shape[0], len(x["lens"])
+    nbytes = (n * 8192 + x["q"].shape[0] * 8192 + 4 * n + 4 * (t + 1)
+              + 4 * t + 8 * t)
+    ops = n * 2048 * 2                         # an AND and a popcount
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _select_bound(t, k):
+    t_bytes = (8 * t + 12 * k) / HBM_BYTES_PER_S * 1e3
+    t_ops = k * t / INT_OPS_PER_S * 1e3        # k rounds of T compares
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _bits_equal(got, want):
+    return all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+               for g, w in zip(got, want))
+
+
+def _err(got, want):
+    return max((float((g.double() - w.double()).abs().max())
+                if g.numel() else 0.0) for g, w in zip(got, want))
+
+
+def phase_topk_kernels(dev, seed, failures):
+    """Score and select against their plain versions: exact equality of
+    indices, intersections and float32 score bits."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import topk_ops as tk
+    x = _topk_inputs(dev, seed + 10)
+    t = len(x["lens"])
+    args = (x["rows"], x["row_col"], x["starts"])
+    cases, max_err = [], 0.0
+    scores = {}
+    variants = [("main", x["q"], x["q_card"], x["cards"]),
+                ("q_card0", torch.zeros_like(x["q"]), 0, x["cards"]),
+                ("cards_2^31", x["q"], 2**31 - 1, torch.randint(
+                    2**31 - 2**20, 2**31, (t,), dtype=torch.int32,
+                    device=dev))]
+    for name, q, qc, cards in variants:
+        for metric in METRICS:
+            for exclude in (-1, 0, t - 1):
+                big = name == "main" and exclude == -1
+                want, plain_ms = _time_ms(lambda: ref.similarity_score(
+                    *args, q, qc, cards, exclude, metric=metric),
+                    3 if big else 1)
+                got, ms = _time_ms(lambda: tk.similarity_score(
+                    *args, q, qc, cards, exclude, metric=metric),
+                    20 if big else 1)
+                same = _bits_equal(got, want)
+                max_err = max(max_err, _err(got, want))
+                case = f"score/{name}/{metric}/exclude={exclude}"
+                if not same:
+                    failures.append(f"kernel != plain: {case}")
+                bound_ms, bound_by = _score_bound(x)
+                cases.append(dict(case=case, equal=same, ms=ms,
+                                  plain_ms=plain_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by, library_ms=None))
+                if big:
+                    log(f"  {case:40s} equal={same} kernel {ms:.4f} ms  "
+                        f"plain {plain_ms:.3f} ms  bound {bound_ms:.4f} ms"
+                        f" ({bound_by})")
+                if name == "main" and exclude == 0:
+                    scores[metric] = got
+    rng = np.random.default_rng(seed + 11)
+    ties = torch.from_numpy((rng.integers(0, 6, t) / 5).astype(
+        np.float32)).to(dev)
+    scores["ties"] = (ties, x["cards"])
+    for name, (score, inter) in scores.items():
+        for k in sorted({k for k in (1, 10, 100, t) if k <= t}):
+            timed = name == "jaccard" and k in (10, 100)
+            want, plain_ms = _time_ms(lambda: ref.topk_select(
+                score, inter, k), 3 if timed else 1)
+            got, ms = _time_ms(lambda: tk.topk_select(score, inter, k),
+                               50 if timed else 1)
+            lib, lib_ms = _time_ms(lambda: torch.sort(
+                score, descending=True, stable=True).indices[:k],
+                50 if timed else 1)
+            same = _bits_equal(got, want) and torch.equal(got[0].long(),
+                                                          lib)
+            device = {}
+            if timed:                   # launch-bound: time on the device
+                device = dict(
+                    device_ms=_device_ms(lambda: tk.topk_select(
+                        score, inter, k), 50),
+                    device_plain_ms=_device_ms(lambda: ref.topk_select(
+                        score, inter, k), 3),
+                    device_library_ms=_device_ms(lambda: torch.sort(
+                        score, descending=True, stable=True).indices[:k],
+                        50))
+            max_err = max(max_err, _err(got, want))
+            case = f"select/{name}/k={k}"
+            if not same:
+                failures.append(f"kernel != plain: {case}")
+            bound_ms, bound_by = _select_bound(t, k)
+            cases.append(dict(case=case, equal=same, ms=ms,
+                              plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, library_ms=lib_ms,
+                              **device))
+            if timed:
+                log(f"  {case:40s} equal={same} events: kernel {ms:.4f} ms"
+                    f"  plain {plain_ms:.3f} ms  torch.sort {lib_ms:.4f} ms"
+                    f"; device: kernel {device['device_ms']:.4f} ms  plain "
+                    f"{device['device_plain_ms']:.3f} ms  torch.sort "
+                    f"{device['device_library_ms']:.4f} ms; bound "
+                    f"{bound_ms:.6f} ms ({bound_by})")
+    info = dict(candidates=t, rows=int(x["rows"].shape[0]),
+                empty=int((x["lens"] == 0).sum()),
+                longest=int(x["lens"].max()))
+    log(f"  {len(cases)} cases, {sum(c['equal'] for c in cases)} equal; "
+        f"{info['rows']} rows over {t} candidates ({info['empty']} empty, "
+        f"longest {info['longest']}); launches so far {tk.launches_by_stage}")
+    del x, scores
+    torch.cuda.empty_cache()
+    return cases, max_err, info
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path at real scale
 # ---------------------------------------------------------------------------
 
@@ -229,8 +451,8 @@ def _dense_words(dev, gen, p):
     return shifted.sum(dim=1).cpu().numpy().view(np.uint64)
 
 
-def _packed(values):
-    words = np.zeros(N_DOCS // 64, np.uint64)
+def _packed(values, n_words=N_DOCS // 64):
+    words = np.zeros(n_words, np.uint64)
     np.bitwise_or.at(words, values >> 6,
                      np.uint64(1) << (values & 63).astype(np.uint64))
     return words
@@ -316,17 +538,20 @@ def make_traffic(seed, df):
 
 
 class Oracle:
-    """Independent numpy answers from packed 2^24-bit document sets."""
+    """Independent numpy answers from packed document sets (2^24 bits, or
+    ``n_words`` 64-bit words)."""
 
-    def __init__(self, sets):
+    def __init__(self, sets, n_words=N_DOCS // 64):
         self._src = sets
+        self._n_words = n_words
         self._packed = {}
 
     def words(self, term):
         w = self._packed.get(term)
         if w is None:
             src = self._src[term]
-            w = src if src.dtype == np.uint64 else _packed(src)
+            w = src if src.dtype == np.uint64 else \
+                _packed(src, self._n_words)
             self._packed[term] = w
         return w
 
@@ -340,7 +565,7 @@ class Oracle:
             return np.bitwise_xor.reduce(ws)
         if cls == "andnot":
             return ws[0] & ~np.bitwise_or.reduce(ws[1:])
-        cnt = np.zeros(N_DOCS, np.uint8)
+        cnt = np.zeros(ws[0].size * 64, np.uint8)
         for w, wt in zip(ws, q.get("weights") or [1] * len(ws)):
             cnt += np.unpackbits(w.view(np.uint8), bitorder="little") * \
                 np.uint8(wt)
@@ -368,15 +593,15 @@ def _plan(index, cls, q):
                                arena=index.arena)
 
 
-def _device_busy_us(prof):
+def _device_busy_us(prof, names):
     """Sum of device-side event durations (kernels and copies), and of the
-    segment_reduce kernels alone, in microseconds."""
+    kernels whose names contain one of ``names``, in microseconds."""
     busy = kern = 0.0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             d = e.time_range.elapsed_us()
             busy += d
-            if "reduce_kernel" in e.name or "threshold_kernel" in e.name:
+            if any(n in e.name for n in names):
                 kern += d
     return busy, kern
 
@@ -415,7 +640,7 @@ def phase_main_path(dev, seed, failures):
     answers = {c: [oracle.answer(c, q) for q in qs]
                for c, qs in traffic.items()}
 
-    so.reset_launches()                     # the main path starts here
+    _reset_counts()                         # the boolean path starts here
     up0 = arena.stats.rows_uploaded
     classes = {}
     for cls in CLASSES:
@@ -445,7 +670,8 @@ def phase_main_path(dev, seed, failures):
                 _run_query(index, cls, q)
             torch.cuda.synchronize(dev)
             wall_us = (time.perf_counter() - t) * 1e6
-        busy_us, kern_us = _device_busy_us(prof)
+        busy_us, kern_us = _device_busy_us(
+            prof, ("reduce_kernel", "threshold_kernel"))
         idle = 1.0 - busy_us / wall_us if busy_us > 0 else None
         classes[cls] = dict(
             queries=len(lat), p50_ms=float(np.percentile(lat, 50)),
@@ -498,14 +724,460 @@ def phase_main_path(dev, seed, failures):
         if wrong or used == 0:
             failures.append(f"front end {name}: {wrong} wrong, "
                             f"{used} launches")
-    launches = so.launches                  # the main path ends here
+    launches = so.launches                  # the boolean path ends here
     by_source = dict(so.launches_by_source)
     info.update(classes=classes, fronts=fronts, launches=launches,
                 launches_by_source=by_source)
-    return info
+    return info, dict(index=index, postings=postings, sets=sets,
+                      traffic=traffic, answers=answers)
 
 
 # ---------------------------------------------------------------------------
+# phase 4: similarity on the main path
+# ---------------------------------------------------------------------------
+
+def _scores_f32(inter, q_card, cards, metric):
+    """The metric in float32, one rounding per step: (qc + oc) - inter,
+    sqrt(qc * oc), or qc; a zero denominator scores 1.0."""
+    fi = np.asarray(inter).astype(np.float32)
+    qc = np.float32(q_card)
+    oc = np.asarray(cards).astype(np.float32)
+    if metric == "jaccard":
+        denom = (qc + oc) - fi
+    elif metric == "cosine":
+        denom = np.sqrt(qc * oc)
+    else:
+        denom = np.full_like(oc, qc)
+    return np.divide(fi, denom, out=np.ones_like(fi), where=denom > 0)
+
+
+class SimOracle:
+    """Independent numpy top-k over packed document sets: intersections by
+    popcount of the packed AND (a sparse term's set is its values, so its
+    AND with the query is the count of its values whose bit the query
+    has), float32 scores and a stable argsort."""
+
+    def __init__(self, terms, sets, n_words):
+        self.terms = list(terms)
+        self.n_words = n_words
+        dense = [i for i, t in enumerate(self.terms)
+                 if sets[t].dtype == np.uint64]
+        self.dense_idx = np.asarray(dense, np.int64)
+        self.dense = np.stack([sets[self.terms[i]][:n_words]
+                               for i in dense])
+        vals, owner = [], []
+        for i, t in enumerate(self.terms):
+            if sets[t].dtype != np.uint64:
+                v = sets[t][sets[t] < n_words * 64]
+                vals.append(v)
+                owner.append(np.full(v.size, i, np.int32))
+        self.vals = np.concatenate(vals)
+        self.owner = np.concatenate(owner)
+        self.sets = sets
+        self.cards = np.zeros(len(self.terms), np.int64)
+        self.cards[self.dense_idx] = np.bitwise_count(self.dense).sum(axis=1)
+        self.cards += np.bincount(self.owner, minlength=len(self.terms))
+
+    def words(self, term):
+        s = self.sets.get(term)
+        if s is None:
+            return np.zeros(self.n_words, np.uint64)
+        if s.dtype == np.uint64:
+            return s[: self.n_words]
+        w = np.zeros(self.n_words, np.uint64)
+        v = s[s < self.n_words * 64]
+        np.bitwise_or.at(w, v >> 6, np.uint64(1) << (v & 63).astype(
+            np.uint64))
+        return w
+
+    def inter(self, qw):
+        out = np.zeros(len(self.terms), np.int64)
+        out[self.dense_idx] = np.bitwise_count(self.dense & qw).sum(axis=1)
+        bit = (qw[self.vals >> 6] >> (self.vals & 63).astype(np.uint64)) \
+            & np.uint64(1)
+        out += np.bincount(self.owner, weights=bit,
+                           minlength=len(self.terms)).astype(np.int64)
+        return out
+
+    def topk(self, term, k, metric, inter=None):
+        qw = self.words(term)
+        qc = int(np.bitwise_count(qw).sum())
+        if inter is None:
+            inter = self.inter(qw)
+        score = _scores_f32(inter, qc, self.cards, metric)
+        n = len(self.terms)
+        if term in self.sets:
+            score[self.terms.index(term)] = np.float32(-1.0)
+            n -= 1
+        order = np.argsort(-score, kind="stable")[: min(k, n)]
+        return [(self.terms[i], float(score[i])) for i in order.tolist()]
+
+
+def _same_sim(got, want):
+    return [t for t, _ in got] == [t for t, _ in want] and \
+        np.float32([s for _, s in got]).tobytes() == \
+        np.float32([s for _, s in want]).tobytes()
+
+
+def sim_traffic(seed, terms):
+    """64 member terms (16 dense, 48 sparse) for k = 10, 16 more (8 and 8)
+    for k = 100, and 4 unknown terms, each under all three metrics."""
+    rng = np.random.default_rng(seed + 4)
+    dense = [t for t in terms if t[0] == "d"]
+    sparse = [t for t in terms if t[0] == "s"]
+    d = list(rng.choice(dense, 24, replace=False))
+    s = list(rng.choice(sparse, 56, replace=False))
+    out = []
+    for metric in METRICS:
+        out += [(str(t), 10, metric) for t in d[:16] + s[:48]]
+        out += [(str(t), 100, metric) for t in d[16:] + s[48:]]
+        out += [(f"unknown-{i}", 10, metric) for i in range(4)]
+    return out
+
+
+def phase_similarity(dev, index, sets, seed, failures):
+    from repro_torch.kernels import segment_ops as so
+    from repro_torch.kernels import topk_ops as tk
+    from torch.profiler import ProfilerActivity, profile
+
+    terms = list(index.postings)
+    t0 = time.perf_counter()
+    oracle = SimOracle(terms, sets, N_DOCS // 64)
+    traffic = sim_traffic(seed, terms)
+    inters = {}
+    for term, _, _ in traffic:
+        if term not in inters:
+            inters[term] = oracle.inter(oracle.words(term))
+    answers = [oracle.topk(t, k, m, inters[t]) for t, k, m in traffic]
+    oracle_s = time.perf_counter() - t0
+    log(f"  oracle: {len(inters)} query sets x {len(terms)} terms, "
+        f"{oracle_s:.1f} s")
+
+    _reset_counts()                         # the similarity path starts here
+    mem0 = torch.cuda.memory_allocated(dev)
+    t = time.perf_counter()
+    first = index.similar(traffic[0][0], traffic[0][1], traffic[0][2])
+    torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t
+    eng = index._sim_engine()[1]
+    engine_bytes = eng._device()[0].numel() * 4
+    mem_delta = torch.cuda.memory_allocated(dev) - mem0
+    log(f"  engine build through similar(): {build_s:.2f} s; "
+        f"{eng.rows.shape[0]} candidate rows, device rows {engine_bytes} "
+        f"bytes (allocated +{mem_delta}) beside the "
+        f"{index.arena.device_slab().numel() * 4}-byte arena")
+    wrong = 0 if _same_sim(first, answers[0]) else 1
+    lat: dict = {}
+    bad_launch = 0
+    for (term, k, metric), want in zip(traffic[1:], answers[1:]):
+        n0 = dict(tk.launches_by_stage)
+        t = time.perf_counter()
+        got = index.similar(term, k, metric)
+        lat.setdefault((metric, k), []).append(
+            (time.perf_counter() - t) * 1e3)
+        wrong += not _same_sim(got, want)
+        bad_launch += any(tk.launches_by_stage[s] != n0[s] + 1
+                          for s in n0)
+    classes = {}
+    for metric in METRICS:
+        qs = [(t, k) for t, k, m in traffic if m == metric and k == 10][:16]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for term, k in qs:
+                index.similar(term, k, metric)
+            torch.cuda.synchronize(dev)
+            wall_us = (time.perf_counter() - t) * 1e6
+        busy, kern = _device_busy_us(prof, ("score_kernel",
+                                            "select_kernel"))
+        sel = _device_busy_us(prof, ("select_kernel",))[1]
+        for k in (10, 100):
+            ls = lat.get((metric, k), [])
+            classes[f"{metric}/k={k}"] = dict(
+                queries=len(ls), p50_ms=float(np.percentile(ls, 50)),
+                p99_ms=float(np.percentile(ls, 99)))
+        classes[f"{metric}/k=10"].update(
+            profiled_queries=len(qs), device_busy_us=busy, kernel_us=kern,
+            score_us=kern - sel, select_us=sel, wall_us=wall_us,
+            idle_share=1.0 - busy / wall_us if busy > 0 else None)
+        c = classes[f"{metric}/k=10"]
+        log(f"  {metric:12s} k=10 p50 {c['p50_ms']:.3f} ms  p99 "
+            f"{c['p99_ms']:.3f} ms; k=100 p50 "
+            f"{classes[f'{metric}/k=100']['p50_ms']:.3f} ms; idle "
+            + (f"{c['idle_share']:.4f}" if c["idle_share"] is not None
+               else "not measured")
+            + f"  kernels {kern / len(qs):.1f} us/query (score "
+            f"{(kern - sel) / len(qs):.1f}, select {sel / len(qs):.1f})")
+    launches = dict(tk.launches_by_stage)   # the similarity path ends here
+    log(f"  {len(traffic)} queries: wrong {wrong}, queries not launching "
+        f"each stage once {bad_launch}; launches {launches}, "
+        f"segment_reduce {so.launches}")
+    if wrong:
+        failures.append(f"similarity: {wrong} answers differ from the "
+                        f"oracle")
+    if bad_launch:
+        failures.append(f"similarity: {bad_launch} queries did not launch "
+                        f"each stage exactly once")
+    if min(launches.values()) == 0:
+        failures.append("similarity: a kernel never launched")
+    sim_cases = [dict(term=t, k=k, metric=m, answer=a)
+                 for (t, k, m), a in zip(traffic, answers)]
+    return dict(queries=len(traffic), wrong=wrong, bad_launch=bad_launch,
+                launches=launches, classes=classes, build_s=build_s,
+                engine_rows=int(eng.rows.shape[0]),
+                engine_device_bytes=engine_bytes,
+                allocated_delta=mem_delta, oracle_s=oracle_s), sim_cases
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the QueryServer
+# ---------------------------------------------------------------------------
+
+def _ticket_query(cls, q):
+    from repro_torch.serve import Query
+    if cls == "similar":
+        return Query.similar(q["term"], k=q["k"], metric=q["metric"])
+    terms = q["terms"]
+    if cls == "and":
+        return Query.and_(*terms)
+    if cls == "or":
+        return Query.or_(*terms)
+    if cls == "xor":
+        return Query.xor_(*terms)
+    if cls == "andnot":
+        return Query.andnot(terms[0], *terms[1:])
+    return Query.threshold(terms, q["t"], q.get("weights"))
+
+
+def _check_tickets(tickets, wants, to_packed, label, failures):
+    """Every ticket OK and equal to its expected answer."""
+    from repro_torch.serve import OK
+    wrong = 0
+    for t, (cls, want) in zip(tickets, wants):
+        if t.result.status != OK:
+            wrong += 1
+        elif cls == "similar":
+            wrong += not _same_sim(t.result.value, want)
+        else:
+            wrong += not np.array_equal(to_packed(t.result.value), want)
+    if wrong:
+        failures.append(f"{label}: {wrong} tickets wrong or not OK")
+    return wrong
+
+
+def phase_server(dev, index, traffic, answers, sim_cases, failures,
+                 per_class=32):
+    from repro_torch.kernels import segment_ops as so
+    from repro_torch.kernels import topk_ops as tk
+    from repro_torch.serve import QueryServer
+    work = [(cls, q, answers[cls][i]) for cls in CLASSES
+            for i, q in enumerate(traffic[cls][:per_class])]
+    work += [("similar", c, c["answer"]) for c in sim_cases
+             if c["k"] == 10 and not c["term"].startswith("unknown")][::3]
+    order = np.random.default_rng(5).permutation(len(work))
+    work = [work[i] for i in order]
+    _reset_counts()                         # the serving path starts here
+    srv = QueryServer(index)
+    t0 = time.perf_counter()
+    tickets = [srv.submit(_ticket_query(cls, q)) for cls, q, _ in work]
+    t1 = time.perf_counter()
+    srv.run_until_idle()
+    torch.cuda.synchronize(dev)
+    t2 = time.perf_counter()
+    launches = dict(segment_reduce=so.launches, **tk.launches_by_stage)
+    st = srv.stats()                        # the serving path ends here
+    wrong = _check_tickets(tickets, [(c, w) for c, _, w in work],
+                           _to_packed, "server", failures)
+    degraded = sum(t.telemetry.degraded for t in tickets)
+    lat = [t.telemetry.latency * 1e3 for t in tickets]
+    info = dict(tickets=len(tickets), wrong=wrong, degraded=degraded,
+                stats=st.as_dict(), launches=launches, submit_s=t1 - t0,
+                run_s=t2 - t1, tickets_per_s=len(tickets) / (t2 - t0),
+                p50_ms=float(np.percentile(lat, 50)),
+                p99_ms=float(np.percentile(lat, 99)))
+    log(f"  {len(tickets)} tickets in {st.batches} batches over {st.ticks} "
+        f"ticks: admission {t1 - t0:.2f} s, run {t2 - t1:.2f} s, "
+        f"{info['tickets_per_s']:.1f} tickets/s, latency p50 "
+        f"{info['p50_ms']:.1f} ms p99 {info['p99_ms']:.1f} ms; wrong "
+        f"{wrong}; host_fallbacks {st.host_fallbacks}, dispatch_retries "
+        f"{st.dispatch_retries}, degraded {degraded}; launches {launches}")
+    if st.host_fallbacks or st.dispatch_retries or degraded:
+        failures.append("server: the fault-free run retried or fell back "
+                        "to the host")
+    if min(launches.values()) == 0:
+        failures.append(f"server: a kernel never launched {launches}")
+    return info
+
+
+def phase_server_faults(dev, postings, sets, seed, failures, chunks=16,
+                        n_dense=16, n_sparse=48):
+    """Scripted faults on a smaller index (the first ``chunks`` chunks of
+    16 dense and 48 sparse terms, on its own arena): one dispatch_raise
+    retries once; a slab_mismatch after one postings edit repatches only
+    the edited row; dispatch_raise always degrades to the host and still
+    answers right."""
+    from repro_torch import convert
+    from repro_torch.core import BitmapArena
+    from repro_torch.data.index import InvertedIndex
+    from repro_torch.serve import FakeClock, FaultInjector, QueryServer
+    n_words = chunks << 10
+    names = [f"d{i}" for i in range(n_dense)] + \
+        [f"s{i}" for i in range(n_sparse)]
+    small, small_sets = {}, {}
+    for t in names:
+        keys, kinds, payloads = convert.bitmap_to_parts(postings[t])
+        j = int(np.searchsorted(keys, chunks))
+        small[t] = convert.bitmap_from_parts(keys[:j], kinds[:j],
+                                             payloads[:j])
+        s = sets[t]
+        small_sets[t] = s[:n_words].copy() if s.dtype == np.uint64 else \
+            s[s < n_words * 64]
+    index = InvertedIndex.from_postings(
+        small, n_words * 64, arena=BitmapArena(capacity=4096, device=dev))
+    rng = np.random.default_rng(seed + 6)
+    specs = []
+    for cls in CLASSES:
+        for _ in range(4):
+            ts = [str(x) for x in rng.choice(names[:n_dense], 2,
+                                             replace=False)] + \
+                [str(x) for x in rng.choice(names[n_dense:], 2,
+                                            replace=False)]
+            q = dict(terms=ts, t=2)
+            if cls == "threshold_w":
+                q["weights"] = [1, 2, 3, 1]
+            specs.append((cls, q))
+    for i in range(8):
+        specs.append(("similar", dict(term=names[i * 7],
+                                      k=1 + i, metric=METRICS[i % 3])))
+
+    def answers(sets_now):
+        oracle = Oracle(sets_now, n_words)
+        sim = SimOracle(names, sets_now, n_words)
+        out = []
+        for cls, q in specs:
+            if cls == "similar":
+                out.append((cls, sim.topk(q["term"], q["k"], q["metric"])))
+            else:
+                out.append((cls, np.asarray(oracle.answer(cls, q))))
+        return out
+
+    def to_packed(bm):
+        return _to_packed(bm)[:n_words]
+
+    def run(script, edit=None):
+        clock = FakeClock()
+        srv = QueryServer(index, clock=clock,
+                          faults=FaultInjector.script(script))
+        tickets = [srv.submit(_ticket_query(c, q)) for c, q in specs]
+        if edit is not None:
+            edit()
+        srv.run_until_idle()
+        return srv.stats(), tickets
+
+    runs = {}
+    want = answers(small_sets)
+    st, tickets = run({"dispatch_raise": [True]})
+    runs["dispatch_raise once"] = dict(
+        stats=st.as_dict(), wrong=_check_tickets(
+            tickets, want, to_packed, "dispatch_raise once", failures))
+    if st.dispatch_retries != 1 or st.host_fallbacks:
+        failures.append(f"dispatch_raise once: {st}")
+
+    # one postings edit between admission and dispatch: a new document in
+    # an existing bitset chunk of d0 (one container, one arena row)
+    doc = int(np.flatnonzero(~np.unpackbits(
+        small_sets["d0"].view(np.uint8), bitorder="little").astype(bool))[0])
+    edited = dict(small_sets)
+    edited["d0"] = small_sets["d0"].copy()
+    edited["d0"][doc >> 6] |= np.uint64(1) << np.uint64(doc & 63)
+    st, tickets = run({"slab_mismatch": [True]},
+                      edit=lambda: index.postings["d0"].add(doc))
+    want = answers(edited)
+    runs["slab_mismatch after one edit"] = dict(
+        stats=st.as_dict(), wrong=_check_tickets(
+            tickets, want, to_packed, "slab_mismatch", failures))
+    if st.replans != 1 or st.rows_repatched != 1 or st.host_fallbacks:
+        failures.append(f"slab_mismatch: {st}")
+
+    st, tickets = run({"dispatch_raise": "always"})
+    degraded = sum(t.telemetry.degraded for t in tickets)
+    runs["dispatch_raise always"] = dict(
+        stats=st.as_dict(), degraded=degraded, wrong=_check_tickets(
+            tickets, want, to_packed, "dispatch_raise always", failures))
+    if degraded != len(tickets) or st.host_fallbacks < 1:
+        failures.append(f"dispatch_raise always: {degraded} degraded, {st}")
+    for name, r in runs.items():
+        s = r["stats"]
+        log(f"  {name:30s} wrong {r['wrong']}  retries "
+            f"{s['dispatch_retries']}  replans {s['replans']}  "
+            f"rows_repatched {s['rows_repatched']}  host_fallbacks "
+            f"{s['host_fallbacks']}"
+            + (f"  degraded {r['degraded']}" if "degraded" in r else ""))
+    return dict(tickets=len(specs), documents=n_words * 64,
+                terms=len(names), runs=runs)
+
+
+# ---------------------------------------------------------------------------
+
+def _build_all():
+    """Build every kernel source at once, one nvcc each, in parallel.
+    Returns {source: (seconds, registers, spill stores)}."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import _build
+
+    def one(name):
+        t = time.perf_counter()
+        _build.library(name)
+        return name, time.perf_counter() - t
+
+    with ThreadPoolExecutor(len(SOURCES_CU)) as pool:
+        done = dict(pool.map(one, SOURCES_CU))
+    out = {}
+    for name, secs in done.items():
+        ptxas = _build.build_logs.get(name, "")
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", ptxas)]
+        spill = [int(x) for x in re.findall(r"(\d+) bytes spill stores",
+                                            ptxas)]
+        out[name] = (secs, regs, spill)
+        log(f"  {name}: nvcc {secs:.2f} s; " + (
+            f"ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} "
+            f"registers, spill stores up to {max(spill, default=0)} bytes"
+            if regs else "library was already built, no report"))
+    return out
+
+
+def _kernel_line(main_path, sim, cases, topk_cases, max_err, topk_err):
+    rep = next(c for c in cases if c["case"] == "main/ids/or")
+    score = next(c for c in topk_cases
+                 if c["case"] == "score/main/jaccard/exclude=-1")
+    select = next(c for c in topk_cases if c["case"] == "select/jaccard/k=10")
+    src = "src/repro_torch/kernels/csrc/"
+
+    def row(name, source, replaces, launches, err, c):
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": c["ms"], "plain_ms": c["plain_ms"],
+                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                "library_ms": c.get("library_ms")}
+
+    return {"kernels": [
+        # no single PyTorch call computes a segmented bitwise reduce fused
+        # with a popcount, nor a segmented AND-popcount fused with a score
+        row("segment_reduce", "segment_reduce.cu",
+            "src/repro/kernels/segment_ops.py:243", main_path["launches"],
+            max_err, dict(rep, library_ms=None)),
+        row("similarity_score", "similarity_topk.cu",
+            "src/repro/kernels/topk_ops.py:147", sim["launches"]["score"],
+            topk_err, score),
+        # times on the device (the profiler), since CUDA events around a
+        # loop of launches of microseconds time the host; library_ms:
+        # torch.sort(stable, descending)[:k], the same function
+        row("similarity_select", "similarity_topk.cu",
+            "src/repro/kernels/topk_ops.py:166", sim["launches"]["select"],
+            topk_err, dict(select, ms=select["device_ms"],
+                           plain_ms=select["device_plain_ms"],
+                           library_ms=select["device_library_ms"]))]}
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -519,59 +1191,52 @@ def main() -> int:
               "is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import _build
 
     dev = torch.device("cuda")
     failures: list[str] = []
     t_all = time.perf_counter()
+    phases = {}
 
-    t = time.perf_counter()
+    def phase(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        phases[name] = time.perf_counter() - t
+        log(f"phase {name}: {phases[name]:.1f} s")
+        return out
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
     log(card)
-    t_build = time.perf_counter()
-    _build.library("segment_reduce")
-    build_s = time.perf_counter() - t_build
-    ptxas = _build.build_logs.get("segment_reduce", "")
-    regs = [int(x) for x in re.findall(r"Used (\d+) registers", ptxas)]
-    spill = [int(x) for x in re.findall(r"(\d+) bytes spill stores", ptxas)]
-    log(f"  ptxas: {len(regs)} kernels, {min(regs, default=0)}-"
-        f"{max(regs, default=0)} registers, spill stores up to "
-        f"{max(spill, default=0)} bytes" if regs else
-        "  ptxas: library was already built, no report")
-    log(f"phase 1 (device and build): nvcc build {build_s:.2f} s; "
-        f"{time.perf_counter() - t:.2f} s")
+    builds = phase("1 (build every kernel)", _build_all)
+    cases, max_err = phase("2 (segment_reduce against plain)",
+                           phase_kernels, dev, args.seed, failures)
+    log(f"  {len(cases)} cases, max_abs_err {max_err}")
+    topk_cases, topk_err, topk_info = phase(
+        "2b (score and select against plain)", phase_topk_kernels, dev,
+        args.seed, failures)
+    log(f"  {len(topk_cases)} cases, max_abs_err {topk_err}")
+    main_path, ctx = phase("3 (boolean queries at real scale)",
+                           phase_main_path, dev, args.seed, failures)
+    sim, sim_cases = phase("4 (similarity at real scale)",
+                           phase_similarity, dev, ctx["index"],
+                           ctx["sets"], args.seed, failures)
+    server = phase("5 (query server)", phase_server, dev, ctx["index"],
+                   ctx["traffic"], ctx["answers"], sim_cases, failures)
+    server["faults"] = phase("5 (query server under scripted faults)",
+                             phase_server_faults, dev, ctx["postings"],
+                             ctx["sets"], args.seed, failures)
 
-    t = time.perf_counter()
-    cases, max_err = phase_kernels(dev, args.seed, failures)
-    log(f"phase 2 (kernel against plain, {len(cases)} cases, "
-        f"max_abs_err {max_err}): {time.perf_counter() - t:.1f} s")
-
-    t = time.perf_counter()
-    main_path = phase_main_path(dev, args.seed, failures)
-    log(f"phase 3 (main path at real scale): "
-        f"{time.perf_counter() - t:.1f} s")
-
-    rep = next(c for c in cases if c["case"] == "main/ids/or")
-    kernels = {"kernels": [{
-        "name": "segment_reduce", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
-        "replaces": "src/repro/kernels/segment_ops.py:243",
-        "launches": main_path["launches"], "max_abs_err": max_err,
-        "ms": rep["ms"], "plain_ms": rep["plain_ms"],
-        "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-        # no single PyTorch call computes a segmented bitwise reduce fused
-        # with a popcount
-        "library_ms": None}]}
+    kernels = _kernel_line(main_path, sim, cases, topk_cases, max_err,
+                           topk_err)
     REPORT.parent.mkdir(exist_ok=True)
     REPORT.write_text(json.dumps(dict(
-        card=card, build_s=build_s, registers=regs, spill_stores=spill,
-        kernel_cases=cases,
-        main_path=main_path, kernels=kernels["kernels"],
-        failures=failures, total_s=time.perf_counter() - t_all),
-        indent=1, default=str))
+        card=card, builds=builds, kernel_cases=cases,
+        topk_cases=topk_cases, topk_inputs=topk_info, main_path=main_path,
+        similarity=sim, server=server, kernels=kernels["kernels"],
+        phases_s=phases, failures=failures,
+        total_s=time.perf_counter() - t_all), indent=1, default=str))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     if failures:
         for f in failures:

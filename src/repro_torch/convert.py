@@ -7,6 +7,10 @@ A bitmap's parts are its chunk keys, its container kinds ("array",
 :func:`bitmap_to_parts` reads them off any object with ``keys`` and
 ``containers`` of those kinds, so a JAX-package bitmap converts without this
 module importing that package.
+
+An index's parts are its postings alone: the similarity engine, the arena
+and the query server are derived from the postings at run time, so two
+indexes built from the same parts answer every query alike.
 """
 
 from __future__ import annotations

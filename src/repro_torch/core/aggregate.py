@@ -31,9 +31,9 @@ the output uses the memory-optimal container kind per chunk.
 With an ``arena`` (core/arena.py), resident containers plan as slab row
 ids: the kernel gathers them from the device slab, and only cold rows are
 staged per call.  Every entry point runs on ``device`` ("cuda" unless the
-caller passes another; with an arena, the arena's device).  The sharded
-multi-device paths and the numpy-only ``execute_plan_host`` of the JAX
-package are not ported yet.
+caller passes another; with an arena, the arena's device).
+``execute_plan_host`` is the numpy-only route the query server degrades
+to.  The sharded multi-device paths of the JAX package are not ported yet.
 """
 
 from __future__ import annotations
@@ -53,7 +53,8 @@ from repro_torch.kernels.ref import WORDS
 from repro_torch.kernels.segment_ops import counter_planes
 
 __all__ = ["or_many", "and_many", "xor_many", "andnot_many",
-           "threshold_many", "WidePlan", "plan_wide", "execute_plans"]
+           "threshold_many", "WidePlan", "plan_wide", "execute_plans",
+           "execute_plan_host"]
 
 
 def _bitmap_cls():
@@ -472,7 +473,10 @@ class WidePlan:
     (zero-copy pass-throughs, run sweeps, bincount groups); ``seg_keys`` /
     ``seg_rows`` describe the dense remainder awaiting the slab kernel.
     ``execute_plans`` coalesces many plans into one ``segment_reduce``
-    launch per op class -- a query id is just another segment coordinate.
+    launch per op class -- a query id is just another segment coordinate --
+    and ``execute_plan_host`` is the numpy-only version the query server
+    degrades to when a kernel batch keeps failing (the same rows and the
+    same repack, so the same result).
 
     With an ``arena`` (core/arena.py), ``seg_rows`` entries may be int
     device-slab row ids instead of promoted uint64 rows: those never
@@ -488,6 +492,11 @@ class WidePlan:
     seg_weights: list[list[int]] | None = None
     arena: object | None = None           # BitmapArena owning the id rows
     device: torch.device | None = None    # where the pending rows reduce
+
+    def slab_bytes(self) -> int:
+        """Bytes this plan adds to a coalesced slab (the admission queue's
+        max-bytes accounting)."""
+        return sum(len(r) for r in self.seg_rows) * 8192
 
 
 def plan_wide(op: str, bitmaps, t: int = 0, weights=None, *,
@@ -577,6 +586,47 @@ def execute_plans(plans, *, backend: str | None = None) -> list:
         for (i, k), cont in out.items():
             results[i][k] = cont
     return [_build(r) for r in results]
+
+
+def execute_plan_host(plan: WidePlan):
+    """Numpy-only execution of one plan: the query server's degraded route
+    when a kernel batch keeps failing.
+
+    Reduces each pending segment's uint64 rows with exact host bit math
+    (the rows the kernel would read) and repacks through the same
+    ``optimize(C._result_from_bitset(...))``, so the result equals the
+    kernel plan's.  It touches no tensor: arena row ids resolve through
+    the arena's host mirror, never the device slab."""
+    merged = dict(plan.merged)
+    for i, (key, seg) in enumerate(zip(plan.seg_keys, plan.seg_rows)):
+        if plan.arena is not None:
+            seg = [r if isinstance(r, np.ndarray)
+                   else plan.arena.host_row(r) for r in seg]
+        stack = np.stack(seg)                       # (R, 1024) uint64
+        if plan.op == "or":
+            w = np.bitwise_or.reduce(stack, axis=0)
+        elif plan.op == "and":
+            w = np.bitwise_and.reduce(stack, axis=0)
+        elif plan.op == "xor":
+            w = np.bitwise_xor.reduce(stack, axis=0)
+        elif plan.op == "andnot":
+            w = stack[0]
+            if stack.shape[0] > 1:
+                w = w & ~np.bitwise_or.reduce(stack[1:], axis=0)
+        elif plan.op == "threshold":
+            bits = np.unpackbits(stack.view(np.uint8), axis=1,
+                                 bitorder="little").astype(np.int64)
+            if plan.seg_weights is not None:
+                bits *= np.asarray(plan.seg_weights[i],
+                                   np.int64)[:, None]
+            keepbits = bits.sum(axis=0) >= plan.threshold
+            w = np.packbits(keepbits, bitorder="little").view(np.uint64)
+        else:
+            raise ValueError(plan.op)
+        card = int(np.bitwise_count(w).sum())
+        if card:
+            merged[key] = optimize(C._result_from_bitset(w.copy(), card))
+    return _build(merged)
 
 
 # ---------------------------------------------------------------------------

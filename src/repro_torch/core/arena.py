@@ -191,6 +191,11 @@ class BitmapArena:
             self.adopt(bm)
         return len(fresh)
 
+    def revalidate(self) -> int:
+        """Re-adopt every registered bitmap whose version moved (the query
+        server's ``slab_mismatch`` rung).  Returns the rows promoted."""
+        return sum(self.adopt(e.bm) for e in list(self._entries.values()))
+
     def release(self, bm) -> None:
         """Drop ``bm`` from the arena, freeing rows not shared with
         other registered bitmaps."""
@@ -256,6 +261,11 @@ class BitmapArena:
     def host_row(self, rid: int) -> np.ndarray:
         """(1024,) uint64 view of one row in the host mirror."""
         return self._host[int(rid)]
+
+    def host_rows(self, ids) -> np.ndarray:
+        """Gather ``ids`` rows from the host mirror (a copy): the same
+        bytes as promoting the containers again, without the promotion."""
+        return self._host[np.asarray(ids, np.int64)]
 
     def device_slab(self) -> torch.Tensor:
         """The resident ``(capacity, 2048)`` int32 slab, uploaded lazily on

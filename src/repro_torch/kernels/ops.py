@@ -2,8 +2,8 @@
 
 ``backend``:
   * None   -- the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors (the wrapper in ``segment_ops`` decides by the tensor's
-    device);
+    tensors (the wrappers in ``segment_ops`` and ``topk_ops`` decide by
+    the tensor's device);
   * "cuda" -- always the CUDA kernel; a CPU tensor raises;
   * "ref"  -- always the plain PyTorch version (``kernels/ref.py``).
 
@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels import segment_ops as _segment_ops
+from repro_torch.kernels import topk_ops as _topk_ops
 
 BACKENDS = (None, "cuda", "ref")
 
@@ -58,7 +59,7 @@ def prefer_kernel(backend, device) -> bool:
 
 
 def _route(backend, table: torch.Tensor) -> bool:
-    """True for the plain version, False for the ``segment_ops`` wrapper."""
+    """True for the plain version, False for the kernel wrapper."""
     _check_backend(backend)
     if backend == "cuda" and table.device.type != "cuda":
         raise ValueError(f"backend 'cuda' given a tensor on {table.device}")
@@ -104,3 +105,17 @@ def segment_reduce_rows_dual(table, staged, pos, sidx, starts, op: str, *,
     return _segment_ops.segment_reduce_rows_dual(
         table, staged, pos, sidx, starts, op, jmax=jmax,
         threshold=threshold, weights=weights, planes=planes, wbits=wbits)
+
+
+def similarity_topk(rows, row_col, starts, q_words, q_card, cards, *,
+                    metric: str, k: int, exclude: int = -1, backend=None):
+    """Similarity top-k over a device-resident candidate slab: the score
+    launch, then the select launch; only k indices, scores and
+    intersections come back.  See ``topk_ops`` for the layout.  Unlike
+    the JAX package's, it takes no ``jmax``: the kernel walks each
+    candidate's own rows."""
+    if _route(backend, rows):
+        return ref.similarity_topk(rows, row_col, starts, q_words, q_card,
+                                   cards, exclude, metric=metric, k=k)
+    return _topk_ops.similarity_topk(rows, row_col, starts, q_words, q_card,
+                                     cards, exclude, metric=metric, k=k)

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the port's kernels.
 
 These are the torch twins of the JAX package's ``kernels/ref.py`` for the
-segmented wide-aggregation slice.  The CPU tests run them against the JAX
+segmented wide aggregation and for the similarity top-k (its score and
+select stages).  The CPU tests run them against the JAX
 reference, and ``chip_smoke.py`` holds the CUDA kernel against them on the
 card.  Nothing on the card's main path calls them.
 
@@ -136,3 +137,96 @@ def segment_reduce_rows_dual(table: torch.Tensor, staged: torch.Tensor,
     slab = gather_rows_dual(table, staged, pos, sidx)
     return segment_reduce(slab, starts, op, jmax=jmax, threshold=threshold,
                           weights=weights)
+
+
+METRICS = ("jaccard", "cosine", "containment")   # index == metric id
+
+
+def similarity_scores(inter: torch.Tensor, q_card, cards: torch.Tensor,
+                      metric: str) -> torch.Tensor:
+    """Similarity scores from intersection cardinalities, float32.
+
+    jaccard = |A∩B| / |A∪B|, cosine = |A∩B| / sqrt(|A||B|), containment =
+    |A∩B| / |A| (the query side), all from the AND cardinality by
+    inclusion-exclusion.  A zero denominator scores 1.0.  The formula runs
+    in float32 in a fixed operation order (each step rounded on its own),
+    the order of the JAX package's ``similarity_scores``, of the CUDA
+    kernel's finalize and of the numpy host version
+    (``core.pairwise._scores_host``), so all of them give the same bits
+    and the same top-k tie order."""
+    interf = inter.to(torch.float32)
+    qc = torch.as_tensor(q_card, device=inter.device).to(torch.float32)
+    oc = cards.to(device=inter.device, dtype=torch.float32)
+    if metric == "jaccard":
+        denom = qc + oc - interf
+    elif metric == "cosine":
+        # torch.sqrt on float32 CPU tensors is not correctly rounded (its
+        # vectorized path is off by an ulp on about 0.7% of large
+        # products); the float64 root rounded once to float32 is, as is
+        # the kernel's __fsqrt_rn and numpy's np.sqrt
+        denom = torch.sqrt((qc * oc).to(torch.float64)).to(torch.float32)
+    elif metric == "containment":
+        denom = qc.expand(oc.shape)
+    else:
+        raise ValueError(metric)
+    return torch.where(denom > 0, interf / denom, torch.ones_like(interf))
+
+
+def similarity_score(rows: torch.Tensor, row_col: torch.Tensor,
+                     starts: torch.Tensor, q_words: torch.Tensor, q_card,
+                     cards: torch.Tensor, exclude: int = -1, *,
+                     metric: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The score stage: per-candidate intersection cardinality and score.
+
+    rows: (N, WORDS) int32 candidate rows, candidate-major (candidate ``t``
+    owns rows ``starts[t]:starts[t+1]``); row_col: (N,) int32 column of
+    each row's chunk key in ``q_words`` (C, WORDS) int32; q_card: the
+    query's cardinality; cards: (T,) int32.  ``exclude`` is a candidate
+    index scored -1.0 (-1: none).  Returns (score (T,) float32, inter (T,)
+    int32).  The intersection is summed per candidate, never as a global
+    prefix: the grand total over all candidates can overflow int32 where
+    no candidate's own count can."""
+    dev = rows.device
+    starts = starts.to(device=dev, dtype=torch.int64)
+    t = starts.shape[0] - 1
+    n = rows.shape[0]
+    per_row = popcount_words(
+        rows & q_words[row_col.to(device=dev, dtype=torch.int64)])
+    seg = torch.searchsorted(starts[1:], torch.arange(n, device=dev),
+                             right=True)
+    inter = torch.zeros(t, dtype=torch.int64, device=dev).index_add_(
+        0, seg, per_row.to(torch.int64)).to(torch.int32)
+    score = similarity_scores(inter, q_card, cards, metric)
+    if 0 <= exclude < t:
+        score[exclude] = -1.0
+    return score, inter
+
+
+def topk_select(score: torch.Tensor, inter: torch.Tensor, k: int
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The select stage: k rounds of (max, lowest index of the max), the
+    winner masked with -2.0 -- the order of a stable descending sort.
+    score: (T,) float32, never NaN; inter: (T,) int32; 1 <= k <= T.
+    Returns (idx (k,) int32, score (k,) float32, inter (k,) int32)."""
+    if not 1 <= k <= score.shape[0]:
+        raise ValueError(f"k={k} outside [1, {score.shape[0]}]")
+    work = score.clone()
+    picks = []
+    for _ in range(k):
+        j = torch.argmax(work)              # the first maximum wins
+        picks.append(j)
+        work[j] = -2.0
+    idx = torch.stack(picks)
+    return idx.to(torch.int32), score[idx], inter[idx].to(torch.int32)
+
+
+def similarity_topk(rows: torch.Tensor, row_col: torch.Tensor,
+                    starts: torch.Tensor, q_words: torch.Tensor, q_card,
+                    cards: torch.Tensor, exclude: int = -1, *,
+                    metric: str, k: int
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Score then select: (idx (k,) int32, score (k,) float32, inter (k,)
+    int32), best first, ties to the lowest candidate index."""
+    score, inter = similarity_score(rows, row_col, starts, q_words, q_card,
+                                    cards, exclude, metric=metric)
+    return topk_select(score, inter, k)

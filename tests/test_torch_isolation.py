@@ -6,7 +6,7 @@
 * a quiet fall back to the CPU where the caller asked for the card (the
   default): here, with no GPU, the defaults must raise;
 * a caught kernel-launch or build failure: every ``except`` in the kernel
-  wrapper and the build module must end in ``raise``.
+  wrappers and the build module must end in ``raise``.
 """
 
 import ast
@@ -43,6 +43,7 @@ def _imports(path):
 
 def test_package_files_exist():
     assert (PKG / "kernels" / "csrc" / "segment_reduce.cu").is_file()
+    assert (PKG / "kernels" / "csrc" / "similarity_topk.cu").is_file()
     assert len(FILES) > 10 and all(f.is_file() for f in FILES)
 
 
@@ -84,8 +85,13 @@ def _no_gpu():
 def test_defaults_raise_without_gpu():
     _no_gpu()
     from repro_torch.core import BitmapArena, RoaringBitmap, aggregate
+    from repro_torch.core.pairwise import SimilarityEngine
     from repro_torch.data.index import InvertedIndex
     bms = [RoaringBitmap.from_values(np.arange(i, 70000, 3)) for i in (0, 1)]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SimilarityEngine(bms)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InvertedIndex.from_postings({"a": bms[0], "b": bms[1]}, 70000)
     with pytest.raises(RuntimeError, match="CUDA"):
         BitmapArena()
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -141,7 +147,45 @@ def test_failed_nvcc_raises(monkeypatch, tmp_path):
     assert not list((tmp_path / "build").glob("*.so"))
 
 
+def test_server_and_similar_run_on_the_index_device():
+    """Without a GPU no index can default to the card; one made on the CPU
+    serves there, and its server plans every boolean ticket for the
+    index's device."""
+    from repro_torch.core import RoaringBitmap
+    from repro_torch.data.index import InvertedIndex
+    from repro_torch.serve import Query, QueryServer
+    ix = InvertedIndex.from_postings(
+        {"a": RoaringBitmap.from_values(np.arange(0, 70000, 3)),
+         "b": RoaringBitmap.from_values(np.arange(1, 70000, 2))}, 70000,
+        device="cpu")
+    assert ix._sim_engine()[1].device == torch.device("cpu")
+    srv = QueryServer(ix)
+    t = srv.submit(Query.and_("a", "b"))
+    assert t._plan.device == torch.device("cpu")
+    srv.run_until_idle()
+    assert t.result.ok and srv.stats().host_fallbacks == 0
+
+
+def test_similarity_kernel_route_does_not_fall_back_to_cpu():
+    from repro_torch.kernels import ops, topk_ops
+    rows = torch.zeros((2, 2048), dtype=torch.int32, device="meta")
+    i32 = dict(dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        topk_ops.similarity_score(rows, torch.zeros(2, **i32),
+                                  torch.zeros(2, **i32), rows, 1,
+                                  torch.zeros(1, **i32), metric="jaccard")
+    with pytest.raises(ValueError, match="CUDA"):
+        topk_ops.topk_select(torch.zeros(4, device="meta"),
+                             torch.zeros(4, **i32), 2)
+    cpu = torch.zeros((2, 2048), dtype=torch.int32)
+    z = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="cuda"):
+        ops.similarity_topk(cpu, z, z, cpu, 1, z[:1], metric="jaccard",
+                            k=1, backend="cuda")
+
+
 @pytest.mark.parametrize("name", ["kernels/segment_ops.py",
+                                  "kernels/topk_ops.py",
                                   "kernels/_build.py", "kernels/ops.py"])
 def test_every_except_reraises(name):
     tree = ast.parse((PKG / name).read_text())
