@@ -22,6 +22,15 @@ toolkit (``nvcc``).  Phases, each timed:
    scores with many ties.  Indices, intersections and float32 score bits
    must be equal; the select must also equal ``torch.sort`` (stable),
    whose time is printed beside the kernel's.
+2c. The pair kernels against their plain versions: the bitset pair op
+   and count, the array x bitset probe, the array pair masks and count,
+   at the path's shapes (M = 256, one merge of two terms; M = 8,192, a
+   count batch) and at edge cases (M = 0 and 1; cards 0, 1 and 4,096;
+   identical, disjoint and half-overlapping arrays; the values 0 and
+   65535; op ids -1 and 7; all-zero and all-ones words).  Words, masks
+   and counts must be bit-equal; device times of kernel, plain version
+   and library yardstick (``torch.searchsorted`` for the array kernels)
+   and the bound are printed.
 3. Boolean queries at real scale: an ``InvertedIndex`` over 2^24 documents
    and 1,024 terms on a ``BitmapArena`` on the card (64 dense bitset
    terms, 960 sparse array terms), 64 queries of each boolean class run
@@ -44,9 +53,18 @@ toolkit (``nvcc``).  Phases, each timed:
    ``dispatch_raise`` retries once, a ``slab_mismatch`` after one postings
    edit repatches only that row, and ``dispatch_raise`` always degrades
    every ticket to the host, flagged, with the same answers.
+6. The two-by-two algebra on the same index: ``& | ^ -`` on 16 term
+   pairs of each pairing (dense x dense, dense x sparse, sparse x dense,
+   sparse x sparse) and 4 self-pairs, ``InvertedIndex.count_and`` and
+   ``jaccard`` on the same pairs, a mixed-op
+   ``RoaringBitmap.pairwise_card`` over 128 pairs and a ``jaccard_matrix``
+   of 16 terms, each equal to the packed numpy oracle (Jaccard to the
+   float64 bit); p50 / p99 per op and pairing, and from profiler
+   windows over second calls the idle share, device busy time and the
+   bytes the copies move for each merge, count and count batch.
 
-Launch counts are set to 0 just before each of phases 3, 4 and 5 and read
-just after it; a kernel that a phase's path runs and that launched no time
+Launch counts are set to 0 just before each of phases 3, 4, 5 and 6 and
+read just after it; a kernel that a phase's path runs and that launched no time
 there fails the script.  Then one JSON line with every kernel's numbers,
 and the last line ``{"ok": true, "device": {...}}``.
 
@@ -80,7 +98,13 @@ CLASSES = ("and", "or", "xor", "andnot", "threshold", "threshold_w")
 OPS = (("or", None), ("and", None), ("xor", None), ("andnot", None),
        ("threshold", "per_segment"), ("threshold", "weights"))
 SOURCES = ("slab", "ids", "dual")
-SOURCES_CU = ("segment_reduce", "similarity_topk")   # csrc/<name>.cu
+SOURCES_CU = ("segment_reduce", "similarity_topk", "pair_ops",
+              "array_ops")                           # csrc/<name>.cu
+PAIR_OPS = ("and", "or", "xor", "andnot")
+PAIRINGS = ("dense x dense", "dense x sparse", "sparse x dense",
+            "sparse x sparse")
+PAIR_KERNELS = ("bitset_pair_op", "bitset_pair_card", "array_bitset_probe",
+                "array_pair_masks", "array_intersect_card")
 METRICS = ("jaccard", "cosine", "containment")
 SIM_T = 1024                  # candidates at the main path: the terms
 
@@ -91,9 +115,15 @@ def log(msg: str) -> None:
 
 def _reset_counts() -> None:
     """Set every kernel wrapper's launch counts to 0."""
-    from repro_torch.kernels import segment_ops, topk_ops
-    segment_ops.reset_launches()
-    topk_ops.reset_launches()
+    from repro_torch.kernels import array_ops, pair_ops, segment_ops, topk_ops
+    for mod in (segment_ops, topk_ops, pair_ops, array_ops):
+        mod.reset_launches()
+
+
+def _pair_counts() -> dict:
+    """Launches of each pair kernel since the last reset."""
+    from repro_torch.kernels import array_ops, pair_ops
+    return {**pair_ops.launches_by_kernel, **array_ops.launches_by_kernel}
 
 
 # ---------------------------------------------------------------------------
@@ -178,20 +208,109 @@ def _time_ms(fn, reps):
     return out, start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, reps):
-    """Mean device ms of ``fn`` over ``reps`` runs after one warm-up: the
-    sum of the card's event durations in a profiler window, per run.
-    Unlike CUDA events around a loop, it leaves out the host's time
-    between launches, which is most of it for a kernel of microseconds."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
+_LAUNCHES = ("Memcpy", "Memset", "LaunchKernel")    # runtime calls
+_PAIR_KERNEL_NAMES = ("pair_kernel", "probe_kernel")
+
+
+def _trace_window(fn, dev, names=(), lead=64):
+    """Run ``fn`` once in a profiler window and read the exported trace.
+
+    Late in a long process the profiler can leave a window's earliest
+    device events out of its trace (10 to 17 of them in phases 3-6 of this
+    script on an H100 80GB HBM3 with PyTorch 2.11, whatever the window's
+    length), so the window starts with ``lead`` one-element adds,
+    synchronizes, and only then runs ``fn`` inside a ``record_function``
+    range.  Of the runtime calls
+    made in that range that queue device work (a copy, set or launch),
+    the window is ``complete`` when every one has its device event.  From
+    those events: device-busy microseconds (kernels, copies, sets), the
+    time of the kernels whose names contain one of ``names`` (in all and
+    per name) and the bytes the copies moved up and down; ``lead_kept``
+    says how many lead adds kept theirs."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+        x = torch.zeros(1, device=dev)
+        for _ in range(lead):
+            x.add_(1)
+        torch.cuda.synchronize(dev)
+        with record_function("chip_smoke.measured"):
+            t = time.perf_counter()
             fn()
-        torch.cuda.synchronize()
-    return _device_busy_us(prof, ())[0] / reps / 1e3
+            torch.cuda.synchronize(dev)
+            wall_us = (time.perf_counter() - t) * 1e6
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text()).get("traceEvents", [])
+    span = next(((e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("cat") == "user_annotation"
+                 and e.get("name") == "chip_smoke.measured"), (0.0, 0.0))
+    calls, lead_calls, work = {}, {}, {}
+    for e in events:
+        cat, name = e.get("cat", ""), e.get("name", "")
+        corr = e.get("args", {}).get("correlation")
+        if cat == "cuda_runtime" and any(k in name for k in _LAUNCHES):
+            inside = span[0] <= e["ts"] <= span[1]
+            (calls if inside else lead_calls)[corr] = e
+        elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            work[corr] = e
+    mine = [work[c] for c in calls if c in work]
+    out = dict(wall_us=wall_us, lead=lead, busy_us=0.0, kernel_us=0.0,
+               name_us={n: 0.0 for n in names}, h2d_bytes=0, d2h_bytes=0,
+               device_events=len(mine), runtime_calls=len(calls),
+               lead_kept=sum(c in work for c in lead_calls))
+    for e in mine:
+        name, dur = e.get("name", ""), float(e.get("dur", 0.0))
+        out["busy_us"] += dur
+        hit = [n for n in names if n in name] if e["cat"] == "kernel" else []
+        for n in hit:
+            out["name_us"][n] += dur
+        if hit:
+            out["kernel_us"] += dur
+        nbytes = int(e.get("args", {}).get("bytes", 0))
+        if "HtoD" in name:
+            out["h2d_bytes"] += nbytes
+        elif "DtoH" in name:
+            out["d2h_bytes"] += nbytes
+    out["complete"] = bool(calls) and len(mine) == len(calls)
+    out["idle_share"] = (1.0 - out["busy_us"] / wall_us
+                         if out["complete"] else None)
+    return out
+
+
+def _traced(label, fn, dev, names=()):
+    """:func:`_trace_window` of a second call, with 64, then 256, then
+    1,024 lead adds until a window is complete.  The first complete window
+    is kept; every incomplete one is logged and kept in the report."""
+    tries = []
+    for lead in (64, 256, 1024):
+        tr = _trace_window(fn, dev, names, lead)
+        if tr["complete"]:
+            break
+        tries.append(tr)
+        log(f"  {label}: profiler window with {lead} lead adds (kept "
+            f"{tr['lead_kept']}) kept {tr['device_events']} of "
+            f"{tr['runtime_calls']} device events of the measured calls")
+    return dict(tr, incomplete_windows=tries)
+
+
+def _device_ms(fn, reps):
+    """Mean device ms of ``fn`` over ``reps`` runs after one warm-up: the
+    sum of the card's event durations in a complete profiler window, per
+    run.  Unlike CUDA events around a loop, it leaves out the host's time
+    between launches, which is most of it for a kernel of microseconds.
+    When no window kept every device event, the CUDA-event mean, logged."""
+    fn()
+    torch.cuda.synchronize()
+    tr = _traced("device time", lambda: [fn() for _ in range(reps)],
+                 torch.device("cuda"))
+    if tr["complete"]:
+        return tr["busy_us"] / reps / 1e3
+    log("  device time: no complete profiler window; CUDA events instead")
+    return _time_ms(fn, reps)[1]
 
 
 def _bound(src, op, tmode, x, planes):
@@ -439,6 +558,223 @@ def phase_topk_kernels(dev, seed, failures):
 
 
 # ---------------------------------------------------------------------------
+# phase 2c: the pair kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _sorted_rows(rng, cards, lo=0, hi=1 << 16):
+    """(M, 4096) int32: row r holds cards[r] sorted distinct values in
+    [lo, hi), zeros after them (the planner's padding)."""
+    vals = np.zeros((len(cards), 4096), np.int32)
+    for r, c in enumerate(cards):
+        vals[r, :c] = np.sort(rng.choice(np.arange(lo, hi), c,
+                                         replace=False))
+    return vals
+
+
+def _sparse_rows(rng, m, mean=64):
+    """Rows as the path gives them at 0.1% density: about ``mean`` sorted
+    distinct values per row (random gaps), zeros after the card."""
+    gaps = rng.integers(1, 2 * (65536 // mean), (m, 4096))
+    vals = np.cumsum(gaps, axis=1) - 1
+    cards = (vals < 65536).sum(axis=1).astype(np.int32)
+    vals = np.where(vals < 65536, vals, 0).astype(np.int32)
+    return vals, cards
+
+
+def _pair_inputs(m, seed):
+    """Main-path-shaped inputs of every pair kernel at M rows: random
+    words with op ids cycling through 0, 1, 2, 3, -1 and 7; sparse array
+    rows; B rows holding every other value of their A row plus as many
+    of their own (a 50% overlap)."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 1 << 32, (m, 2048), dtype=np.uint32)
+    b = rng.integers(0, 1 << 32, (m, 2048), dtype=np.uint32)
+    ids = np.resize(np.array([0, 1, 2, 3, -1, 7], np.int32), m)
+    av, ac = _sparse_rows(rng, m)
+    own, oc = _sparse_rows(rng, m)
+    bv = np.zeros_like(av)
+    bc = np.zeros(m, np.int32)
+    for r in range(m):
+        v = np.union1d(av[r, :ac[r]:2], own[r, :oc[r] // 2])[:4096]
+        bv[r, :v.size] = v
+        bc[r] = v.size
+    return dict(a=a, b=b, ids=ids, av=av, ac=ac, bv=bv, bc=bc)
+
+
+def _pair_edges(m):
+    """Edge rows: op ids 0..3, -1 and 7 over all-zero, all-ones and
+    identical words; cards 0, 1 and 4096, identical arrays, disjoint value
+    ranges, a 50% overlap and the values 0 and 65535."""
+    rng = np.random.default_rng(m + 99)
+    a = rng.integers(0, 1 << 32, (m, 2048), dtype=np.uint32)
+    b = rng.integers(0, 1 << 32, (m, 2048), dtype=np.uint32)
+    ids = np.resize(np.array([0, 1, 2, 3, -1, 7, 3, 0], np.int32), m)
+    ac = np.resize(np.array([0, 1, 4096, 3000, 900, 1000, 4096, 2]), m)
+    bc = np.resize(np.array([5, 1, 1, 3000, 800, 1000, 4096, 3]), m)
+    av = _sorted_rows(rng, ac)
+    bv = _sorted_rows(rng, bc)
+    for r in range(m):
+        kind = r % 8
+        if kind == 1:
+            a[r], b[r] = 0, 0xFFFFFFFF
+            bv[r, 0] = av[r, 0]
+        elif kind == 2:
+            a[r] = b[r] = 0xFFFFFFFF
+            bv[r, 0] = av[r, 17]
+        elif kind == 3:
+            b[r] = a[r]
+            bv[r] = av[r]
+        elif kind == 4:
+            av[r, :900] = _sorted_rows(rng, [900], 0, 30000)[0, :900]
+            bv[r, :800] = _sorted_rows(rng, [800], 30000, 65536)[0, :800]
+        elif kind == 5:
+            c = np.sort(rng.choice(65536, 1500, replace=False))
+            av[r, :1000] = np.sort(c[:1000])
+            bv[r, :1000] = np.sort(c[500:])
+        elif kind == 7:
+            av[r, :2] = [0, 65535]
+            bv[r, :3] = [0, 7, 65535]
+    return dict(a=a, b=b, ids=ids, av=av, ac=ac.astype(np.int32), bv=bv,
+                bc=bc.astype(np.int32))
+
+
+def _to_card(x, dev):
+    return {k: torch.from_numpy(np.ascontiguousarray(v).view(np.int32)
+                                if v.dtype == np.uint32 else
+                                np.ascontiguousarray(v, np.int32)).to(dev)
+            for k, v in x.items()}
+
+
+def _searchsorted_hits(sorted_rows, probes):
+    """The library yardstick of rows 13 and 14: a batched
+    torch.searchsorted of one side into the other, then the equality
+    test (sentinel-padded rows made outside the timing)."""
+    idx = torch.searchsorted(sorted_rows, probes).clamp_(max=4095)
+    return torch.gather(sorted_rows, 1, idx) == probes
+
+
+def _pair_calls(t):
+    """(name, plain call, kernel call, library call or None) per kernel."""
+    from repro_torch.kernels import array_ops, pair_ops, ref
+    a, b, ids = t["a"], t["b"], t["ids"]
+    arr = (t["av"], t["ac"], t["bv"], t["bc"])
+    pos = torch.arange(4096, device=a.device)
+    pa = torch.where(pos < t["ac"][:, None], t["av"], 65536)
+    pb = torch.where(pos < t["bc"][:, None], t["bv"], 65537)
+    return [
+        # rows 9-11: no PyTorch call computes a popcount or a bit test at
+        # gathered positions, so there is no library yardstick
+        ("bitset_pair_op", lambda: ref.bitset_pair_op(a, b, ids),
+         lambda: pair_ops.bitset_pair_op(a, b, ids), None),
+        ("bitset_pair_card", lambda: ref.bitset_pair_card(a, b, ids),
+         lambda: pair_ops.bitset_pair_card(a, b, ids), None),
+        ("array_bitset_probe",
+         lambda: ref.array_bitset_probe(t["av"], t["ac"], a),
+         lambda: pair_ops.array_bitset_probe(t["av"], t["ac"], a), None),
+        ("array_pair_masks", lambda: ref.array_pair_masks(*arr),
+         lambda: array_ops.array_pair_masks(*arr),
+         lambda: (_searchsorted_hits(pb, pa), _searchsorted_hits(pa, pb))),
+        ("array_intersect_card", lambda: ref.array_intersect_count(*arr),
+         lambda: array_ops.array_intersect_card(*arr),
+         lambda: _searchsorted_hits(pb, pa)),
+    ]
+
+
+def _probe_sectors(vals, cards):
+    """Distinct 32-byte sectors of the word row (256 values each) that
+    the first ``cards[r]`` sorted values of each row fall in."""
+    sec = vals.astype(np.int64) >> 8
+    valid = np.arange(vals.shape[1]) < cards[:, None]
+    change = (sec[:, 1:] != sec[:, :-1]) & valid[:, 1:]
+    return (cards > 0).astype(np.int64) + change.sum(axis=1)
+
+
+def _pair_bound(name, x):
+    """Least time, in ms, and what bounds it.  Bytes: every input read
+    once -- of an array row only its values below the card, of the
+    probe's word row only the 32-byte sectors those values fall in (the
+    kernel itself stages the whole 8 KiB row) -- and every output written
+    once.  Operations: a logical op and a popcount per word for the
+    bitset rows, a load, shift and test per probed value, about
+    log2(card) compares per searched value."""
+    m = len(x["ids"])
+    ac, bc = x["ac"].astype(np.int64), x["bc"].astype(np.int64)
+    vals = 4 * int(ac.sum() + bc.sum())
+    search = float((ac * np.log2(bc + 2)).sum())
+    if name == "bitset_pair_op":
+        nbytes, ops = m * (16384 + 4 + 8192 + 4), m * 2048 * 2
+    elif name == "bitset_pair_card":
+        nbytes, ops = m * (16384 + 4 + 4), m * 2048 * 2
+    elif name == "array_bitset_probe":
+        words = 32 * int(_probe_sectors(x["av"], ac).sum())
+        nbytes = m * (4 + 16384 + 4) + 4 * int(ac.sum()) + words
+        ops = 3 * int(ac.sum())
+    elif name == "array_pair_masks":
+        nbytes = m * (8 + 32768 + 4) + vals
+        ops = search + float((bc * np.log2(ac + 2)).sum())
+    else:
+        nbytes, ops = m * (8 + 4) + vals, search
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_pair_kernels(dev, seed, failures):
+    """The five pair kernels against their plain versions: at the path's
+    shapes (M = 256, one merge of two terms at 2^24 documents; M = 8,192,
+    a count batch) and at edge cases (M = 0, 1 and 8).  Words, masks and
+    counts must be bit-equal.  Kernel, plain and library times are device
+    times from the profiler (a launch at M = 256 takes microseconds),
+    with CUDA-event times beside them."""
+    cases, max_err = [], {name: 0 for name in PAIR_KERNELS}
+    shapes = [("main", 256), ("main", 8192), ("edge", 0), ("edge", 1),
+              ("edge", 8)]
+    for kind, m in shapes:
+        x = _pair_inputs(m, seed + m) if kind == "main" else _pair_edges(m)
+        t = _to_card(x, dev)
+        for name, plain, kern, lib in _pair_calls(t):
+            want = plain()
+            got = kern()
+            torch.cuda.synchronize()
+            want = want if isinstance(want, tuple) else (want,)
+            got = got if isinstance(got, tuple) else (got,)
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            for g, w in zip(got, want):
+                if g.numel():
+                    max_err[name] = max(max_err[name], int(
+                        (g.to(torch.int64) - w).abs().max()))
+            case = f"{kind}/M={m}/{name}"
+            if not same:
+                failures.append(f"kernel != plain: {case}")
+            row = dict(case=case, kernel=name, rows=m, equal=same)
+            if kind == "main":
+                bound_ms, bound_by = _pair_bound(name, x)
+                row.update(
+                    ms=_device_ms(kern, 20),
+                    plain_ms=_device_ms(plain, 3),
+                    library_ms=_device_ms(lib, 10) if lib else None,
+                    event_ms=_time_ms(kern, 20)[1],
+                    event_plain_ms=_time_ms(plain, 3)[1],
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    mean_a_card=float(x["ac"].mean()),
+                    mean_b_card=float(x["bc"].mean()))
+                lib_txt = (f"{row['library_ms']:.4f}" if lib else
+                           "null (no PyTorch call)")
+                log(f"  {case:34s} equal={same} device: kernel "
+                    f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+                    f"library {lib_txt}; events: kernel "
+                    f"{row['event_ms']:.4f} ms; bound {bound_ms:.4f} ms "
+                    f"({bound_by})")
+            cases.append(row)
+        del t
+        torch.cuda.empty_cache()
+    edges = [c for c in cases if c["case"].startswith("edge")]
+    log(f"  {len(edges)} edge cases: {sum(c['equal'] for c in edges)} "
+        f"equal; launches so far {_pair_counts()}")
+    return cases, max_err
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path at real scale
 # ---------------------------------------------------------------------------
 
@@ -593,24 +929,10 @@ def _plan(index, cls, q):
                                arena=index.arena)
 
 
-def _device_busy_us(prof, names):
-    """Sum of device-side event durations (kernels and copies), and of the
-    kernels whose names contain one of ``names``, in microseconds."""
-    busy = kern = 0.0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            d = e.time_range.elapsed_us()
-            busy += d
-            if any(n in e.name for n in names):
-                kern += d
-    return busy, kern
-
-
 def phase_main_path(dev, seed, failures):
     from repro_torch.core import BitmapArena, RoaringBitmap, aggregate
     from repro_torch.data.index import InvertedIndex
     from repro_torch.kernels import segment_ops as so
-    from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
     postings, sets, df = build_corpus(dev, seed)
@@ -663,16 +985,12 @@ def phase_main_path(dev, seed, failures):
         wrong_c = sum(not np.array_equal(_to_packed(g), w)
                       for g, w in zip(outs, answers[cls]))
         # device busy share over a window of single queries
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            for q in traffic[cls][:16]:
-                _run_query(index, cls, q)
-            torch.cuda.synchronize(dev)
-            wall_us = (time.perf_counter() - t) * 1e6
-        busy_us, kern_us = _device_busy_us(
-            prof, ("reduce_kernel", "threshold_kernel"))
-        idle = 1.0 - busy_us / wall_us if busy_us > 0 else None
+        tr = _traced(cls, lambda: [_run_query(index, cls, q)
+                                   for q in traffic[cls][:16]], dev,
+                     ("reduce_kernel", "threshold_kernel"))
+        busy_us, kern_us, wall_us = (tr["busy_us"], tr["kernel_us"],
+                                     tr["wall_us"])
+        idle = tr["idle_share"]
         classes[cls] = dict(
             queries=len(lat), p50_ms=float(np.percentile(lat, 50)),
             p99_ms=float(np.percentile(lat, 99)), launched=launched,
@@ -838,7 +1156,6 @@ def sim_traffic(seed, terms):
 def phase_similarity(dev, index, sets, seed, failures):
     from repro_torch.kernels import segment_ops as so
     from repro_torch.kernels import topk_ops as tk
-    from torch.profiler import ProfilerActivity, profile
 
     terms = list(index.postings)
     t0 = time.perf_counter()
@@ -881,16 +1198,11 @@ def phase_similarity(dev, index, sets, seed, failures):
     classes = {}
     for metric in METRICS:
         qs = [(t, k) for t, k, m in traffic if m == metric and k == 10][:16]
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            for term, k in qs:
-                index.similar(term, k, metric)
-            torch.cuda.synchronize(dev)
-            wall_us = (time.perf_counter() - t) * 1e6
-        busy, kern = _device_busy_us(prof, ("score_kernel",
-                                            "select_kernel"))
-        sel = _device_busy_us(prof, ("select_kernel",))[1]
+        tr = _traced(metric, lambda: [index.similar(term, k, metric)
+                                      for term, k in qs], dev,
+                     ("score_kernel", "select_kernel"))
+        busy, kern, wall_us = tr["busy_us"], tr["kernel_us"], tr["wall_us"]
+        sel = tr["name_us"]["select_kernel"]
         for k in (10, 100):
             ls = lat.get((metric, k), [])
             classes[f"{metric}/k={k}"] = dict(
@@ -899,7 +1211,7 @@ def phase_similarity(dev, index, sets, seed, failures):
         classes[f"{metric}/k=10"].update(
             profiled_queries=len(qs), device_busy_us=busy, kernel_us=kern,
             score_us=kern - sel, select_us=sel, wall_us=wall_us,
-            idle_share=1.0 - busy / wall_us if busy > 0 else None)
+            idle_share=tr["idle_share"])
         c = classes[f"{metric}/k=10"]
         log(f"  {metric:12s} k=10 p50 {c['p50_ms']:.3f} ms  p99 "
             f"{c['p99_ms']:.3f} ms; k=100 p50 "
@@ -1118,6 +1430,224 @@ def phase_server_faults(dev, postings, sets, seed, failures, chunks=16,
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the two-by-two algebra on the main path
+# ---------------------------------------------------------------------------
+
+def pair_traffic(seed, per_pairing=16, batch_per_pairing=32):
+    """Term pairs of each pairing (distinct terms), 2 dense and 2 sparse
+    self-pairs, a separate draw of ``batch_per_pairing`` pairs per pairing
+    for the mixed-op count batch, and 16 terms (4 dense, 12 sparse) for
+    the Jaccard matrix."""
+    rng = np.random.default_rng(seed + 7)
+    tiers = {"dense": [f"d{i}" for i in range(N_DENSE)],
+             "sparse": [f"s{i}" for i in range(N_SPARSE)]}
+
+    def draw(pairing, n):
+        ta, tb = (tiers[t] for t in pairing.split(" x "))
+        out = []
+        while len(out) < n:
+            x, y = str(rng.choice(ta)), str(rng.choice(tb))
+            if x != y:
+                out.append((x, y))
+        return out
+
+    merges = {p: draw(p, per_pairing) for p in PAIRINGS}
+    merges["self"] = [(t, t) for t in list(rng.choice(tiers["dense"], 2,
+                                                      replace=False))
+                      + list(rng.choice(tiers["sparse"], 2,
+                                        replace=False))]
+    batch = [pq for p in PAIRINGS for pq in draw(p, batch_per_pairing)]
+    order = rng.permutation(len(batch))
+    batch = [batch[i] for i in order]
+    ops = [PAIR_OPS[i % 4] for i in range(len(batch))]
+    matrix = [str(t) for t in rng.choice(tiers["dense"], 4, replace=False)]
+    matrix += [str(t) for t in rng.choice(tiers["sparse"], 12,
+                                          replace=False)]
+    return merges, (ops, batch), matrix
+
+
+_NP_PAIR = {"and": lambda x, y: x & y, "or": lambda x, y: x | y,
+            "xor": lambda x, y: x ^ y, "andnot": lambda x, y: x & ~y}
+_OPERATOR = {"and": lambda x, y: x & y, "or": lambda x, y: x | y,
+             "xor": lambda x, y: x ^ y, "andnot": lambda x, y: x - y}
+
+
+def _popc(w):
+    return int(np.bitwise_count(w).sum())
+
+
+def _jaccard64(inter, ca, cb):
+    union = ca + cb - inter
+    return inter / union if union else 1.0
+
+
+def phase_pairwise(dev, index, sets, seed, failures):
+    """``& | ^ -`` on term pairs of every pairing and self-pairs, then
+    ``count_and`` / ``jaccard``, a mixed-op ``pairwise_card`` batch and a
+    ``jaccard_matrix``, each against the packed numpy oracle.  Device busy
+    time and copy bytes come from profiler windows over second calls."""
+    from repro_torch.core import RoaringBitmap
+
+    merges, (batch_ops, batch), matrix = pair_traffic(seed)
+    oracle = Oracle(sets)
+    bm = index._get
+    pairs = [pq for ps in merges.values() for pq in ps]
+
+    _reset_counts()                         # the pair path starts here
+    lat, wrong = {}, 0
+    for op in PAIR_OPS:
+        for pairing, pq in merges.items():
+            for x, y in pq:
+                t = time.perf_counter()
+                got = _OPERATOR[op](bm(x), bm(y))
+                torch.cuda.synchronize(dev)
+                lat.setdefault((op, pairing), []).append(
+                    (time.perf_counter() - t) * 1e3)
+                want = _NP_PAIR[op](oracle.words(x), oracle.words(y))
+                wrong += not np.array_equal(_to_packed(got), want)
+    merge_info = {f"{op}/{pairing}": dict(
+        merges=len(ls), p50_ms=float(np.percentile(ls, 50)),
+        p99_ms=float(np.percentile(ls, 99)))
+        for (op, pairing), ls in lat.items()}
+    for op in PAIR_OPS:
+        log(f"  {op:7s} " + "  ".join(
+            f"{p.split(' x ')[0][0]}x{p.split(' x ')[1][0]} p50 "
+            f"{merge_info[f'{op}/{p}']['p50_ms']:.2f} p99 "
+            f"{merge_info[f'{op}/{p}']['p99_ms']:.2f}"
+            for p in PAIRINGS) + " ms")
+
+    # counts: count_and and jaccard on the same pairs, one at a time
+    c_lat, j_lat, wrong_c = [], [], 0
+    for x, y in pairs:
+        wx, wy = oracle.words(x), oracle.words(y)
+        inter = _popc(wx & wy)
+        t = time.perf_counter()
+        got = index.count_and(x, y)
+        c_lat.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        jac = index.jaccard(x, y)
+        j_lat.append((time.perf_counter() - t) * 1e3)
+        want = _jaccard64(inter, _popc(wx), _popc(wy))
+        wrong_c += got != inter
+        wrong_c += np.float64(jac).tobytes() != np.float64(want).tobytes()
+
+    # one mixed-op count batch over 128 pairs
+    batch_pairs = [(bm(x), bm(y)) for x, y in batch]
+    t = time.perf_counter()
+    got = RoaringBitmap.pairwise_card(batch_ops, batch_pairs)
+    batch_ms = (time.perf_counter() - t) * 1e3
+    want = np.array([_popc(_NP_PAIR[o](oracle.words(x), oracle.words(y)))
+                     for o, (x, y) in zip(batch_ops, batch)])
+    wrong_b = int((got != want).sum())
+
+    # the all-pairs Jaccard matrix over 16 terms
+    matrix_bms = [bm(x) for x in matrix]
+    t = time.perf_counter()
+    jm = RoaringBitmap.jaccard_matrix(matrix_bms)
+    matrix_ms = (time.perf_counter() - t) * 1e3
+    ws = [oracle.words(x) for x in matrix]
+    cards = np.array([_popc(w) for w in ws], np.float64)
+    n = len(matrix)
+    inter = np.ones((n, n))
+    for i in range(n):
+        for j in range(n):
+            inter[i, j] = _popc(ws[i] & ws[j])
+    union = cards[:, None] + cards[None, :] - inter
+    want_jm = np.divide(inter, union, out=np.ones_like(inter),
+                        where=union > 0)
+    np.fill_diagonal(want_jm, 1.0)
+    wrong_m = int((jm.view(np.int64) != want_jm.view(np.int64)).sum())
+
+    # profiler windows over second calls: 4 merges per op and pairing,
+    # count_and over the first 4 pairs of each pairing, the batch, the
+    # matrix; busy time and copy bytes as the trace records them
+    for op in PAIR_OPS:
+        busy = wall = kern = 0.0
+        complete = True
+        for pairing in PAIRINGS:
+            window = merges[pairing][:4]
+            tr = _traced(f"{op} {pairing}", lambda: [
+                _OPERATOR[op](bm(x), bm(y)) for x, y in window], dev,
+                _PAIR_KERNEL_NAMES)
+            merge_info[f"{op}/{pairing}"].update(
+                h2d_bytes=tr["h2d_bytes"] / len(window),
+                d2h_bytes=tr["d2h_bytes"] / len(window),
+                device_busy_us=tr["busy_us"] / len(window),
+                kernel_us=tr["kernel_us"] / len(window),
+                device_events=tr["device_events"], complete=tr["complete"])
+            busy, wall, kern = (busy + tr["busy_us"], wall + tr["wall_us"],
+                                kern + tr["kernel_us"])
+            complete = complete and tr["complete"]
+        m = 4 * len(PAIRINGS)
+        merge_info[f"{op}/profiled"] = dict(
+            merges=m, device_busy_us=busy, kernel_us=kern, wall_us=wall,
+            complete=complete,
+            idle_share=1.0 - busy / wall if complete else None)
+        idle = merge_info[f"{op}/profiled"]["idle_share"]
+        log(f"  {op:7s} idle share "
+            + (f"{idle:.4f}" if idle is not None else "not measured")
+            + f" over {m} merges; kernels {kern / m:.1f} us, device busy "
+            f"{busy / m:.1f} us per merge; bytes up / down per merge "
+            + "  ".join(
+                f"{p.split(' x ')[0][0]}x{p.split(' x ')[1][0]} "
+                f"{merge_info[f'{op}/{p}']['h2d_bytes']:.0f} / "
+                f"{merge_info[f'{op}/{p}']['d2h_bytes']:.0f}"
+                for p in PAIRINGS))
+    window = [pq for p in PAIRINGS for pq in merges[p][:4]]
+    count_tr = _traced("count_and", lambda: [
+        index.count_and(x, y) for x, y in window], dev, _PAIR_KERNEL_NAMES)
+    count_tr["calls"] = len(window)
+    batch_tr = _traced("pairwise_card", lambda: RoaringBitmap.pairwise_card(
+        batch_ops, batch_pairs), dev, _PAIR_KERNEL_NAMES)
+    matrix_tr = _traced("jaccard_matrix", lambda: RoaringBitmap.jaccard_matrix(
+        matrix_bms), dev, _PAIR_KERNEL_NAMES)
+    launches = _pair_counts()               # the pair path ends here
+
+    info = dict(
+        merges=merge_info, merges_run=sum(len(v) for v in lat.values()),
+        wrong_merges=wrong,
+        counts=dict(pairs=len(pairs), wrong=wrong_c,
+                    count_and_p50_ms=float(np.percentile(c_lat, 50)),
+                    count_and_p99_ms=float(np.percentile(c_lat, 99)),
+                    jaccard_p50_ms=float(np.percentile(j_lat, 50)),
+                    jaccard_p99_ms=float(np.percentile(j_lat, 99)),
+                    profiled=count_tr),
+        pairwise_card=dict(pairs=len(batch), wrong=wrong_b, ms=batch_ms,
+                           profiled=batch_tr),
+        jaccard_matrix=dict(terms=n, wrong=wrong_m, ms=matrix_ms,
+                            profiled=matrix_tr),
+        launches=launches)
+
+    def traced(tr):
+        idle = tr["idle_share"]
+        return (f"idle share "
+                + (f"{idle:.4f}" if idle is not None else "not measured")
+                + f", device busy {tr['busy_us']:.1f} us "
+                f"({tr['device_events']} of {tr['runtime_calls']} device "
+                f"events), "
+                f"{tr['h2d_bytes']} bytes up, {tr['d2h_bytes']} down")
+
+    log(f"  {info['merges_run']} merges, wrong {wrong}; count_and p50 "
+        f"{info['counts']['count_and_p50_ms']:.2f} ms, jaccard p50 "
+        f"{info['counts']['jaccard_p50_ms']:.2f} ms over {len(pairs)} "
+        f"pairs, wrong {wrong_c}; {len(window)} count_and calls: "
+        + traced(count_tr))
+    log(f"  pairwise_card: {len(batch)} mixed-op pairs in {batch_ms:.1f} "
+        f"ms, wrong {wrong_b}; second call: " + traced(batch_tr))
+    log(f"  jaccard_matrix: {n} terms in {matrix_ms:.1f} ms, wrong "
+        f"{wrong_m}; second call: " + traced(matrix_tr))
+    log(f"  launches {launches}")
+    if wrong or wrong_c or wrong_b or wrong_m:
+        failures.append(f"pairwise: {wrong} merges, {wrong_c} counts, "
+                        f"{wrong_b} batch counts and {wrong_m} matrix "
+                        f"entries differ from the oracle")
+    missing = [k for k in PAIR_KERNELS if launches[k] == 0]
+    if missing:
+        failures.append(f"pairwise: kernels never launched: {missing}")
+    return info
+
+
+# ---------------------------------------------------------------------------
 
 def _build_all():
     """Build every kernel source at once, one nvcc each, in parallel.
@@ -1146,7 +1676,8 @@ def _build_all():
     return out
 
 
-def _kernel_line(main_path, sim, cases, topk_cases, max_err, topk_err):
+def _kernel_line(main_path, sim, cases, topk_cases, max_err, topk_err,
+                 pair_cases, pair_err, pairwise):
     rep = next(c for c in cases if c["case"] == "main/ids/or")
     score = next(c for c in topk_cases
                  if c["case"] == "score/main/jaccard/exclude=-1")
@@ -1176,7 +1707,22 @@ def _kernel_line(main_path, sim, cases, topk_cases, max_err, topk_err):
             "src/repro/kernels/topk_ops.py:166", sim["launches"]["select"],
             topk_err, dict(select, ms=select["device_ms"],
                            plain_ms=select["device_plain_ms"],
-                           library_ms=select["device_library_ms"]))]}
+                           library_ms=select["device_library_ms"])),
+    ] + [
+        # the pair kernels at M = 8,192 rows (a count batch), device times
+        # from the profiler; library_ms: torch.searchsorted of one side
+        # into the other and the equality test for the array kernels, none
+        # for the bitset ones (PyTorch has no popcount) or the probe
+        row(name, source, f"src/repro/kernels/{site}",
+            pairwise["launches"][name], pair_err[name],
+            next(c for c in pair_cases
+                 if c["case"] == f"main/M=8192/{name}"))
+        for name, source, site in (
+            ("bitset_pair_op", "pair_ops.cu", "pair_ops.py:90"),
+            ("bitset_pair_card", "pair_ops.cu", "pair_ops.py:118"),
+            ("array_bitset_probe", "pair_ops.cu", "pair_ops.py:169"),
+            ("array_pair_masks", "array_ops.cu", "array_ops.py:161"),
+            ("array_intersect_card", "array_ops.cu", "array_ops.py:216"))]}
 
 
 def main() -> int:
@@ -1217,24 +1763,35 @@ def main() -> int:
         "2b (score and select against plain)", phase_topk_kernels, dev,
         args.seed, failures)
     log(f"  {len(topk_cases)} cases, max_abs_err {topk_err}")
+    pair_cases, pair_err = phase("2c (pair kernels against plain)",
+                                 phase_pair_kernels, dev, args.seed,
+                                 failures)
+    log(f"  {len(pair_cases)} cases, max_abs_err {pair_err}")
     main_path, ctx = phase("3 (boolean queries at real scale)",
                            phase_main_path, dev, args.seed, failures)
+    main_path["pair_launches"] = _pair_counts()
     sim, sim_cases = phase("4 (similarity at real scale)",
                            phase_similarity, dev, ctx["index"],
                            ctx["sets"], args.seed, failures)
+    sim["pair_launches"] = _pair_counts()
     server = phase("5 (query server)", phase_server, dev, ctx["index"],
                    ctx["traffic"], ctx["answers"], sim_cases, failures)
     server["faults"] = phase("5 (query server under scripted faults)",
                              phase_server_faults, dev, ctx["postings"],
                              ctx["sets"], args.seed, failures)
+    server["pair_launches"] = _pair_counts()
+    pairwise = phase("6 (two-by-two algebra at real scale)",
+                     phase_pairwise, dev, ctx["index"], ctx["sets"],
+                     args.seed, failures)
 
     kernels = _kernel_line(main_path, sim, cases, topk_cases, max_err,
-                           topk_err)
+                           topk_err, pair_cases, pair_err, pairwise)
     REPORT.parent.mkdir(exist_ok=True)
     REPORT.write_text(json.dumps(dict(
         card=card, builds=builds, kernel_cases=cases,
         topk_cases=topk_cases, topk_inputs=topk_info, main_path=main_path,
-        similarity=sim, server=server, kernels=kernels["kernels"],
+        similarity=sim, server=server, pair_cases=pair_cases,
+        pairwise=pairwise, kernels=kernels["kernels"],
         phases_s=phases, failures=failures,
         total_s=time.perf_counter() - t_all), indent=1, default=str))
     log(f"total {time.perf_counter() - t_all:.1f} s")

@@ -3,10 +3,11 @@
 A Roaring bitmap is a sorted list of 16-bit keys (the high half of each
 present 32-bit value) paired with containers holding the low halves
 (paper section 1, Fig. 1).  This is the port's copy of the JAX package's
-``RoaringBitmap``: construction, membership, point updates, the wide
-aggregates (through ``repro_torch.core.aggregate``), run optimization,
-memory accounting and rank/select.  The two-by-two algebra, the count-only
-and similarity methods and serialization are not ported yet.
+``RoaringBitmap``: construction, membership, point updates, the two-by-two
+algebra with its fast counts and similarity joins (through
+``repro_torch.core.pairwise``), the wide aggregates (through
+``repro_torch.core.aggregate``), run optimization, memory accounting and
+rank/select.  Serialization is not ported yet.
 
 The top level is scalar python (as in CRoaring the top level is scalar C);
 all heavy lifting happens inside the vectorized container layer.
@@ -221,6 +222,110 @@ class RoaringBitmap:
         if self.containers[i].card == 0:
             del self.keys[i]
             del self.containers[i]
+
+    # ------------------------------------------------------------------
+    # two-by-two set algebra (key-merge at the top, paper layout), through
+    # the type-grouped pair planner (repro_torch.core.pairwise): matched
+    # container pairs bucket by class (bitset x bitset, array x array,
+    # array x bitset) and each class is ONE kernel launch; small pairs stay
+    # on the scalar key-merge (paper sections 4.2-4.5).  The operators run
+    # on the card ("cuda"; they raise without a GPU); the named methods
+    # take ``device=``.
+    # ------------------------------------------------------------------
+
+    def _merge(self, other: "RoaringBitmap", op: str, *,
+               device=None) -> "RoaringBitmap":
+        from repro_torch.core import pairwise
+        return pairwise.merge_one(self, other, op, device=device)
+
+    def __and__(self, other):
+        return self._merge(other, "and")
+
+    def __or__(self, other):
+        return self._merge(other, "or")
+
+    def __xor__(self, other):
+        return self._merge(other, "xor")
+
+    def __sub__(self, other):
+        return self._merge(other, "andnot")
+
+    def andnot(self, other, *, device=None):
+        return self._merge(other, "andnot", device=device)
+
+    # ------------------------------------------------------------------
+    # count-only ("fast count", paper section 5.9) and similarity
+    # ------------------------------------------------------------------
+
+    def and_card(self, other: "RoaringBitmap", *, device=None) -> int:
+        """Intersection cardinality without materializing the result
+        (paper section 5.9), planned as a batch of one pair: at most one
+        kernel launch per container-type class (tiny pairs stay on the
+        scalar host merge).  ``device``: where it runs, "cuda" by
+        default."""
+        from repro_torch.core import pairwise
+        return int(pairwise.pairwise_card("and", [(self, other)],
+                                          device=device)[0])
+
+    def or_card(self, other, *, device=None) -> int:
+        return (self.cardinality + other.cardinality
+                - self.and_card(other, device=device))
+
+    def andnot_card(self, other, *, device=None) -> int:
+        return self.cardinality - self.and_card(other, device=device)
+
+    def xor_card(self, other, *, device=None) -> int:
+        return (self.cardinality + other.cardinality
+                - 2 * self.and_card(other, device=device))
+
+    def jaccard(self, other, *, device=None) -> float:
+        inter = self.and_card(other, device=device)
+        union = self.cardinality + other.cardinality - inter
+        return inter / union if union else 1.0
+
+    def cosine(self, other, *, device=None) -> float:
+        inter = self.and_card(other, device=device)
+        denom = (self.cardinality * other.cardinality) ** 0.5
+        return inter / denom if denom else 1.0
+
+    def intersects(self, other, *, device=None) -> bool:
+        return self.and_card(other, device=device) > 0
+
+    # ------------------------------------------------------------------
+    # batched pairwise engine (similarity joins: "Compressed bitmap
+    # indexes: beyond unions and intersections", Kaser & Lemire)
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def pairwise_card(ops, pairs, *, backend=None,
+                      device=None) -> np.ndarray:
+        """Count-only set algebra over M bitmap pairs in O(container-type
+        classes) launches (not O(pairs)).
+
+        Args: ``ops`` is one of "and" | "or" | "xor" | "andnot" or a
+        length-M sequence of per-pair op names; ``pairs`` is a sequence
+        of ``(RoaringBitmap, RoaringBitmap)``; ``backend`` forces the
+        kernel launches ("cuda") or their plain versions ("ref") where the
+        default on the CPU takes the numpy host twins; ``device`` where it
+        runs, "cuda" by default.
+
+        Returns (M,) int64 counts, each derived from the pair's AND
+        cardinality by inclusion-exclusion (paper section 5.9)."""
+        from repro_torch.core import pairwise
+        return pairwise.pairwise_card(ops, pairs, backend=backend,
+                                      device=device)
+
+    @staticmethod
+    def jaccard_matrix(bitmaps, *, backend=None,
+                       device=None) -> np.ndarray:
+        """(N, N) float64 Jaccard similarity matrix: the all-pairs
+        similarity join, batched class-wise over all N*(N-1)/2 pairs
+        (diagonal is 1.0; empty-vs-empty scores 1.0 by convention).  For
+        top-k neighbour queries use ``core.pairwise.SimilarityEngine``,
+        which never materializes the full matrix."""
+        from repro_torch.core import pairwise
+        return pairwise.jaccard_matrix(bitmaps, backend=backend,
+                                       device=device)
 
     # ------------------------------------------------------------------
     # wide aggregates (paper section 5.8: roaring_bitmap_or_many), routed

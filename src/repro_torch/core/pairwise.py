@@ -1,16 +1,40 @@
-"""Top-k similarity against a fixed candidate set: the similarity half of
-the JAX package's ``core/pairwise.py`` (its ``SimilarityEngine``).
+"""Batched pairwise set algebra and top-k similarity: the port of the JAX
+package's ``core/pairwise.py`` on one device.
 
-"Compressed bitmap indexes: beyond unions and intersections" (Kaser &
-Lemire) derives jaccard, cosine and containment from the AND cardinality
-alone; the paper's fast-count argument (section 5.9) keeps the AND and the
-popcount in registers.  Here the scores do not leave the card either: a
-query is one score launch and one select launch
-(``kernels/topk_ops.py``), and only k results come back.
+Two-by-two algebra (the paper's central contribution, sections 4.2-4.5,
+and its fast counts, section 5.9).  Given one ``a ⊕ b`` (:func:`merge_one`)
+or M pairs at once (:func:`pairwise_card`, :func:`jaccard_matrix`: the
+similarity join of "Compressed bitmap indexes: beyond unions and
+intersections", Kaser & Lemire), the planner key-merges every pair,
+buckets the matched container pairs by type class and launches ONE kernel
+per class instead of one per pair:
 
-The two-by-two merge and count planner of the JAX module
-(``pairwise_card``, ``jaccard_matrix``, ``merge_one``) is not ported yet,
-nor its sharded top-k (``mesh=``).
+  * **bitset x bitset**: stacked ``(M, WORDS)`` word rows through
+    ``kernels.pair_ops.bitset_pair_op`` -- an op id per row, fused with
+    the popcount (count-only twin ``bitset_pair_card`` for the counts);
+  * **array x array**: padded ``(M, ARRAY_CAP)`` value rows through
+    ``kernels.array_ops`` -- two-sided masks for the materializing ops,
+    the count alone for the counts;
+  * **array x bitset**: each array value probes its bitset row
+    (``kernels.pair_ops.array_bitset_probe``) for AND and an array-minuend
+    ANDNOT; OR, XOR and a bitset-minuend ANDNOT promote the array side to
+    the bitset domain on the host and ride the bitset class;
+  * **run containers** stay on the host interval sweeps (section 2.3).
+
+Every count derives from the pair's intersection cardinality by
+inclusion-exclusion, so the count planner only ever runs AND.  A pair of
+at most ``SMALL_PAIR`` keys in all stays on the scalar host merge, as on a
+TPU.  On the CPU with no forced backend each class runs a vectorized numpy
+twin instead (an inverted token join for array x array, a per-key grouped
+probe for array x bitset, a blocked popcount for bitset x bitset), exactly
+the JAX package's host twins; ``backend="cuda"`` or ``"ref"`` forces the
+class launches.  Every route gives the same containers and counts.
+
+Similarity (:class:`SimilarityEngine`): the scores do not leave the card
+either -- a query is one score launch and one select launch
+(``kernels/topk_ops.py``) and only k results come back.
+
+The sharded top-k of the JAX module (``mesh=``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -19,11 +43,575 @@ import numpy as np
 import torch
 
 from repro_torch.core import containers as C
+from repro_torch.core.containers import (
+    ArrayContainer, BitsetContainer, Container, RunContainer,
+    container_from_values, positions_to_bitset,
+)
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ref import METRICS, WORDS
+from repro_torch.kernels.ref import ARRAY_CAP, METRICS, PAIR_OPS, WORDS
 
-__all__ = ["METRICS", "SimilarityEngine"]
+__all__ = ["pairwise_card", "jaccard_matrix", "merge_one", "OP_IDS",
+           "METRICS", "SimilarityEngine"]
 
+OP_IDS = {o: i for i, o in enumerate(PAIR_OPS)}   # the kernels' row op ids
+
+# below this many total keys a single pair stays on the scalar host merge:
+# the class bookkeeping costs more than a handful of container ops
+SMALL_PAIR = 16
+
+_HOST_BLOCK = 8192      # bitset rows per host block (8 kB each -> <= 64 MB)
+_KCODE = {ArrayContainer: 1, BitsetContainer: 2, RunContainer: 3}
+
+
+def _bitmap_cls():
+    from repro_torch.core.bitmap import RoaringBitmap  # bitmap imports us
+    return RoaringBitmap
+
+
+def _words32(w64: np.ndarray) -> np.ndarray:
+    return w64.view(np.uint32)
+
+
+def _result_words(w32_row: np.ndarray, card: int) -> Container:
+    # .copy(): a view would pin the whole (M, WORDS) batch output alive
+    # for the lifetime of one surviving container
+    w64 = np.ascontiguousarray(w32_row).view(np.uint64).copy()
+    return C._result_from_bitset(w64, card)
+
+
+def _to_dev(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host int32 (or uint32, reinterpreted) array on ``dev``."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a).to(dev)
+
+
+def _host_mask(t: torch.Tensor) -> np.ndarray:
+    """A kernel's 0/1 int32 mask as a host bool array (narrowed on its
+    device first, so a quarter of the bytes cross)."""
+    return t.to(torch.bool).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# scalar host twins (kept for small pairs)
+# ---------------------------------------------------------------------------
+
+def _merge_host(a, b, op: str):
+    """Scalar key-merge (the paper's top-level layout): one container op
+    per matched key.  Small pairs stay here; large pairs batch by class."""
+    fn = C.OPS[op][0]
+    keys, conts = [], []
+    i = j = 0
+    a_keys, b_keys = a.keys, b.keys
+    na, nb = len(a_keys), len(b_keys)
+    while i < na and j < nb:
+        ka, kb = a_keys[i], b_keys[j]
+        if ka == kb:
+            c = fn(a.containers[i], b.containers[j])
+            if c.card:
+                keys.append(ka)
+                conts.append(c)
+            i += 1
+            j += 1
+        elif ka < kb:
+            if op in ("or", "xor", "andnot"):
+                keys.append(ka)
+                conts.append(a.containers[i])
+            i += 1
+        else:
+            if op in ("or", "xor"):
+                keys.append(kb)
+                conts.append(b.containers[j])
+            j += 1
+    if op in ("or", "xor", "andnot"):
+        while i < na:
+            keys.append(a_keys[i])
+            conts.append(a.containers[i])
+            i += 1
+    if op in ("or", "xor"):
+        while j < nb:
+            keys.append(b_keys[j])
+            conts.append(b.containers[j])
+            j += 1
+    return _bitmap_cls()(keys, conts)
+
+
+def _and_card_host(a, b) -> int:
+    """Scalar fast-count twin (paper section 5.9) for small pairs."""
+    cnt = 0
+    i = j = 0
+    while i < len(a.keys) and j < len(b.keys):
+        ka, kb = a.keys[i], b.keys[j]
+        if ka == kb:
+            cnt += C.container_and_card(a.containers[i], b.containers[j])
+            i += 1
+            j += 1
+        elif ka < kb:
+            i += 1
+        else:
+            j += 1
+    return cnt
+
+
+# ---------------------------------------------------------------------------
+# materializing two-by-two merge (one pair, class-batched)
+# ---------------------------------------------------------------------------
+
+def merge_one(a, b, op: str, *, backend: str | None = None, device=None):
+    """``a ⊕ b`` through the type-grouped pair planner: matched container
+    pairs bucket by class and each class is one kernel launch; unmatched
+    keys pass through zero-copy exactly like the scalar merge.
+
+    ``device``: where the launches run, "cuda" by default (raises when no
+    GPU is present).  ``backend`` as in ``kernels.ops``.  On the CPU with
+    no forced backend, and for a pair of at most ``SMALL_PAIR`` keys, the
+    scalar host merge answers: numpy already vectorizes each container op,
+    so there is no launch overhead for class batching to amortize."""
+    dev = kops.resolve_device(device)
+    if op not in OP_IDS:
+        raise ValueError(op)
+    na, nb = len(a.keys), len(b.keys)
+    if na + nb <= SMALL_PAIR or not kops.prefer_kernel(backend, dev):
+        return _merge_host(a, b, op)
+    fn = C.OPS[op][0]
+    ka = np.asarray(a.keys, np.int64)
+    kb = np.asarray(b.keys, np.int64)
+    common, ia, ib = np.intersect1d(ka, kb, assume_unique=True,
+                                    return_indices=True)
+    out: dict[int, Container] = {}
+    if op in ("or", "xor", "andnot"):
+        for i in np.setdiff1d(np.arange(na), ia,
+                              assume_unique=True).tolist():
+            out[a.keys[i]] = a.containers[i]
+    if op in ("or", "xor"):
+        for j in np.setdiff1d(np.arange(nb), ib,
+                              assume_unique=True).tolist():
+            out[b.keys[j]] = b.containers[j]
+
+    aa: list[tuple[int, np.ndarray, np.ndarray]] = []
+    probe: list[tuple[int, np.ndarray, np.ndarray, bool]] = []
+    bb: list[tuple[int, np.ndarray, np.ndarray]] = []
+    for k, i, j in zip(common.tolist(), ia.tolist(), ib.tolist()):
+        ca, cb = a.containers[i], b.containers[j]
+        xa = isinstance(ca, ArrayContainer)
+        xb = isinstance(cb, ArrayContainer)
+        if xa and xb:
+            aa.append((int(k), ca.values, cb.values))
+            continue
+        if isinstance(ca, RunContainer) or isinstance(cb, RunContainer):
+            c = fn(ca, cb)               # run fast paths stay on host
+            if c.card:
+                out[int(k)] = c
+        elif xa or xb:
+            if op == "and":
+                arr, bs = (ca, cb) if xa else (cb, ca)   # AND commutes
+                probe.append((int(k), arr.values, bs.words, False))
+            elif op == "andnot" and xa:
+                probe.append((int(k), ca.values, cb.words, True))
+            else:
+                # or / xor / bitset-minuend andnot: promote the array side
+                # to the bitset domain and ride the bitset class
+                wa = positions_to_bitset(ca.values) if xa else ca.words
+                wb = positions_to_bitset(cb.values) if xb else cb.words
+                bb.append((int(k), wa, wb))
+        else:
+            bb.append((int(k), ca.words, cb.words))
+    _merge_aa(out, aa, op, backend, dev)
+    _merge_probe(out, probe, backend, dev)
+    _merge_bb(out, bb, op, backend, dev)
+    keys = sorted(out)
+    return _bitmap_cls()(keys, [out[k] for k in keys])
+
+
+def _assemble_aa(x: np.ndarray, y: np.ndarray, ha: np.ndarray,
+                 hb: np.ndarray, op: str) -> np.ndarray:
+    """Result values of one array-array pair from the two-sided masks."""
+    if op == "and":
+        return x[ha]
+    if op == "andnot":
+        return x[~ha]
+    if op == "or":
+        return np.sort(np.concatenate((x, y[~hb])))
+    return np.sort(np.concatenate((x[~ha], y[~hb])))          # xor
+
+
+def _array_rows(arrays) -> tuple[np.ndarray, np.ndarray]:
+    """(M, ARRAY_CAP) int32 value rows (zero past each card) and (M,)
+    int32 cards of uint16 value arrays."""
+    vals = np.zeros((len(arrays), ARRAY_CAP), np.int32)
+    cards = np.zeros(len(arrays), np.int32)
+    for r, v in enumerate(arrays):
+        vals[r, :v.size] = v
+        cards[r] = v.size
+    return vals, cards
+
+
+def _merge_aa(out: dict, entries: list, op: str, backend, dev) -> None:
+    """array x array class: ONE two-sided-mask launch feeds all ops."""
+    if not entries:
+        return
+    av, ac = _array_rows([x for _, x, _ in entries])
+    bv, bc = _array_rows([y for _, _, y in entries])
+    ma, mb, _ = kops.array_pair_masks(
+        _to_dev(av, dev), _to_dev(ac, dev), _to_dev(bv, dev),
+        _to_dev(bc, dev), backend=backend)
+    ma = _host_mask(ma)
+    mb = _host_mask(mb)
+    for r, (k, x, y) in enumerate(entries):
+        vals = _assemble_aa(x, y, ma[r, :x.size], mb[r, :y.size], op)
+        if vals.size:
+            out[k] = container_from_values(vals)
+
+
+def _mask_in(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """Membership of sorted ``x`` in sorted ``y`` (vectorized probe)."""
+    if y.size == 0:
+        return np.zeros(x.size, bool)
+    idx = np.searchsorted(y, x)
+    idx[idx == y.size] = y.size - 1
+    return y[idx] == x
+
+
+def _merge_probe(out: dict, entries: list, backend, dev) -> None:
+    """array x bitset class (AND / array-minuend ANDNOT): one probe
+    launch; ``invert`` keeps the misses instead of the hits."""
+    if not entries:
+        return
+    vals, cards = _array_rows([v for _, v, _, _ in entries])
+    words = np.stack([_words32(w) for _, _, w, _ in entries])
+    mask, _ = kops.array_bitset_probe(
+        _to_dev(vals, dev), _to_dev(cards, dev), _to_dev(words, dev),
+        backend=backend)
+    mask = _host_mask(mask)
+    for r, (k, v, _, inv) in enumerate(entries):
+        hit = mask[r, :v.size]
+        kept = v[~hit] if inv else v[hit]
+        if kept.size:
+            out[k] = ArrayContainer(kept)
+
+
+def _merge_bb(out: dict, entries: list, op: str, backend, dev) -> None:
+    """bitset x bitset class: one stacked-words launch, op id per row."""
+    if not entries:
+        return
+    a32 = np.stack([_words32(wa) for _, wa, _ in entries])
+    b32 = np.stack([_words32(wb) for _, _, wb in entries])
+    opids = np.full(len(entries), OP_IDS[op], np.int32)
+    w, cards = kops.bitset_pair_op(_to_dev(a32, dev), _to_dev(b32, dev),
+                                   opids, backend=backend)
+    w = w.cpu().numpy()
+    cards = cards.cpu().numpy()
+    for r, (k, _, _) in enumerate(entries):
+        if cards[r]:
+            out[k] = _result_words(w[r], int(cards[r]))
+
+
+# ---------------------------------------------------------------------------
+# count-only batch (M pairs, one launch per class)
+# ---------------------------------------------------------------------------
+
+def pairwise_card(ops, pairs, *, backend: str | None = None,
+                  device=None) -> np.ndarray:
+    """Batched count-only pairwise set algebra over M bitmap pairs.
+
+    ``ops`` is one op name ("and" | "or" | "xor" | "andnot") or a length-M
+    sequence of per-pair names; ``pairs`` is a sequence of
+    ``(RoaringBitmap, RoaringBitmap)``; ``device`` and ``backend`` as for
+    :func:`merge_one`.  Returns (M,) int64 counts.
+
+    Every count derives from the pair's intersection cardinality by
+    inclusion-exclusion (paper section 5.9), so the batched engine only
+    ever runs AND over the matched container pairs -- O(container-type
+    classes) launches regardless of M."""
+    dev = kops.resolve_device(device)
+    pairs = list(pairs)
+    m = len(pairs)
+    if isinstance(ops, str):
+        op_list = [ops] * m
+    else:
+        op_list = [str(o) for o in ops]
+        if len(op_list) != m:
+            raise ValueError(
+                f"need one op per pair: {len(op_list)} != {m}")
+    for o in op_list:
+        if o not in OP_IDS:
+            raise ValueError(o)
+    if m == 0:
+        return np.zeros(0, np.int64)
+    uniq, ia, ib = _dedupe(pairs)
+    if m == 1 and len(pairs[0][0].keys) + len(pairs[0][1].keys) \
+            <= SMALL_PAIR:
+        inter = np.array([_and_card_host(*pairs[0])], np.int64)
+    else:
+        inter = _inter_counts(uniq, ia, ib, backend, dev)
+    cards = np.array([bm.cardinality for bm in uniq], np.int64)
+    ca, cb = cards[ia], cards[ib]
+    opv = np.array([OP_IDS[o] for o in op_list], np.int64)
+    return np.where(opv == 0, inter,
+                    np.where(opv == 1, ca + cb - inter,
+                             np.where(opv == 2, ca + cb - 2 * inter,
+                                      ca - inter)))
+
+
+def _dedupe(pairs):
+    """Unique bitmap objects + per-pair indices into the unique list."""
+    seen: dict[int, int] = {}
+    uniq = []
+    for a, b in pairs:
+        for bmp in (a, b):
+            if id(bmp) not in seen:
+                seen[id(bmp)] = len(uniq)
+                uniq.append(bmp)
+    ia = np.array([seen[id(a)] for a, _ in pairs], np.int64)
+    ib = np.array([seen[id(b)] for _, b in pairs], np.int64)
+    return uniq, ia, ib
+
+
+def _tables(bitmaps):
+    """Per-(bitmap, chunk-key) kind codes and container indices."""
+    all_keys = sorted({k for bm in bitmaps for k in bm.keys})
+    kidx = {k: i for i, k in enumerate(all_keys)}
+    n, nk = len(bitmaps), len(all_keys)
+    kind = np.zeros((n, nk), np.int8)
+    cidx = np.zeros((n, nk), np.int32)
+    for i, bm in enumerate(bitmaps):
+        for j, (k, c) in enumerate(zip(bm.keys, bm.containers)):
+            col = kidx[k]
+            kind[i, col] = _KCODE[type(c)]
+            cidx[i, col] = j
+    return kind, cidx
+
+
+def _inter_counts(uniq, ia, ib, backend, dev) -> np.ndarray:
+    """(M,) intersection cardinalities: vectorized key matching over a
+    presence table, then one batched AND-count launch per class.
+
+    The host twins exploit the all-pairs structure: a container shared by
+    many pairs enters the computation ONCE (an inverted token join for
+    array x array, a per-key grouped probe for array x bitset), so the
+    work scales with total postings, not postings-times-pairs."""
+    m = ia.size
+    kind, cidx = _tables(uniq)
+    if kind.shape[1] == 0:
+        return np.zeros(m, np.int64)
+    kind_a, kind_b = kind[ia], kind[ib]
+    pe, ke = np.nonzero((kind_a > 0) & (kind_b > 0))
+    if pe.size == 0:
+        return np.zeros(m, np.int64)
+    ja, jb = ia[pe], ib[pe]
+    ka, kb = kind[ja, ke], kind[jb, ke]
+    conts_a = [uniq[i].containers[cidx[i, k]]
+               for i, k in zip(ja.tolist(), ke.tolist())]
+    conts_b = [uniq[i].containers[cidx[i, k]]
+               for i, k in zip(jb.tolist(), ke.tolist())]
+    counts = np.zeros(pe.size, np.int64)
+
+    is_run = (ka == 3) | (kb == 3)
+    is_aa = (ka == 1) & (kb == 1)
+    is_bb = (ka == 2) & (kb == 2)
+    is_ab = ~(is_run | is_aa | is_bb)
+
+    for e in np.flatnonzero(is_run).tolist():      # run fast paths: host
+        counts[e] = C.container_and_card(conts_a[e], conts_b[e])
+
+    idx = np.flatnonzero(is_aa)
+    if idx.size:
+        counts[idx] = _aa_counts(ke[idx],
+                                 [conts_a[e] for e in idx.tolist()],
+                                 [conts_b[e] for e in idx.tolist()],
+                                 backend, dev)
+    idx = np.flatnonzero(is_ab)
+    if idx.size:
+        arrs, sets = [], []
+        for e in idx.tolist():
+            x, y = conts_a[e], conts_b[e]
+            if not isinstance(x, ArrayContainer):
+                x, y = y, x
+            arrs.append(x)
+            sets.append(y)
+        counts[idx] = _ab_counts(ke[idx], arrs, sets, backend, dev)
+    idx = np.flatnonzero(is_bb)
+    if idx.size:
+        counts[idx] = _bb_counts([conts_a[e] for e in idx.tolist()],
+                                 [conts_b[e] for e in idx.tolist()],
+                                 backend, dev)
+    inter = np.zeros(m, np.int64)
+    np.add.at(inter, pe, counts)
+    return inter
+
+
+def _aa_counts(keys_e, xs, ys, backend, dev) -> np.ndarray:
+    """array x array intersection counts.
+
+    Kernel route: padded value rows, one count-only launch.  Host route:
+    an inverted token join -- every unique container's values enter ONE
+    key-prefixed token stream; tokens shared by g containers emit
+    g*(g-1)/2 co-occurrence pairs (one vectorized pass per rank offset),
+    accumulating a container-pair count matrix that all entries read off.
+    Work scales with total postings, never postings x pairs."""
+    n = len(xs)
+    if kops.prefer_kernel(backend, dev):
+        av, ac = _array_rows([x.values for x in xs])
+        bv, bc = _array_rows([y.values for y in ys])
+        return kops.array_intersect_card(
+            _to_dev(av, dev), _to_dev(ac, dev), _to_dev(bv, dev),
+            _to_dev(bc, dev), backend=backend).cpu().numpy().astype(
+                np.int64)
+    # unique containers; token = key << 16 | value, so containers of
+    # different chunk keys never collide
+    uid: dict[int, int] = {}
+    pool: list[np.ndarray] = []
+    ua = np.empty(n, np.int64)
+    ub = np.empty(n, np.int64)
+    for r, (k, x, y) in enumerate(zip(keys_e.tolist(), xs, ys)):
+        for side, c in ((ua, x), (ub, y)):
+            u = uid.get(id(c))
+            if u is None:
+                u = uid[id(c)] = len(pool)
+                pool.append(c.values.astype(np.int64)
+                            + (np.int64(k) << 16))
+            side[r] = u
+    nu = len(pool)
+    if nu > 4096:
+        # the co-occurrence matrix would be nu^2: fall back to the
+        # replicated per-entry membership probe (still one bulk op)
+        return _aa_counts_probe(keys_e, xs, ys)
+    lens = np.array([v.size for v in pool], np.int64)
+    tokens = np.concatenate(pool)
+    owner = np.repeat(np.arange(nu, dtype=np.int64), lens)
+    comb = tokens * nu + owner                # value-major, owner-minor
+    comb.sort()
+    val_of = comb // nu
+    own_of = comb % nu
+    g = np.zeros((nu, nu), np.int32)
+    d = 1
+    while d < comb.size:
+        same = val_of[d:] == val_of[:-d]
+        if not same.any():
+            break
+        np.add.at(g, (own_of[:-d][same], own_of[d:][same]), 1)
+        d += 1
+    res = (g[ua, ub] + g[ub, ua]).astype(np.int64)
+    self_pair = ua == ub             # a container against itself: |values|
+    if self_pair.any():
+        res[self_pair] = lens[ua[self_pair]]
+    return res
+
+
+def _aa_counts_probe(keys_e, xs, ys) -> np.ndarray:
+    """Replicated-entry fallback: offset-concatenate both sides (entry id
+    in the high bits keeps entries apart in one sort order) and count
+    matches of A's stream in B's with a single vectorized probe."""
+    n = len(xs)
+    lens_a = np.array([x.values.size for x in xs], np.int64)
+    lens_b = np.array([y.values.size for y in ys], np.int64)
+    eids = np.arange(n, dtype=np.int64) << 16
+    a_all = np.concatenate([x.values for x in xs]).astype(np.int64) \
+        + np.repeat(eids, lens_a)
+    b_all = np.concatenate([y.values for y in ys]).astype(np.int64) \
+        + np.repeat(eids, lens_b)
+    hit = _mask_in(a_all, b_all)
+    eid_a = np.repeat(np.arange(n), lens_a)
+    return np.bincount(eid_a[hit], minlength=n).astype(np.int64)
+
+
+def _ab_counts(keys_e, arrs, sets, backend, dev) -> np.ndarray:
+    """array x bitset probe counts.
+
+    Kernel route: one batched probe launch.  Host route: per chunk key,
+    every unique array's values probe ALL of that key's unique bitsets at
+    once (word gather + bit test, segment-summed per array), so each
+    value is touched once per bitset instead of once per pair."""
+    n = len(arrs)
+    if kops.prefer_kernel(backend, dev):
+        vals, cards = _array_rows([x.values for x in arrs])
+        words = np.stack([_words32(y.words) for y in sets])
+        _, cnt = kops.array_bitset_probe(
+            _to_dev(vals, dev), _to_dev(cards, dev), _to_dev(words, dev),
+            backend=backend)
+        return cnt.cpu().numpy().astype(np.int64)
+    out = np.zeros(n, np.int64)
+    order = np.argsort(keys_e, kind="stable")
+    bounds = np.flatnonzero(np.concatenate(
+        ([True], np.diff(keys_e[order]) != 0, [True])))
+    for s, e in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
+        ent = order[s:e]                      # entries of one chunk key
+        aid: dict[int, int] = {}
+        bid: dict[int, int] = {}
+        a_list: list[np.ndarray] = []
+        b_list: list[np.ndarray] = []
+        ea = np.empty(ent.size, np.int64)
+        eb = np.empty(ent.size, np.int64)
+        for r, i in enumerate(ent.tolist()):
+            u = aid.get(id(arrs[i]))
+            if u is None:
+                u = aid[id(arrs[i])] = len(a_list)
+                a_list.append(arrs[i].values)
+            ea[r] = u
+            u = bid.get(id(sets[i]))
+            if u is None:
+                u = bid[id(sets[i])] = len(b_list)
+                b_list.append(sets[i].words)
+            eb[r] = u
+        lens = np.array([v.size for v in a_list], np.int64)
+        vals = np.concatenate(a_list).astype(np.int64)
+        stack = np.stack(b_list)              # (nb, 1024) uint64
+        bits = ((stack[:, vals >> 6]
+                 >> (vals & 63).astype(np.uint64)) & np.uint64(1))
+        starts = np.concatenate(([0], np.cumsum(lens)[:-1]))
+        seg = np.add.reduceat(bits, starts, axis=1)   # (nb, na)
+        out[ent] = seg[eb, ea]
+    return out
+
+
+def _bb_counts(xs, ys, backend, dev) -> np.ndarray:
+    """bitset x bitset AND-popcount counts, one launch."""
+    n = len(xs)
+    if kops.prefer_kernel(backend, dev):
+        a32 = np.stack([_words32(x.words) for x in xs])
+        b32 = np.stack([_words32(y.words) for y in ys])
+        return kops.bitset_pair_card(
+            _to_dev(a32, dev), _to_dev(b32, dev), np.zeros(n, np.int32),
+            backend=backend).cpu().numpy().astype(np.int64)
+    out = np.zeros(n, np.int64)
+    for lo in range(0, n, _HOST_BLOCK):
+        hi = min(lo + _HOST_BLOCK, n)
+        a64 = np.stack([x.words for x in xs[lo:hi]])
+        b64 = np.stack([y.words for y in ys[lo:hi]])
+        out[lo:hi] = np.bitwise_count(a64 & b64).sum(axis=1)
+    return out
+
+
+def jaccard_matrix(bitmaps, *, backend: str | None = None,
+                   device=None) -> np.ndarray:
+    """(N, N) float64 Jaccard similarity matrix over N bitmaps: the
+    all-pairs similarity join, planned as one batched AND-count launch per
+    container-type class over all N*(N-1)/2 pairs (not one per pair).
+    The diagonal is 1.0, and so is an empty pair."""
+    dev = kops.resolve_device(device)
+    bitmaps = list(bitmaps)
+    n = len(bitmaps)
+    out = np.ones((n, n), np.float64)
+    if n < 2:
+        return out
+    iu, ju = np.triu_indices(n, k=1)
+    pairs = [(bitmaps[i], bitmaps[j]) for i, j in zip(iu.tolist(),
+                                                      ju.tolist())]
+    inter = pairwise_card("and", pairs, backend=backend,
+                          device=dev).astype(np.float64)
+    cards = np.array([bm.cardinality for bm in bitmaps], np.float64)
+    union = cards[iu] + cards[ju] - inter
+    sim = np.divide(inter, union, out=np.ones_like(inter),
+                    where=union > 0)
+    out[iu, ju] = sim
+    out[ju, iu] = sim
+    return out
+
+
+# ---------------------------------------------------------------------------
+# top-k similarity engine
+# ---------------------------------------------------------------------------
 
 def _scores_host(inter, q_card, cards, metric: str) -> np.ndarray:
     """Numpy version of ``kernels.ref.similarity_scores``: float32 in the

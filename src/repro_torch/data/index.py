@@ -1,8 +1,7 @@
 """A small inverted index on Roaring bitmaps -- the paper's motivating
 application (section 1: "inverted indexes map query terms to document
-identifiers").  The boolean and similarity query surface of the JAX
-package's ``data/index.py``; ``count_and``, ``jaccard`` and ``load_index``
-are not ported yet.
+identifiers").  The boolean, count and similarity query surface of the JAX
+package's ``data/index.py``; ``load_index`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -19,7 +18,9 @@ class InvertedIndex:
 
     Every boolean query (``query_and`` .. ``query_andnot``) plans through
     ``repro_torch.core.aggregate``: one segmented-kernel launch per query,
-    whatever the number of terms.  ``similar`` runs on a cached
+    whatever the number of terms.  ``count_and`` and ``jaccard`` run the
+    pair count planner (``core.pairwise``): one launch per container-type
+    class.  ``similar`` runs on a cached
     ``core.pairwise.SimilarityEngine``: one score and one select launch per
     query on the card.
 
@@ -150,6 +151,16 @@ class InvertedIndex:
         ops = self._adopt([self._get(keep)] + [self._get(d) for d in drops])
         return RoaringBitmap.andnot_many(ops[0], ops[1:], arena=self.arena,
                                          device=self.device)
+
+    def count_and(self, a: str, b: str) -> int:
+        """|postings(a) ∩ postings(b)| without materializing it (the fast
+        count, paper section 5.9), on the index's device."""
+        return self._get(a).and_card(self._get(b), device=self.device)
+
+    def jaccard(self, a: str, b: str) -> float:
+        """Jaccard similarity of two terms' postings, on the index's
+        device (two empty postings score 1.0)."""
+        return self._get(a).jaccard(self._get(b), device=self.device)
 
     def _sim_engine(self):
         """(terms, SimilarityEngine) over every posting list, cached and

@@ -1,0 +1,103 @@
+"""Sorted-array pair kernel: two-sided membership masks and the
+intersection count, or the count alone, from ``csrc/array_ops.cu``.
+
+The array x array class of the pair planner (``repro_torch.core.pairwise``)
+stacks its pairs as (M, ARRAY_CAP) int32 value rows per side, each sorted
+and distinct in [0, 65535] below its (M,) card (slots at and above the
+card are ignored).  :func:`array_pair_masks` gives both sides' 0/1 masks
+(one launch feeds AND, OR, XOR and ANDNOT materialization: paper sections
+4.2-4.5) and the count; :func:`array_intersect_card` the count only.
+
+On a CUDA tensor each wrapper launches the kernel or raises; on a CPU
+tensor it takes the plain version in ``kernels/ref.py``.  ``launches``
+counts kernel launches (CPU calls and M = 0 do not count);
+``launches_by_kernel`` splits them by wrapper.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels.pair_ops import check_rows
+from repro_torch.kernels.ref import ARRAY_CAP
+
+_KERNELS = ("array_pair_masks", "array_intersect_card")
+
+launches = 0
+launches_by_kernel = {name: 0 for name in _KERNELS}
+
+
+def reset_launches() -> None:
+    """Set every launch count to 0."""
+    global launches
+    launches = 0
+    for name in _KERNELS:
+        launches_by_kernel[name] = 0
+
+
+@functools.cache
+def _kernel():
+    """The C entry point, built and bound on first use."""
+    fn = _build.library("array_ops").array_pair_cuda
+    p, n = ctypes.c_void_p, ctypes.c_int64
+    fn.argtypes = [p, p, p, p, n, p, p, p, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _count(name: str) -> None:
+    global launches
+    launches += 1
+    launches_by_kernel[name] += 1
+
+
+def _launch(a_vals, a_card, b_vals, b_card, masks: bool):
+    m = a_vals.shape[0]
+    dev = check_rows([("a_vals", a_vals, ARRAY_CAP),
+                      ("a_card", a_card, None),
+                      ("b_vals", b_vals, ARRAY_CAP),
+                      ("b_card", b_card, None)], m)
+    shape = (m, ARRAY_CAP)
+    mask_a = torch.empty(shape, dtype=torch.int32, device=dev) \
+        if masks else None
+    mask_b = torch.empty(shape, dtype=torch.int32, device=dev) \
+        if masks else None
+    count = torch.empty(m, dtype=torch.int32, device=dev)
+    if m == 0:
+        return mask_a, mask_b, count
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _kernel()(a_vals.data_ptr(), a_card.data_ptr(),
+                        b_vals.data_ptr(), b_card.data_ptr(), m,
+                        None if mask_a is None else mask_a.data_ptr(),
+                        None if mask_b is None else mask_b.data_ptr(),
+                        count.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"array_pair_cuda failed: cudaError {err}")
+    _count("array_pair_masks" if masks else "array_intersect_card")
+    return mask_a, mask_b, count
+
+
+def array_pair_masks(a_vals: torch.Tensor, a_card: torch.Tensor,
+                     b_vals: torch.Tensor, b_card: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(mask_a, mask_b (M, ARRAY_CAP) int32, count (M,) int32): which of
+    A's slots hold a value of B, which of B's a value of A, and |A ∩ B|.
+
+    a_vals, b_vals: (M, ARRAY_CAP) int32; a_card, b_card: (M,) int32."""
+    if a_vals.device.type == "cpu":
+        return ref.array_pair_masks(a_vals, a_card, b_vals, b_card)
+    return _launch(a_vals, a_card, b_vals, b_card, True)
+
+
+def array_intersect_card(a_vals: torch.Tensor, a_card: torch.Tensor,
+                         b_vals: torch.Tensor, b_card: torch.Tensor
+                         ) -> torch.Tensor:
+    """(M,) int32 |A ∩ B| per row, no masks written."""
+    if a_vals.device.type == "cpu":
+        return ref.array_intersect_count(a_vals, a_card, b_vals, b_card)
+    return _launch(a_vals, a_card, b_vals, b_card, False)[2]

@@ -2,8 +2,8 @@
 
 ``backend``:
   * None   -- the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors (the wrappers in ``segment_ops`` and ``topk_ops`` decide by
-    the tensor's device);
+    tensors (the wrappers in ``segment_ops``, ``topk_ops``, ``pair_ops``
+    and ``array_ops`` decide by the tensor's device);
   * "cuda" -- always the CUDA kernel; a CPU tensor raises;
   * "ref"  -- always the plain PyTorch version (``kernels/ref.py``).
 
@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import array_ops as _array_ops
+from repro_torch.kernels import pair_ops as _pair_ops
 from repro_torch.kernels import ref
 from repro_torch.kernels import segment_ops as _segment_ops
 from repro_torch.kernels import topk_ops as _topk_ops
@@ -119,3 +121,50 @@ def similarity_topk(rows, row_col, starts, q_words, q_card, cards, *,
                                    cards, exclude, metric=metric, k=k)
     return _topk_ops.similarity_topk(rows, row_col, starts, q_words, q_card,
                                      cards, exclude, metric=metric, k=k)
+
+
+def _opids(opids, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(opids, dtype=torch.int32,
+                           device=like.device).contiguous()
+
+
+def bitset_pair_op(a, b, opids, *, backend=None):
+    """Mixed-op batched bitset algebra: per-row op ids into
+    ``ref.PAIR_OPS`` (any other id is andnot); returns (words, cards) in
+    one launch.  ``opids`` may be any integer sequence."""
+    opids = _opids(opids, a)
+    if _route(backend, a):
+        return ref.bitset_pair_op(a, b, opids)
+    return _pair_ops.bitset_pair_op(a, b, opids)
+
+
+def bitset_pair_card(a, b, opids, *, backend=None):
+    """Count-only mixed-op batch (fast counts, paper section 5.9)."""
+    opids = _opids(opids, a)
+    if _route(backend, a):
+        return ref.bitset_pair_card(a, b, opids)
+    return _pair_ops.bitset_pair_card(a, b, opids)
+
+
+def array_bitset_probe(vals, card, words, *, backend=None):
+    """Batched array x bitset membership probe (mask over the array's
+    slots + count per row)."""
+    if _route(backend, vals):
+        return ref.array_bitset_probe(vals, card, words)
+    return _pair_ops.array_bitset_probe(vals, card, words)
+
+
+def array_pair_masks(a_vals, a_card, b_vals, b_card, *, backend=None):
+    """Two-sided membership masks + count for a batch of sorted-array
+    pairs: one launch feeds AND/OR/XOR/ANDNOT materialization."""
+    if _route(backend, a_vals):
+        return ref.array_pair_masks(a_vals, a_card, b_vals, b_card)
+    return _array_ops.array_pair_masks(a_vals, a_card, b_vals, b_card)
+
+
+def array_intersect_card(a_vals, a_card, b_vals, b_card, *, backend=None):
+    """Count-only batched sorted-array intersection (M,) int32 -- the
+    array x array class of the pairwise count planner."""
+    if _route(backend, a_vals):
+        return ref.array_intersect_count(a_vals, a_card, b_vals, b_card)
+    return _array_ops.array_intersect_card(a_vals, a_card, b_vals, b_card)

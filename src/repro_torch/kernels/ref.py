@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the port's kernels.
 
 These are the torch twins of the JAX package's ``kernels/ref.py`` for the
-segmented wide aggregation and for the similarity top-k (its score and
-select stages).  The CPU tests run them against the JAX
+segmented wide aggregation, for the similarity top-k (its score and select
+stages) and for the two-by-two pair classes (bitset x bitset, array x
+bitset, array x array).  The CPU tests run them against the JAX
 reference, and ``chip_smoke.py`` holds the CUDA kernel against them on the
 card.  Nothing on the card's main path calls them.
 
@@ -18,6 +19,9 @@ from __future__ import annotations
 import torch
 
 WORDS = 2048            # 32-bit words per 2^16-bit container
+CONTAINER_BITS = 1 << 16
+ARRAY_CAP = 4096        # fixed capacity of the array-value slab
+PAIR_OPS = ("and", "or", "xor", "andnot")   # index == per-row op id
 
 _M1 = 0x55555555
 _M2 = 0x33333333
@@ -230,3 +234,98 @@ def similarity_topk(rows: torch.Tensor, row_col: torch.Tensor,
     score, inter = similarity_score(rows, row_col, starts, q_words, q_card,
                                     cards, exclude, metric=metric)
     return topk_select(score, inter, k)
+
+
+# ---------------------------------------------------------------------------
+# two-by-two pair classes
+# ---------------------------------------------------------------------------
+
+def bitset_pair_op(a: torch.Tensor, b: torch.Tensor, opids: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mixed-op batched bitset algebra: row ``r`` applies ``PAIR_OPS[i]``
+    for op id ``i = opids[r]`` -- 0 and, 1 or, 2 xor, and andnot for EVERY
+    other id (3, negative, above 3), as the TPU kernel selects.
+
+    a, b: (M, WORDS) int32 words; opids: (M,) int.  Returns (words (M,
+    WORDS) int32, cards (M,) int32)."""
+    sel = opids.to(device=a.device, dtype=torch.int32)[:, None]
+    r = torch.where(sel == 0, a & b,
+                    torch.where(sel == 1, a | b,
+                                torch.where(sel == 2, a ^ b, a & ~b)))
+    return r, popcount_words(r)
+
+
+def bitset_pair_card(a: torch.Tensor, b: torch.Tensor,
+                     opids: torch.Tensor) -> torch.Tensor:
+    """Count-only :func:`bitset_pair_op`: (M,) int32."""
+    return bitset_pair_op(a, b, opids)[1]
+
+
+def _slots_below(card: torch.Tensor) -> torch.Tensor:
+    """(M, ARRAY_CAP) bool: slot < card, so a card outside [0, ARRAY_CAP]
+    acts clamped."""
+    pos = torch.arange(ARRAY_CAP, device=card.device)
+    return pos[None, :] < card.to(torch.int64)[:, None]
+
+
+def _hits(sorted_rows: torch.Tensor, probes: torch.Tensor) -> torch.Tensor:
+    """Per row, whether each probe value occurs in the sorted row: a
+    batched ``searchsorted`` and one gather (O(M * ARRAY_CAP) memory)."""
+    idx = torch.searchsorted(sorted_rows, probes).clamp_(max=ARRAY_CAP - 1)
+    return torch.gather(sorted_rows, 1, idx) == probes
+
+
+def _padded(vals: torch.Tensor, card: torch.Tensor, pad: int
+            ) -> torch.Tensor:
+    """Values with every slot at or above ``card`` set to ``pad``.  The
+    A side pads with CONTAINER_BITS and the B side with CONTAINER_BITS + 1,
+    so a padding slot never matches a slot of the other side."""
+    return torch.where(_slots_below(card), vals.to(torch.int32), pad)
+
+
+def array_pair_masks(a_vals: torch.Tensor, a_card: torch.Tensor,
+                     b_vals: torch.Tensor, b_card: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Two-sided membership of sorted array pairs: mask_a[r, i] = 1 where
+    A's slot i (< a_card) holds a value of B's first b_card slots, mask_b
+    the same from B's side, count = sum of mask_a.
+
+    a_vals, b_vals: (M, ARRAY_CAP) int32, sorted and distinct in [0,
+    65535] below their card; a_card, b_card: (M,) int.  Returns (mask_a,
+    mask_b (M, ARRAY_CAP) int32, count (M,) int32).  Each side is searched
+    in the other (not the JAX reference's all-vs-all cube, 16 MiB a row);
+    the masks are the same."""
+    av = _padded(a_vals, a_card, CONTAINER_BITS)
+    bv = _padded(b_vals, b_card, CONTAINER_BITS + 1)
+    mask_a = _hits(bv, av).to(torch.int32)
+    mask_b = _hits(av, bv).to(torch.int32)
+    return mask_a, mask_b, mask_a.sum(dim=-1, dtype=torch.int32)
+
+
+def array_intersect_count(a_vals: torch.Tensor, a_card: torch.Tensor,
+                          b_vals: torch.Tensor, b_card: torch.Tensor
+                          ) -> torch.Tensor:
+    """Count-only :func:`array_pair_masks`: (M,) int32 |A ∩ B| per row,
+    A's side searched in B's."""
+    av = _padded(a_vals, a_card, CONTAINER_BITS)
+    bv = _padded(b_vals, b_card, CONTAINER_BITS + 1)
+    return _hits(bv, av).sum(dim=-1, dtype=torch.int32)
+
+
+def array_bitset_probe(vals: torch.Tensor, card: torch.Tensor,
+                       words: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Bit test of each array value in its row's bitset: mask[r, i] = bit
+    ``vals[r, i]`` of ``words[r]`` for slots below card[r], else 0.
+
+    vals: (M, ARRAY_CAP) int32; card: (M,) int; words: (M, WORDS) int32.
+    Returns (mask (M, ARRAY_CAP) int32, count (M,) int32).  A value
+    outside [0, 65535] is outside the contract: its word index is clipped
+    to [0, WORDS - 1] and its bit is ``value & 31``, as the JAX reference
+    does (the Pallas kernel gives 0 there instead)."""
+    vals = vals.to(torch.int32)
+    widx = (vals >> 5).clamp(0, WORDS - 1).to(torch.int64)
+    w = torch.gather(words, 1, widx)
+    bit = (w >> (vals & 31)) & 1
+    mask = torch.where(_slots_below(card), bit, 0).to(torch.int32)
+    return mask, mask.sum(dim=-1, dtype=torch.int32)

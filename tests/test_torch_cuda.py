@@ -8,7 +8,13 @@ candidates, duplicates that tie, a zero query cardinality and cards near
 2^31-1; indices and intersections equal and float32 scores bit-identical
 (tolerance 0).  Then ``similar`` and the ``QueryServer`` on the card
 against the CPU's answers, and a trapping score launch that the server
-resolves as an error instead of serving it from the host.
+resolves as an error instead of serving it from the host.  The pair
+kernels (bitset pair op and count, array x bitset probe, array pair masks
+and count) against their plain versions at the edge cases (M = 0 and 1,
+cards 0, 1 and 4,096, identical and disjoint arrays, the values 0 and
+65535, mixed op ids with -1 and 7, all-zero and all-ones words), each with
+one off-contract input that must not fault, and ``merge_one`` /
+``pairwise_card`` with ``backend="cuda"`` against ``backend="ref"``.
 
 These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip.  Run
 them on a GPU machine with ``PYTHONPATH=src python -m pytest -q -m cuda
@@ -19,8 +25,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ref, segment_ops, topk_ops
-from repro_torch.kernels.ref import METRICS, WORDS
+from repro_torch.kernels import (
+    array_ops, pair_ops, ref, segment_ops, topk_ops,
+)
+from repro_torch.kernels.ref import ARRAY_CAP, METRICS, WORDS
 
 pytestmark = pytest.mark.cuda
 
@@ -411,3 +419,232 @@ os._exit(0)
     assert out["status"] == "error" and out["error"], out
     assert not out["degraded"] and out["retries"] == 0, out
     assert out["fallbacks"] == 0, out
+
+
+# ---------------------------------------------------------------------------
+# the pair kernels: bitset pair, array x bitset probe, array pair
+# ---------------------------------------------------------------------------
+
+def _i32(a, dev):
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32
+                            else a.astype(np.int32)).to(dev)
+
+
+def _pair_words(rng, m):
+    a = rng.integers(0, 1 << 32, (m, WORDS), dtype=np.uint32)
+    b = rng.integers(0, 1 << 32, (m, WORDS), dtype=np.uint32)
+    if m >= 4:
+        a[1], b[1] = 0, 0xFFFFFFFF
+        a[2], b[2] = 0xFFFFFFFF, 0xFFFFFFFF
+        a[3] = b[3]
+    ids = np.resize(np.array([0, 1, 2, 3, -1, 7], np.int32), m)
+    return a, b, ids
+
+
+@pytest.mark.parametrize("m", [0, 1, 6, 300])
+def test_bitset_pair_kernels_match_plain(cuda, m):
+    a, b, ids = _pair_words(np.random.default_rng(m), m)
+    ta, tb, ti = _i32(a, cuda), _i32(b, cuda), _i32(ids, cuda)
+    want_w, want_c = ref.bitset_pair_op(ta, tb, ti)
+    pair_ops.reset_launches()
+    got_w, got_c = pair_ops.bitset_pair_op(ta, tb, ti)
+    got_c2 = pair_ops.bitset_pair_card(ta, tb, ti)
+    torch.cuda.synchronize()
+    assert torch.equal(got_w, want_w) and torch.equal(got_c, want_c)
+    assert torch.equal(got_c2, want_c)
+    assert pair_ops.launches_by_kernel["bitset_pair_op"] == int(m > 0)
+    assert pair_ops.launches_by_kernel["bitset_pair_card"] == int(m > 0)
+
+
+def _probe_case(rng, m):
+    cards = np.resize(np.array([0, 1, 4096, 37, 2, 4000], np.int32), m)
+    vals = np.zeros((m, ARRAY_CAP), np.int32)
+    for r, c in enumerate(cards):
+        vals[r, :c] = np.sort(rng.choice(1 << 16, c, replace=False))
+    if m > 4:
+        vals[4, :2] = [0, 65535]
+    words = rng.integers(0, 1 << 32, (m, WORDS), dtype=np.uint32)
+    if m > 2:
+        words[2] = 0xFFFFFFFF
+    return vals, cards, words
+
+
+@pytest.mark.parametrize("m", [0, 1, 6, 300])
+def test_probe_kernel_matches_plain(cuda, m):
+    vals, cards, words = _probe_case(np.random.default_rng(m + 1), m)
+    args = (_i32(vals, cuda), _i32(cards, cuda), _i32(words, cuda))
+    want = ref.array_bitset_probe(*args)
+    pair_ops.reset_launches()
+    got = pair_ops.array_bitset_probe(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert pair_ops.launches == int(m > 0)
+
+
+def test_probe_kernel_off_contract_values_stay_in_the_row(cuda):
+    """Values outside [0, 65535] and cards outside [0, 4096]: the kernel
+    clips the word index as the plain version does, so it reads nothing
+    outside the row, raises no fault and equals the plain version."""
+    rng = np.random.default_rng(5)
+    vals = rng.integers(-2**31, 2**31, (4, ARRAY_CAP),
+                        dtype=np.int64).astype(np.int32)
+    vals[0, :4] = [-1, 65536, 2**31 - 1, -2**31]
+    cards = np.array([9999, -7, 4096, 1], np.int32)
+    words = rng.integers(0, 1 << 32, (4, WORDS), dtype=np.uint32)
+    args = (_i32(vals, cuda), _i32(cards, cuda), _i32(words, cuda))
+    got = pair_ops.array_bitset_probe(*args)
+    torch.cuda.synchronize()
+    want = ref.array_bitset_probe(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_bitset_pair_kernel_extreme_op_ids(cuda):
+    rng = np.random.default_rng(6)
+    a, b, _ = _pair_words(rng, 4)
+    ids = np.array([-2**31, 2**31 - 1, 4, 3], np.int32)
+    got = pair_ops.bitset_pair_op(_i32(a, cuda), _i32(b, cuda),
+                                  _i32(ids, cuda))
+    torch.cuda.synchronize()
+    want = a & ~b
+    assert np.array_equal(got[0].cpu().numpy().view(np.uint32), want)
+    assert np.array_equal(got[1].cpu().numpy(),
+                          np.bitwise_count(want).sum(axis=1))
+
+
+def _array_case(rng, m):
+    """Rows cycle through: cards (0, 5), (1, 1) equal, (4096, 1),
+    identical arrays, disjoint ranges, a 50% overlap, full x full, the
+    values 0 and 65535."""
+    ac = np.resize(np.array([0, 1, 4096, 3000, 900, 1000, 4096, 2]), m)
+    bc = np.resize(np.array([5, 1, 1, 3000, 800, 1000, 4096, 3]), m)
+    a = np.zeros((m, ARRAY_CAP), np.int32)
+    b = np.zeros((m, ARRAY_CAP), np.int32)
+    for r in range(m):
+        kind = r % 8
+        x = np.sort(rng.choice(1 << 16, ac[r], replace=False))
+        y = np.sort(rng.choice(1 << 16, bc[r], replace=False))
+        if kind == 1:
+            y = x.copy()
+        elif kind == 2:
+            y = x[17:18]
+        elif kind == 3:
+            y = x.copy()
+        elif kind == 4:
+            x = np.sort(rng.choice(30000, ac[r], replace=False))
+            y = 30000 + np.sort(rng.choice(35536, bc[r], replace=False))
+        elif kind == 5:
+            c = rng.choice(1 << 16, 1500, replace=False)
+            x, y = np.sort(c[:1000]), np.sort(c[500:])
+        elif kind == 7:
+            x, y = np.array([0, 65535]), np.array([0, 7, 65535])
+        a[r, :x.size], b[r, :y.size] = x, y
+    return a, ac.astype(np.int32), b, bc.astype(np.int32)
+
+
+@pytest.mark.parametrize("m", [0, 1, 8, 256])
+def test_array_pair_kernels_match_plain(cuda, m):
+    a, ac, b, bc = _array_case(np.random.default_rng(m + 2), m)
+    args = [_i32(x, cuda) for x in (a, ac, b, bc)]
+    want = ref.array_pair_masks(*args)
+    array_ops.reset_launches()
+    got = array_ops.array_pair_masks(*args)
+    cnt = array_ops.array_intersect_card(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(cnt, want[2])
+    assert array_ops.launches == 2 * int(m > 0)
+
+
+def test_array_pair_kernel_off_contract_stays_in_bounds(cuda):
+    """Unsorted, repeated and out-of-range values and cards outside [0,
+    4096]: the searches read only the other row's clamped prefix, so the
+    kernel ends without a fault, its masks are 0/1 and zero past the
+    clamped cards, and the count is the sum of mask_a."""
+    rng = np.random.default_rng(8)
+    a = rng.integers(-2**31, 2**31, (4, ARRAY_CAP),
+                     dtype=np.int64).astype(np.int32)
+    b = rng.integers(-5, 50, (4, ARRAY_CAP)).astype(np.int32)
+    a[1, :200] = rng.integers(-5, 50, 200)
+    ac = np.array([9999, 200, -3, 4096], np.int32)
+    bc = np.array([4096, -1, 77, 123456], np.int32)
+    args = [_i32(x, cuda) for x in (a, ac, b, bc)]
+    ma, mb, cnt = array_ops.array_pair_masks(*args)
+    c2 = array_ops.array_intersect_card(*args)
+    torch.cuda.synchronize()
+    pos = torch.arange(ARRAY_CAP, device=cuda)
+    for m, c in ((ma, ac), (mb, bc)):
+        lim = torch.from_numpy(np.clip(c, 0, ARRAY_CAP)).to(cuda)
+        assert ((m == 0) | (m == 1)).all()
+        assert not m[pos[None, :] >= lim[:, None]].any()
+    assert torch.equal(cnt, ma.sum(dim=1, dtype=torch.int32))
+    assert torch.equal(c2, cnt)
+
+
+def test_pair_wrappers_raise_on_bad_input(cuda):
+    z = torch.zeros((4, WORDS), dtype=torch.int32, device=cuda)
+    ids = torch.zeros(4, dtype=torch.int32, device=cuda)
+    v = torch.zeros((4, ARRAY_CAP), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        pair_ops.bitset_pair_op(z.to(torch.int64), z, ids)
+    with pytest.raises(ValueError):
+        pair_ops.bitset_pair_card(z, z, ids[:3])
+    with pytest.raises(ValueError):
+        pair_ops.array_bitset_probe(v[:, ::2], ids, z)
+    with pytest.raises(ValueError):
+        array_ops.array_pair_masks(v, ids, v, ids.cpu())
+    with pytest.raises(ValueError):
+        array_ops.array_intersect_card(v[:, :WORDS], ids, v, ids)
+
+
+def _mixed_pair_bitmaps(seed, n=6):
+    from repro_torch.core import RoaringBitmap
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        parts = []
+        for c in range(24):
+            base, r = c << 16, rng.random()
+            if r < 0.1:
+                continue
+            if r < 0.45:
+                parts.append(base + rng.choice(1 << 16, int(rng.integers(
+                    1, 4000)), replace=False))
+            elif r < 0.8:
+                parts.append(base + rng.choice(1 << 16, int(rng.integers(
+                    5000, 40000)), replace=False))
+            else:
+                lo = int(rng.integers(0, 1 << 15))
+                parts.append(np.arange(base + lo, base + lo + 20000))
+        out.append(RoaringBitmap.from_values(
+            np.unique(np.concatenate(parts)).astype(np.uint32))
+            .run_optimize())
+    return out
+
+
+def test_planner_on_the_card_matches_ref(cuda):
+    """merge_one and pairwise_card with backend="cuda" on the card equal
+    backend="ref" (the plain versions), and every pair kernel launched."""
+    from repro_torch.core import pairwise
+    bms = _mixed_pair_bitmaps(31)
+    pair_ops.reset_launches()
+    array_ops.reset_launches()
+    for op in ("and", "or", "xor", "andnot"):
+        for i, j in ((0, 1), (2, 3), (4, 4), (5, 0)):
+            got = pairwise.merge_one(bms[i], bms[j], op, backend="cuda",
+                                     device=cuda)
+            want = pairwise.merge_one(bms[i], bms[j], op, backend="ref",
+                                      device=cuda)
+            host = pairwise.merge_one(bms[i], bms[j], op, device="cpu")
+            assert got == want == host
+            assert [c.kind for c in got.containers] == \
+                [c.kind for c in host.containers]
+    pairs = [(bms[i], bms[j]) for i in range(6) for j in range(6)]
+    ops = list(np.resize(["and", "or", "xor", "andnot"], len(pairs)))
+    got = pairwise.pairwise_card(ops, pairs, backend="cuda", device=cuda)
+    want = pairwise.pairwise_card(ops, pairs, backend="ref", device=cuda)
+    host = pairwise.pairwise_card(ops, pairs, device="cpu")
+    assert np.array_equal(got, want) and np.array_equal(got, host)
+    assert min(pair_ops.launches_by_kernel.values()) > 0
+    assert min(array_ops.launches_by_kernel.values()) > 0

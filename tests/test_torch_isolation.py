@@ -42,8 +42,12 @@ def _imports(path):
 
 
 def test_package_files_exist():
-    assert (PKG / "kernels" / "csrc" / "segment_reduce.cu").is_file()
-    assert (PKG / "kernels" / "csrc" / "similarity_topk.cu").is_file()
+    for name in ("segment_reduce", "similarity_topk", "pair_ops",
+                 "array_ops"):
+        assert (PKG / "kernels" / "csrc" / f"{name}.cu").is_file()
+    for name in ("kernels/pair_ops.py", "kernels/array_ops.py",
+                 "core/pairwise.py"):
+        assert PKG / name in FILES
     assert len(FILES) > 10 and all(f.is_file() for f in FILES)
 
 
@@ -100,6 +104,14 @@ def test_defaults_raise_without_gpu():
         aggregate.or_many(bms)
     with pytest.raises(RuntimeError, match="CUDA"):
         RoaringBitmap.and_many(bms)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bms[0] & bms[1]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bms[0].and_card(bms[1])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RoaringBitmap.pairwise_card("or", [tuple(bms)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RoaringBitmap.jaccard_matrix(bms)
 
 
 def test_kernel_route_does_not_fall_back_to_cpu():
@@ -117,6 +129,26 @@ def test_kernel_route_does_not_fall_back_to_cpu():
     with pytest.raises(ValueError, match="cuda"):
         ops.segment_reduce_rows(slab, starts, starts, "or", jmax=2,
                                 backend="cuda")
+
+
+def test_pair_kernel_route_does_not_fall_back_to_cpu():
+    """The pair wrappers raise for a tensor that is not on the CPU or a
+    GPU, and a forced "cuda" backend raises on CPU tensors."""
+    from repro_torch.kernels import array_ops, ops, pair_ops
+    meta = dict(dtype=torch.int32, device="meta")
+    w = torch.zeros((2, 2048), **meta)
+    v = torch.zeros((2, 4096), **meta)
+    c = torch.zeros(2, **meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        pair_ops.bitset_pair_op(w, w, c)
+    with pytest.raises(ValueError, match="CUDA"):
+        pair_ops.array_bitset_probe(v, c, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        array_ops.array_intersect_card(v, c, v, c)
+    cv = torch.zeros((2, 4096), dtype=torch.int32)
+    cc = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="cuda"):
+        ops.array_pair_masks(cv, cc, cv, cc, backend="cuda")
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -186,7 +218,10 @@ def test_similarity_kernel_route_does_not_fall_back_to_cpu():
 
 @pytest.mark.parametrize("name", ["kernels/segment_ops.py",
                                   "kernels/topk_ops.py",
-                                  "kernels/_build.py", "kernels/ops.py"])
+                                  "kernels/pair_ops.py",
+                                  "kernels/array_ops.py",
+                                  "kernels/_build.py", "kernels/ops.py",
+                                  "core/pairwise.py"])
 def test_every_except_reraises(name):
     tree = ast.parse((PKG / name).read_text())
     for node in ast.walk(tree):
