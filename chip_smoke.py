@@ -31,6 +31,15 @@ toolkit (``nvcc``).  Phases, each timed:
    and counts must be bit-equal; device times of kernel, plain version
    and library yardstick (``torch.searchsorted`` for the array kernels)
    and the bound are printed.
+2d. The conversion kernels (array_to_bitset, bitset_set_many) and the
+   popcount against their plain versions: at the path's shapes (M =
+   245,760 array rows of about 64 values each, one ``to_words`` of the
+   phase-7 tensor's sparse terms; M = 8,192) and at edge cases (M = 0 and
+   1; cards -1, 0, 1, 4,096 and 5,000; the values 0, 65,535, 65,536 and
+   -1; duplicated values; all-ones old words).  Words, deltas and counts
+   must be bit-equal; device times of kernel, plain version and library
+   yardstick (one ``scatter_add_`` over the masked values for
+   array_to_bitset) and the bound are printed.
 3. Boolean queries at real scale: an ``InvertedIndex`` over 2^24 documents
    and 1,024 terms on a ``BitmapArena`` on the card (64 dense bitset
    terms, 960 sparse array terms), 64 queries of each boolean class run
@@ -62,8 +71,20 @@ toolkit (``nvcc``).  Phases, each timed:
    float64 bit); p50 / p99 per op and pairing, and from profiler
    windows over second calls the idle share, device busy time and the
    bytes the copies move for each merge, count and count batch.
+7. ``RoaringTensor`` at real scale on the same index: ``from_bitmaps`` of
+   all 1,024 postings and 64 window bitmaps (1-8 ranges of 4,096 to
+   1,048,576 documents, run-optimized on the host, so run slots occur)
+   at capacity 256 on the card, a 2.13 GiB slab; then ``cardinality``,
+   ``packed_nbytes``, ``take(...).to_bitmaps()``, ``& | ^ andnot``, the
+   four counts and ``jaccard`` on 80 row-aligned pairs (16 of each phase-6
+   pairing, 16 window x sparse), a mixed-op ``pairwise_card`` over 512
+   random pairs of the full tensor, ``contains`` on 64 rows, ``reduce_or``
+   of the full tensor, ``run_optimize`` of the 64 window and 64 dense rows
+   and ``to_arena`` followed by ``or_many``, each against the packed numpy
+   oracle (host ``run_optimize`` for the kinds' bytes); p50 / p99 per
+   operation and the peak device memory.
 
-Launch counts are set to 0 just before each of phases 3, 4, 5 and 6 and
+Launch counts are set to 0 just before each of phases 3, 4, 5, 6 and 7 and
 read just after it; a kernel that a phase's path runs and that launched no time
 there fails the script.  Then one JSON line with every kernel's numbers,
 and the last line ``{"ok": true, "device": {...}}``.
@@ -99,7 +120,7 @@ OPS = (("or", None), ("and", None), ("xor", None), ("andnot", None),
        ("threshold", "per_segment"), ("threshold", "weights"))
 SOURCES = ("slab", "ids", "dual")
 SOURCES_CU = ("segment_reduce", "similarity_topk", "pair_ops",
-              "array_ops")                           # csrc/<name>.cu
+              "array_ops", "bitset_convert", "popcount")   # csrc/<name>.cu
 PAIR_OPS = ("and", "or", "xor", "andnot")
 PAIRINGS = ("dense x dense", "dense x sparse", "sparse x dense",
             "sparse x sparse")
@@ -107,6 +128,10 @@ PAIR_KERNELS = ("bitset_pair_op", "bitset_pair_card", "array_bitset_probe",
                 "array_pair_masks", "array_intersect_card")
 METRICS = ("jaccard", "cosine", "containment")
 SIM_T = 1024                  # candidates at the main path: the terms
+CONVERT_KERNELS = ("array_to_bitset", "bitset_set_many", "popcount")
+CONVERT_M = 245_760           # the array slots of the index's sparse terms
+TENSOR_CAP = 256              # container slots a row: one a chunk
+N_WINDOWS = 64
 
 
 def log(msg: str) -> None:
@@ -115,8 +140,12 @@ def log(msg: str) -> None:
 
 def _reset_counts() -> None:
     """Set every kernel wrapper's launch counts to 0."""
-    from repro_torch.kernels import array_ops, pair_ops, segment_ops, topk_ops
-    for mod in (segment_ops, topk_ops, pair_ops, array_ops):
+    from repro_torch.kernels import (
+        array_ops, bitset_convert, harley_seal, pair_ops, segment_ops,
+        topk_ops,
+    )
+    for mod in (segment_ops, topk_ops, pair_ops, array_ops, bitset_convert,
+                harley_seal):
         mod.reset_launches()
 
 
@@ -209,6 +238,11 @@ def _time_ms(fn, reps):
 
 
 _LAUNCHES = ("Memcpy", "Memset", "LaunchKernel")    # runtime calls
+# segment_reduce's two kernels as the trace names them; PyTorch's own
+# reductions are at::native::reduce_kernel<...>, which a bare
+# "reduce_kernel" would also match
+SEGMENT_KERNELS = (r"\(anonymous namespace\)::reduce_kernel<",
+                   r"\(anonymous namespace\)::threshold_kernel<")
 _PAIR_KERNEL_NAMES = ("pair_kernel", "probe_kernel")
 
 
@@ -224,9 +258,10 @@ def _trace_window(fn, dev, names=(), lead=64):
     made in that range that queue device work (a copy, set or launch),
     the window is ``complete`` when every one has its device event.  From
     those events: device-busy microseconds (kernels, copies, sets), the
-    time of the kernels whose names contain one of ``names`` (in all and
-    per name) and the bytes the copies moved up and down; ``lead_kept``
-    says how many lead adds kept theirs."""
+    time of the kernels whose names match one of the regular expressions
+    ``names`` (in all and per name), the eight kernels that took the most
+    time, and the bytes the copies moved up and down; ``lead_kept`` says
+    how many lead adds kept theirs."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -248,7 +283,7 @@ def _trace_window(fn, dev, names=(), lead=64):
     span = next(((e["ts"], e["ts"] + e["dur"]) for e in events
                  if e.get("cat") == "user_annotation"
                  and e.get("name") == "chip_smoke.measured"), (0.0, 0.0))
-    calls, lead_calls, work = {}, {}, {}
+    calls, lead_calls, work, by_kernel = {}, {}, {}, {}
     for e in events:
         cat, name = e.get("cat", ""), e.get("name", "")
         corr = e.get("args", {}).get("correlation")
@@ -265,7 +300,10 @@ def _trace_window(fn, dev, names=(), lead=64):
     for e in mine:
         name, dur = e.get("name", ""), float(e.get("dur", 0.0))
         out["busy_us"] += dur
-        hit = [n for n in names if n in name] if e["cat"] == "kernel" else []
+        if e["cat"] == "kernel":
+            by_kernel[name[:100]] = by_kernel.get(name[:100], 0.0) + dur
+        hit = ([n for n in names if re.search(n, name)]
+               if e["cat"] == "kernel" else [])
         for n in hit:
             out["name_us"][n] += dur
         if hit:
@@ -275,6 +313,7 @@ def _trace_window(fn, dev, names=(), lead=64):
             out["h2d_bytes"] += nbytes
         elif "DtoH" in name:
             out["d2h_bytes"] += nbytes
+    out["top_kernels"] = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     out["complete"] = bool(calls) and len(mine) == len(calls)
     out["idle_share"] = (1.0 - out["busy_us"] / wall_us
                          if out["complete"] else None)
@@ -305,8 +344,11 @@ def _device_ms(fn, reps):
     When no window kept every device event, the CUDA-event mean, logged."""
     fn()
     torch.cuda.synchronize()
-    tr = _traced("device time", lambda: [fn() for _ in range(reps)],
-                 torch.device("cuda"))
+
+    def repeat():                   # keeps no result alive
+        for _ in range(reps):
+            fn()
+    tr = _traced("device time", repeat, torch.device("cuda"))
     if tr["complete"]:
         return tr["busy_us"] / reps / 1e3
     log("  device time: no complete profiler window; CUDA events instead")
@@ -775,6 +817,177 @@ def phase_pair_kernels(dev, seed, failures):
 
 
 # ---------------------------------------------------------------------------
+# phase 2d: the conversion kernels and the popcount against their plain
+# versions
+# ---------------------------------------------------------------------------
+
+def _path_arrays(dev, gen, m, slots=160):
+    """Array rows as ``to_words`` hands them to array_to_bitset at the
+    index's 0.1% density: about 64 sorted distinct values a row (random
+    gaps below 2,048), the tail padded with 65,535 as the slab is; old
+    words random, with some all-ones and all-zero rows."""
+    gaps = torch.randint(1, 2048, (m, slots), dtype=torch.int32, device=dev,
+                         generator=gen)
+    v = torch.cumsum(gaps, dim=1, dtype=torch.int32) - 1
+    card = (v < 65536).sum(dim=1, dtype=torch.int32)
+    vals = torch.full((m, 4096), 65535, dtype=torch.int32, device=dev)
+    vals[:, :slots] = torch.where(v < 65536, v, 65535)
+    old = torch.randint(-2**31, 2**31, (m, 2048), dtype=torch.int32,
+                        device=dev, generator=gen)
+    old[::97] = -1
+    old[1::97] = 0
+    return dict(vals=vals, card=card, old=old)
+
+
+def _convert_edges(m, seed):
+    """Edge rows: cards -1, 0, 1, 4,096 and 5,000 among sparse ones,
+    garbage values past each card, the values 0, 65,535, 65,536 and -1,
+    duplicates, values far outside [0, 65535]; all-zero and all-ones old
+    words."""
+    rng = np.random.default_rng(seed)
+    card = rng.integers(1, 130, m).astype(np.int32)
+    card[:5] = np.array([-1, 0, 1, 4096, 5000])[:m]
+    vals = rng.integers(-2**31, 2**31, (m, 4096),
+                        dtype=np.int64).astype(np.int32)
+    for r in range(m):
+        c = min(max(int(card[r]), 0), 4096)
+        vals[r, :c] = np.sort(rng.choice(65536, c, replace=False))
+    if m >= 8:
+        vals[5, :4] = [0, 65535, 65536, -1]
+        vals[6, :6] = [3, 3, 31, 31, 64, 64]
+        vals[7, :5] = [-33, 70000, 2**31 - 1, -2**31, 9]
+        card[5:8] = [4, 6, 5]
+    old = rng.integers(0, 1 << 32, (m, 2048), dtype=np.uint32)
+    old[::3] = 0
+    old[1::3] = 0xFFFFFFFF
+    return dict(vals=vals, card=card, old=old)
+
+
+def _scatter_args(vals, card):
+    """The masked values as one ``scatter_add_`` takes them: flat int64
+    word indices and bit weights (made outside the timing)."""
+    pos = torch.arange(4096, device=vals.device)
+    valid = (pos[None, :] < card[:, None]) & (vals >= 0) & (vals < 65536)
+    r, c = valid.nonzero(as_tuple=True)
+    v = vals[r, c].to(torch.int64)
+    return r * 2048 + (v >> 5), torch.ones_like(v) << (v & 31)
+
+
+def _convert_calls(x):
+    """(name, plain call, kernel call, library call or None) per kernel.
+    array_to_bitset's library call is one ``scatter_add_`` of the masked
+    values into zeroed int64 words; no PyTorch call computes a popcount,
+    so bitset_set_many and popcount have none."""
+    from repro_torch.kernels import bitset_convert as bc
+    from repro_torch.kernels import harley_seal as hs
+    from repro_torch.kernels import ref
+    v, c, o = x["vals"], x["card"], x["old"]
+    m = v.shape[0]
+    idx, src = _scatter_args(v, c)
+
+    def library():
+        return torch.zeros(m * 2048, dtype=torch.int64,
+                           device=v.device).scatter_add_(0, idx, src)
+    return [
+        ("array_to_bitset", lambda: ref.array_to_bitset(v, c),
+         lambda: bc.array_to_bitset(v, c), library),
+        ("bitset_set_many", lambda: ref.bitset_set_many(o, v, c),
+         lambda: bc.bitset_set_many(o, v, c), None),
+        ("popcount", lambda: ref.popcount_words(o),
+         lambda: hs.popcount(o), None),
+    ]
+
+
+def _convert_bound(name, x):
+    """Least time, in ms, and what bounds it.  Bytes: the card, the values
+    below it (4 bytes each), the old words (8 KiB a row) for
+    bitset_set_many and popcount, the words written (8 KiB a row) and
+    the delta or count (4 bytes).  Operations: a shift, mask and add per
+    valid value; an OR, XOR and popcount per word for bitset_set_many;
+    a popcount and an add per word for popcount."""
+    m = x["vals"].shape[0]
+    n_vals = int(x["card"].to(torch.int64).clamp(0, 4096).sum())
+    if name == "array_to_bitset":
+        nbytes, ops = 4 * m + 4 * n_vals + 8192 * m, 3 * n_vals
+    elif name == "bitset_set_many":
+        nbytes = 4 * m + 4 * n_vals + 2 * 8192 * m + 4 * m
+        ops = 3 * n_vals + 3 * 2048 * m
+    else:
+        nbytes, ops = 8192 * m + 4 * m, 2 * 2048 * m
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_convert_kernels(dev, seed, failures):
+    """The conversion kernels and the popcount against their plain
+    versions at the path's shapes (M = 245,760 and 8,192) and at edge
+    cases (M = 0, 1 and 16).  Words, deltas and counts must be bit-equal;
+    kernel, plain and library times are device times from the profiler,
+    with CUDA-event times beside them."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 21)
+    cases, max_err = [], {name: 0 for name in CONVERT_KERNELS}
+    for kind, m in [("main", CONVERT_M), ("main", 8192), ("edge", 0),
+                    ("edge", 1), ("edge", 16)]:
+        x = (_path_arrays(dev, gen, m) if kind == "main" else
+             _to_card(_convert_edges(m, seed + m), dev))
+        for name, plain, kern, lib in _convert_calls(x):
+            want, got = plain(), kern()
+            torch.cuda.synchronize()
+            want = want if isinstance(want, tuple) else (want,)
+            got = got if isinstance(got, tuple) else (got,)
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            for g, w in zip(got, want):
+                if g.numel():
+                    max_err[name] = max(max_err[name], int(
+                        (g.to(torch.int64) - w).abs().max()))
+            case = f"{kind}/M={m}/{name}"
+            if not same:
+                failures.append(f"kernel != plain: {case}")
+            row = dict(case=case, kernel=name, rows=m, equal=same)
+            if kind == "main":
+                if lib is not None:
+                    lib_words = (lib() & 0xFFFFFFFF).to(torch.int32)
+                    if not torch.equal(lib_words.view(m, 2048), got[0]):
+                        failures.append(f"scatter_add_ yardstick != kernel: "
+                                        f"{case}")
+                    del lib_words
+                bound_ms, bound_by = _convert_bound(name, x)
+                row.update(
+                    ms=_device_ms(kern, 20),
+                    plain_ms=_device_ms(plain, 3),
+                    library_ms=_device_ms(lib, 10) if lib else None,
+                    event_ms=_time_ms(kern, 20)[1],
+                    event_plain_ms=_time_ms(plain, 3)[1],
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    mean_card=float(x["card"].to(torch.float64).mean()))
+                lib_txt = (f"{row['library_ms']:.4f}" if lib else
+                           "null (no PyTorch call)")
+                log(f"  {case:34s} equal={same} device: kernel "
+                    f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+                    f"library {lib_txt}; events: kernel "
+                    f"{row['event_ms']:.4f} ms; bound {bound_ms:.4f} ms "
+                    f"({bound_by})")
+            cases.append(row)
+            del want, got
+        del x
+        torch.cuda.empty_cache()
+    edges = [c for c in cases if c["case"].startswith("edge")]
+    log(f"  {len(edges)} edge cases: {sum(c['equal'] for c in edges)} "
+        f"equal; launches so far {_convert_counts()}")
+    return cases, max_err
+
+
+def _convert_counts() -> dict:
+    """Launches of each conversion and popcount kernel since the last
+    reset."""
+    from repro_torch.kernels import bitset_convert, harley_seal
+    return {**bitset_convert.launches_by_kernel,
+            **harley_seal.launches_by_kernel}
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path at real scale
 # ---------------------------------------------------------------------------
 
@@ -987,7 +1200,7 @@ def phase_main_path(dev, seed, failures):
         # device busy share over a window of single queries
         tr = _traced(cls, lambda: [_run_query(index, cls, q)
                                    for q in traffic[cls][:16]], dev,
-                     ("reduce_kernel", "threshold_kernel"))
+                     SEGMENT_KERNELS)
         busy_us, kern_us, wall_us = (tr["busy_us"], tr["kernel_us"],
                                      tr["wall_us"])
         idle = tr["idle_share"]
@@ -1648,6 +1861,272 @@ def phase_pairwise(dev, index, sets, seed, failures):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: RoaringTensor at real scale
+# ---------------------------------------------------------------------------
+
+def _window_bitmap(bits):
+    """The port's bitmap of a 2^24-bit bool array made of a few ranges:
+    one run container a touched chunk, then the host ``run_optimize``."""
+    from repro_torch.core import RoaringBitmap
+    from repro_torch.core.containers import RunContainer
+    edges = np.flatnonzero(np.diff(bits.astype(np.int8), prepend=0,
+                                   append=0))
+    by_key = {}
+    for s, e in zip(edges[0::2], edges[1::2]):          # disjoint [s, e)
+        for k in range(s >> 16, ((e - 1) >> 16) + 1):
+            lo, hi = max(s, k << 16), min(e, (k + 1) << 16)
+            by_key.setdefault(k, []).append((lo - (k << 16), hi - lo - 1))
+    keys = sorted(by_key)
+    return RoaringBitmap(keys, [RunContainer(np.array(by_key[k], np.int32))
+                                for k in keys]).run_optimize()
+
+
+def window_bitmaps(seed, n=N_WINDOWS):
+    """``n`` window bitmaps of 1-8 ranges of 4,096 to 1,048,576 documents
+    (log-uniform) over 2^24, and their packed words."""
+    rng = np.random.default_rng(seed + 11)
+    bms, words = [], []
+    for _ in range(n):
+        k = int(rng.integers(1, 9))
+        lens = np.exp(rng.uniform(np.log(4096), np.log(1 << 20), k)) \
+            .astype(np.int64)
+        starts = rng.integers(0, N_DOCS - lens)
+        bits = np.zeros(N_DOCS, bool)
+        for s, n_docs in zip(starts, lens):
+            bits[s:s + n_docs] = True
+        bms.append(_window_bitmap(bits))
+        words.append(np.packbits(bits, bitorder="little").view(np.uint64))
+    return bms, words
+
+
+# the port's kernels in phase 7's windows, by name pattern (the trace
+# holds demangled names)
+_TENSOR_KERNELS = {"array_to_bitset": "a2b_kernel",
+                   "bitset_pair": "pair_kernel",
+                   "segment_reduce": SEGMENT_KERNELS[0]}
+_TENSOR_OP = {"and": lambda x, y: x & y, "or": lambda x, y: x | y,
+              "xor": lambda x, y: x ^ y, "andnot": lambda x, y: x.andnot(y)}
+
+
+def _jaccard32(inter, ca, cb):
+    """The port's float32 Jaccard formula in numpy float32: inter / (ca +
+    cb - inter), 1.0 where the union is empty."""
+    i32 = np.float32(inter)
+    union = np.float32(ca + cb) - i32
+    return np.float32(i32 / union) if union > 0 else np.float32(1.0)
+
+
+def phase_tensor(dev, postings, sets, seed, failures):
+    """``RoaringTensor`` over the index's 1,024 postings and 64 windows
+    at capacity 256 on the card, every operation against the packed
+    numpy oracle; p50 / p99 (host clock, ending in a synchronize) per
+    operation over 5 calls (3 for the largest), the first one checked;
+    profiler windows over one more call of the algebra, a count, the
+    count batch, ``reduce_or`` and ``run_optimize``."""
+    from repro_torch.core import aggregate
+    from repro_torch.core.tensor import KIND_RUN, RoaringTensor
+    from repro_torch.kernels import bitset_convert, harley_seal, segment_ops
+    terms = [f"d{i}" for i in range(N_DENSE)] + \
+        [f"s{i}" for i in range(N_SPARSE)]
+    n_terms = len(terms)
+    t0 = time.perf_counter()
+    windows, window_words = window_bitmaps(seed)
+    bitmaps = [postings[t] for t in terms] + windows
+    b = len(bitmaps)
+    row_of = {t: i for i, t in enumerate(terms)}
+    cache = {}
+
+    def words(i):
+        w = cache.get(i)
+        if w is None:
+            if i >= n_terms:
+                w = window_words[i - n_terms]
+            else:
+                src = sets[terms[i]]
+                w = src if src.dtype == np.uint64 else _packed(src)
+            cache[i] = w
+        return w
+
+    rng = np.random.default_rng(seed + 13)
+    rows64 = np.sort(np.concatenate([
+        rng.choice(N_DENSE, 16, replace=False),
+        rng.choice(np.arange(N_DENSE, n_terms), 32, replace=False),
+        rng.choice(np.arange(n_terms, b), 16, replace=False)]))
+    merges, _, _ = pair_traffic(seed)
+    pairs = [(row_of[x], row_of[y]) for p in PAIRINGS for x, y in merges[p]]
+    pairs += [(n_terms + int(rng.integers(N_WINDOWS)),
+               int(rng.integers(N_DENSE, n_terms))) for _ in range(16)]
+    pl = rng.integers(0, b, 512)
+    pr = rng.integers(0, b, 512)
+    pops = [PAIR_OPS[i % 4] for i in range(512)]
+    q = rng.integers(0, N_DOCS, (64, 4096))
+    for i, r in enumerate(rows64):                # half the probes hit
+        members = bitmaps[r].to_array()
+        q[i, :2048] = rng.choice(members, 2048)
+    t_inputs = time.perf_counter() - t0
+
+    lat, wrong, traces = {}, {}, {}
+
+    def trace(name, fn):
+        """A profiler window over one more call: device busy and kernel
+        time by kernel, bytes copied, idle share."""
+        tr = _traced(f"tensor {name}", fn, dev,
+                     tuple(_TENSOR_KERNELS.values()))
+        traces[name] = tr
+        idle = tr["idle_share"]
+        log(f"  {name:14s} window: wall {tr['wall_us'] / 1e3:.2f} ms, "
+            f"device busy {tr['busy_us'] / 1e3:.2f} ms, kernels "
+            + ", ".join(f"{k} {tr['name_us'][v]:.1f} us"
+                        for k, v in _TENSOR_KERNELS.items())
+            + f"; {tr['h2d_bytes']} bytes up, {tr['d2h_bytes']} down; "
+            "idle share " + (f"{idle:.4f}" if idle is not None else
+                             "not measured"))
+        log("    most device time: " + "; ".join(
+            f"{k[:60]} {v:.1f} us" for k, v in tr["top_kernels"][:3]))
+
+    def timed(name, fn, reps=5):
+        out = None
+        lat[name] = []
+        for i in range(reps):
+            t = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize(dev)
+            lat[name].append((time.perf_counter() - t) * 1e3)
+            if i == 0:
+                out = r
+            del r
+        return out
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts()                         # the tensor path starts here
+    t0 = time.perf_counter()
+    t = RoaringTensor.from_bitmaps(bitmaps, capacity=TENSOR_CAP, device=dev)
+    torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t0
+    kinds = {int(k): int(n) for k, n in zip(*np.unique(
+        t.kinds.cpu().numpy(), return_counts=True))}
+    log(f"  inputs {t_inputs:.1f} s; from_bitmaps {build_s:.2f} s: B = {b}, "
+        f"C = {t.capacity}, slab {t.slab.numel() * 2} bytes, slot kinds "
+        f"{kinds}")
+
+    card = timed("cardinality", t.cardinality).cpu().numpy()
+    nbytes = timed("packed_nbytes", t.packed_nbytes).cpu().numpy()
+    wrong["cardinality"] = int((card != [bm.cardinality
+                                         for bm in bitmaps]).sum())
+    wrong["packed_nbytes"] = int((nbytes != [bm.memory_bytes()
+                                             for bm in bitmaps]).sum())
+    sub = timed("take", lambda: t.take(rows64))
+    got = timed("to_bitmaps", sub.to_bitmaps, reps=2)
+    wrong["take"] = sum(g != bitmaps[r] for g, r in zip(got, rows64))
+
+    # 80 row-aligned pairs: & | ^ andnot, the four counts, jaccard
+    li, ri = [p[0] for p in pairs], [p[1] for p in pairs]
+    lhs, rhs = t.take(li), t.take(ri)
+    want_card = {op: [_popc(_NP_PAIR[op](words(x), words(y)))
+                      for x, y in pairs] for op in PAIR_OPS}
+    for op in PAIR_OPS:
+        res = timed(op, lambda: _TENSOR_OP[op](lhs, rhs))
+        bad = sum(not np.array_equal(_to_packed(g), _NP_PAIR[op](
+            words(x), words(y))) for g, (x, y) in zip(res.to_bitmaps(),
+                                                      pairs))
+        bad += int((res.cardinality().cpu().numpy() != want_card[op]).sum())
+        got = timed(f"{op}_card", lambda: getattr(lhs, f"{op}_card")(rhs))
+        bad += int((got.cpu().numpy() != want_card[op]).sum())
+        wrong[op] = bad
+        del res
+    jac = timed("jaccard", lambda: lhs.jaccard(rhs)).cpu().numpy()
+    want_j = np.array([_jaccard32(i, _popc(words(x)), _popc(words(y)))
+                       for i, (x, y) in zip(want_card["and"], pairs)],
+                      np.float32)
+    wrong["jaccard"] = int((jac.view(np.int32) != want_j.view(np.int32))
+                           .sum())
+    trace("and", lambda: lhs & rhs)
+    trace("and_card", lambda: lhs.and_card(rhs))
+    del lhs, rhs
+
+    # a mixed-op count batch over 512 random pairs of the full tensor
+    got = timed("pairwise_card", lambda: t.pairwise_card(
+        t, pops, lhs_idx=pl, rhs_idx=pr), reps=3).cpu().numpy()
+    want = [_popc(_NP_PAIR[o](words(x), words(y)))
+            for o, x, y in zip(pops, pl, pr)]
+    wrong["pairwise_card"] = int((got != want).sum())
+    trace("pairwise_card", lambda: t.pairwise_card(
+        t, pops, lhs_idx=pl, rhs_idx=pr))
+
+    # membership: 4,096 document ids on each of the 64 rows
+    got = timed("contains", lambda: sub.contains(q)).cpu().numpy()
+    want = np.stack([((words(r)[q[i] >> 6] >> (q[i] & 63).astype(
+        np.uint64)) & np.uint64(1)).astype(bool)
+        for i, r in enumerate(rows64)])
+    wrong["contains"] = int((got != want).sum())
+
+    # reduce_or of the whole tensor: one segment_reduce launch
+    res = timed("reduce_or", t.reduce_or, reps=3)
+    union = np.zeros(N_DOCS // 64, np.uint64)
+    for i in range(b):
+        union |= words(i)
+    wrong["reduce_or"] = int(not np.array_equal(
+        _to_packed(res.to_bitmaps()[0]), union))
+    trace("reduce_or", t.reduce_or)
+
+    # run_optimize of the 64 window rows and the 64 dense rows
+    ro_rows = list(range(n_terms, b)) + list(range(N_DENSE))
+    sub_ro = t.take(ro_rows)
+    res = timed("run_optimize", sub_ro.run_optimize, reps=3)
+    host = [bitmaps[r].copy().run_optimize() for r in ro_rows]
+    got = res.to_bitmaps()
+    wrong["run_optimize"] = sum(g != h for g, h in zip(got, host)) + int((
+        res.packed_nbytes().cpu().numpy() != [h.memory_bytes()
+                                              for h in host]).sum())
+    kind_differs = sum([c.kind for c in g.containers] !=
+                       [c.kind for c in h.containers]
+                       for g, h in zip(got, host))
+    run_slots = int((res.kinds == KIND_RUN).sum())
+    trace("run_optimize", sub_ro.run_optimize)
+    del res, sub_ro
+
+    # to_arena of the 64 rows, then a wide OR over the new arena
+    arena, bms = timed("to_arena", sub.to_arena, reps=1)
+    res = timed("or_many", lambda: aggregate.or_many(bms, arena=arena))
+    want = np.bitwise_or.reduce([words(r) for r in rows64])
+    wrong["to_arena_or_many"] = int(not np.array_equal(_to_packed(res),
+                                                       want))
+    torch.cuda.synchronize(dev)
+    launches = {**bitset_convert.launches_by_kernel,
+                **harley_seal.launches_by_kernel, **_pair_counts(),
+                "segment_reduce": segment_ops.launches}
+    peak = torch.cuda.max_memory_allocated(dev)       # the path ends here
+    del t, sub, arena, bms
+    torch.cuda.empty_cache()
+
+    ops = {name: dict(calls=len(ls), p50_ms=float(np.percentile(ls, 50)),
+                      p99_ms=float(np.percentile(ls, 99)))
+           for name, ls in lat.items()}
+    for name, o in ops.items():
+        log(f"  {name:14s} p50 {o['p50_ms']:9.2f} ms  p99 "
+            f"{o['p99_ms']:9.2f} ms  ({o['calls']} calls)")
+    log(f"  wrong {wrong}; run_optimize: {run_slots} run slots, "
+        f"{kind_differs} rows whose kinds differ from the host's (ties "
+        f"of equal bytes)")
+    log(f"  launches {launches}; max_memory_allocated {peak}")
+    if any(wrong.values()):
+        failures.append(f"tensor: answers differ from the oracle: {wrong}")
+    missing = [k for k in ("array_to_bitset", "bitset_pair_op",
+                           "bitset_pair_card", "segment_reduce")
+               if launches[k] == 0]
+    if missing:
+        failures.append(f"tensor: kernels never launched: {missing}")
+    return dict(batch=b, capacity=TENSOR_CAP, slot_kinds=kinds,
+                slab_bytes=b * TENSOR_CAP * 8192, build_s=build_s,
+                inputs_s=t_inputs, ops=ops, traces=traces, wrong=wrong,
+                pairs=len(pairs),
+                pairwise_pairs=len(pops), run_slots=run_slots,
+                kind_differs=kind_differs, launches=launches,
+                max_memory_allocated=peak)
+
+
+# ---------------------------------------------------------------------------
 
 def _build_all():
     """Build every kernel source at once, one nvcc each, in parallel.
@@ -1677,7 +2156,8 @@ def _build_all():
 
 
 def _kernel_line(main_path, sim, cases, topk_cases, max_err, topk_err,
-                 pair_cases, pair_err, pairwise):
+                 pair_cases, pair_err, pairwise, convert_cases, convert_err,
+                 tensor):
     rep = next(c for c in cases if c["case"] == "main/ids/or")
     score = next(c for c in topk_cases
                  if c["case"] == "score/main/jaccard/exclude=-1")
@@ -1722,7 +2202,23 @@ def _kernel_line(main_path, sim, cases, topk_cases, max_err, topk_err,
             ("bitset_pair_card", "pair_ops.cu", "pair_ops.py:118"),
             ("array_bitset_probe", "pair_ops.cu", "pair_ops.py:169"),
             ("array_pair_masks", "array_ops.cu", "array_ops.py:161"),
-            ("array_intersect_card", "array_ops.cu", "array_ops.py:216"))]}
+            ("array_intersect_card", "array_ops.cu", "array_ops.py:216"))
+    ] + [
+        # the conversion kernels and the popcount at M = 245,760 (one
+        # to_words of the sparse terms), device times from the profiler;
+        # launches from phase 7 (no path runs bitset_set_many, and the
+        # run count forces the plain popcount); library_ms: one
+        # scatter_add_ of the masked values for array_to_bitset, none for
+        # the two popcounts (PyTorch has no popcount)
+        row(name, source, f"src/repro/kernels/{site}",
+            tensor["launches"][name], convert_err[name],
+            next(c for c in convert_cases
+                 if c["case"] == f"main/M={CONVERT_M}/{name}"))
+        for name, source, site in (
+            ("array_to_bitset", "bitset_convert.cu", "bitset_convert.py:84"),
+            ("bitset_set_many", "bitset_convert.cu",
+             "bitset_convert.py:103"),
+            ("popcount", "popcount.cu", "harley_seal.py:99"))]}
 
 
 def main() -> int:
@@ -1767,31 +2263,48 @@ def main() -> int:
                                  phase_pair_kernels, dev, args.seed,
                                  failures)
     log(f"  {len(pair_cases)} cases, max_abs_err {pair_err}")
+    convert_cases, convert_err = phase(
+        "2d (conversion kernels against plain)", phase_convert_kernels, dev,
+        args.seed, failures)
+    log(f"  {len(convert_cases)} cases, max_abs_err {convert_err}")
     main_path, ctx = phase("3 (boolean queries at real scale)",
                            phase_main_path, dev, args.seed, failures)
     main_path["pair_launches"] = _pair_counts()
+    main_path["convert_launches"] = _convert_counts()
     sim, sim_cases = phase("4 (similarity at real scale)",
                            phase_similarity, dev, ctx["index"],
                            ctx["sets"], args.seed, failures)
     sim["pair_launches"] = _pair_counts()
+    sim["convert_launches"] = _convert_counts()
     server = phase("5 (query server)", phase_server, dev, ctx["index"],
                    ctx["traffic"], ctx["answers"], sim_cases, failures)
     server["faults"] = phase("5 (query server under scripted faults)",
                              phase_server_faults, dev, ctx["postings"],
                              ctx["sets"], args.seed, failures)
     server["pair_launches"] = _pair_counts()
+    server["convert_launches"] = _convert_counts()
     pairwise = phase("6 (two-by-two algebra at real scale)",
                      phase_pairwise, dev, ctx["index"], ctx["sets"],
                      args.seed, failures)
+    pairwise["convert_launches"] = _convert_counts()
+    tensor = phase("7 (RoaringTensor at real scale)", phase_tensor, dev,
+                   ctx["postings"], ctx["sets"], args.seed, failures)
+    log("conversion and popcount launches in phases 3 / 4 / 5 / 6 / 7: "
+        + "  ".join(f"{k} " + " / ".join(str(p[k]) for p in (
+            main_path["convert_launches"], sim["convert_launches"],
+            server["convert_launches"], pairwise["convert_launches"],
+            tensor["launches"])) for k in CONVERT_KERNELS))
 
     kernels = _kernel_line(main_path, sim, cases, topk_cases, max_err,
-                           topk_err, pair_cases, pair_err, pairwise)
+                           topk_err, pair_cases, pair_err, pairwise,
+                           convert_cases, convert_err, tensor)
     REPORT.parent.mkdir(exist_ok=True)
     REPORT.write_text(json.dumps(dict(
         card=card, builds=builds, kernel_cases=cases,
         topk_cases=topk_cases, topk_inputs=topk_info, main_path=main_path,
         similarity=sim, server=server, pair_cases=pair_cases,
-        pairwise=pairwise, kernels=kernels["kernels"],
+        pairwise=pairwise, convert_cases=convert_cases, tensor=tensor,
+        kernels=kernels["kernels"],
         phases_s=phases, failures=failures,
         total_s=time.perf_counter() - t_all), indent=1, default=str))
     log(f"total {time.perf_counter() - t_all:.1f} s")

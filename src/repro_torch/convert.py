@@ -11,17 +11,26 @@ module importing that package.
 An index's parts are its postings alone: the similarity engine, the arena
 and the query server are derived from the postings at run time, so two
 indexes built from the same parts answer every query alike.
+
+A ``RoaringTensor``'s parts are its five component arrays: ``keys``,
+``kinds``, ``cards`` and ``aux`` as int32 and ``slab`` as uint16.
+:func:`tensor_to_parts` reads them off any object with those attributes
+(torch tensors, or arrays numpy can read), so a JAX-package tensor
+converts the same way.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.bitmap import RoaringBitmap
 from repro_torch.core.containers import (
     ArrayContainer, BitsetContainer, RunContainer,
 )
+from repro_torch.core.tensor import RoaringTensor
 from repro_torch.data.index import InvertedIndex
+from repro_torch.kernels.ops import resolve_device
 
 _PAYLOAD = {"array": "values", "bitset": "words", "run": "runs"}
 
@@ -59,3 +68,30 @@ def index_from_parts(postings_parts, n_docs: int, *, arena=None,
     return InvertedIndex.from_postings(
         {t: bitmap_from_parts(*parts) for t, parts in postings_parts.items()},
         n_docs, arena=arena, device=device)
+
+
+def _host(x) -> np.ndarray:
+    return np.asarray(x.cpu().numpy() if isinstance(x, torch.Tensor) else x)
+
+
+def tensor_to_parts(t) -> tuple[np.ndarray, ...]:
+    """(keys, kinds, cards, aux, slab) of a RoaringTensor as numpy copies:
+    the first four int32, ``slab`` uint16 (an int16 slab is read as its
+    bits)."""
+    keys, kinds, cards, aux = (np.array(_host(getattr(t, n)), np.int32)
+                               for n in ("keys", "kinds", "cards", "aux"))
+    slab = np.ascontiguousarray(_host(t.slab))
+    slab = slab.view(np.uint16).copy() if slab.dtype == np.int16 else \
+        np.array(slab, np.uint16)
+    return keys, kinds, cards, aux, slab
+
+
+def tensor_from_parts(keys, kinds, cards, aux, slab, *,
+                      device=None) -> RoaringTensor:
+    """The port's RoaringTensor with exactly these components, on
+    ``device`` (the card unless the caller names another)."""
+    dev = resolve_device(device)
+    ints = (torch.from_numpy(np.array(x, np.int32)).to(dev)
+            for x in (keys, kinds, cards, aux))
+    slab = torch.from_numpy(np.array(slab, np.uint16).view(np.int16)).to(dev)
+    return RoaringTensor(*ints, slab)

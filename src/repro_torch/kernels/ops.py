@@ -2,8 +2,9 @@
 
 ``backend``:
   * None   -- the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors (the wrappers in ``segment_ops``, ``topk_ops``, ``pair_ops``
-    and ``array_ops`` decide by the tensor's device);
+    tensors (the wrappers in ``segment_ops``, ``topk_ops``, ``pair_ops``,
+    ``array_ops``, ``bitset_convert`` and ``harley_seal`` decide by the
+    tensor's device);
   * "cuda" -- always the CUDA kernel; a CPU tensor raises;
   * "ref"  -- always the plain PyTorch version (``kernels/ref.py``).
 
@@ -16,6 +17,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import array_ops as _array_ops
+from repro_torch.kernels import bitset_convert as _convert
+from repro_torch.kernels import harley_seal as _hs
 from repro_torch.kernels import pair_ops as _pair_ops
 from repro_torch.kernels import ref
 from repro_torch.kernels import segment_ops as _segment_ops
@@ -66,6 +69,48 @@ def _route(backend, table: torch.Tensor) -> bool:
     if backend == "cuda" and table.device.type != "cuda":
         raise ValueError(f"backend 'cuda' given a tensor on {table.device}")
     return backend == "ref"
+
+
+def popcount(words, *, backend=None):
+    """(N,) int32 cardinalities of (N, WORDS) int32 bitset rows."""
+    if _route(backend, words):
+        return ref.popcount_words(words)
+    return _hs.popcount(words)
+
+
+def _values_and_card(values, card, device=None):
+    """Contiguous int32 tensors of array rows and their cards, on
+    ``device`` (default: the values' own, the CPU for numpy)."""
+    values = torch.as_tensor(values, device=device).to(
+        torch.int32).contiguous()
+    card = torch.as_tensor(card, dtype=torch.int32,
+                           device=values.device).contiguous()
+    return values, card
+
+
+def array_to_bitset(values, card, *, backend=None):
+    """(M, WORDS) int32 words of (M, ARRAY_CAP) array rows whose first
+    ``card[r]`` slots are valid (paper section 3.2's conversion)."""
+    values, card = _values_and_card(values, card)
+    if _route(backend, values):
+        return ref.array_to_bitset(values, card)
+    return _convert.array_to_bitset(values, card)
+
+
+def bitset_set_many(words, values, card, *, backend=None):
+    """OR array rows into (M, WORDS) int32 words: (new words, (M,) int32
+    cardinality delta), paper section 3.2 fused."""
+    values, card = _values_and_card(values, card, words.device)
+    if _route(backend, words):
+        return ref.bitset_set_many(words, values, card)
+    return _convert.bitset_set_many(words, values, card)
+
+
+def bitset_to_array(words):
+    """(values (N, ARRAY_CAP) int32, card (N,) int32) of (N, WORDS) int32
+    rows.  Plain PyTorch on every device, as the JAX package's extraction
+    is plain jnp on every backend: it is no Pallas site."""
+    return ref.bitset_to_array(words)
 
 
 def segment_reduce(slab, starts, op: str, *, jmax: int, threshold=0,

@@ -2,10 +2,14 @@
 
 These are the torch twins of the JAX package's ``kernels/ref.py`` for the
 segmented wide aggregation, for the similarity top-k (its score and select
-stages) and for the two-by-two pair classes (bitset x bitset, array x
-bitset, array x array).  The CPU tests run them against the JAX
-reference, and ``chip_smoke.py`` holds the CUDA kernel against them on the
-card.  Nothing on the card's main path calls them.
+stages), for the two-by-two pair classes (bitset x bitset, array x
+bitset, array x array) and for the array <-> bitset conversions.  The CPU
+tests run them against the JAX reference, and ``chip_smoke.py`` holds the
+CUDA kernel against them on the card.  On the card's main path only what
+the JAX package also leaves outside its kernels runs here:
+:func:`bitset_to_array` (plain jnp on every JAX backend) and the popcount
+of run starts, which ``RoaringTensor`` forces to the plain version as the
+JAX class does.
 
 Word layout: one Roaring bitset container = 2048 32-bit words, bit ``i`` in
 word ``i >> 5`` at position ``i & 31``.  Words are held as bit-reinterpreted
@@ -28,15 +32,19 @@ _M2 = 0x33333333
 _M4 = 0x0F0F0F0F
 
 
-def popcount_words(words: torch.Tensor) -> torch.Tensor:
-    """(..., WORDS) int32 words -> (...,) int32 cardinality (SWAR popcount
-    in int64, so no intermediate can overflow or sign-extend)."""
+def popcount_u32(words: torch.Tensor) -> torch.Tensor:
+    """Per-word popcount of int32 words, int64 (SWAR in int64, so no
+    intermediate can overflow or sign-extend)."""
     v = words.to(torch.int64) & 0xFFFFFFFF
     v = v - ((v >> 1) & _M1)
     v = (v & _M2) + ((v >> 2) & _M2)
     v = (v + (v >> 4)) & _M4
-    v = ((v * 0x01010101) >> 24) & 0xFF
-    return v.sum(dim=-1).to(torch.int32)
+    return ((v * 0x01010101) >> 24) & 0xFF
+
+
+def popcount_words(words: torch.Tensor) -> torch.Tensor:
+    """(..., WORDS) int32 words -> (...,) int32 cardinality."""
+    return popcount_u32(words).sum(dim=-1).to(torch.int32)
 
 
 def segment_reduce(slab: torch.Tensor, starts: torch.Tensor, op: str, *,
@@ -329,3 +337,93 @@ def array_bitset_probe(vals: torch.Tensor, card: torch.Tensor,
     bit = (w >> (vals & 31)) & 1
     mask = torch.where(_slots_below(card), bit, 0).to(torch.int32)
     return mask, mask.sum(dim=-1, dtype=torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# array <-> bitset conversion (paper sections 3.1 / 3.2)
+# ---------------------------------------------------------------------------
+
+_BITS_CHUNK = 2048      # rows per pass of bitset_to_array: < 400 MiB of
+                        # temporaries (64 KiB of bits a row and at most
+                        # 4,127 positions of 16 bytes)
+
+
+def array_to_bitset(values: torch.Tensor, card: torch.Tensor
+                    ) -> torch.Tensor:
+    """(M, ARRAY_CAP) int values, (M,) card -> (M, WORDS) int32 words.
+
+    The first ``card[r]`` slots of row r are its values (a card above
+    ARRAY_CAP makes every slot valid, one of 0 or below none).  Each valid
+    value v in [0, 65535] ADDS ``1 << (v & 31)`` to word ``v >> 5`` modulo
+    2^32, the JAX package's disjoint-sum trick: distinct values make that an
+    OR, and a repeated value carries into the next bit, as in both JAX
+    versions.  A value outside [0, 65535] drops, as in the Pallas kernel
+    (the JAX ``ref.array_to_bitset`` instead wraps a negative word index).
+    Only the valid slots are gathered, so no scatter index is out of
+    range; memory is about 20 KiB a row (a mask and int64 words) and 40
+    bytes a valid value."""
+    m = values.shape[0]
+    vals = values.to(torch.int32)
+    valid = _slots_below(card) & (vals >= 0) & (vals < CONTAINER_BITS)
+    r, c = valid.nonzero(as_tuple=True)
+    v = vals[r, c].to(torch.int64)
+    out = torch.zeros(m * WORDS, dtype=torch.int64, device=values.device)
+    out.index_add_(0, r * WORDS + (v >> 5), torch.ones_like(v) << (v & 31))
+    return (out & 0xFFFFFFFF).to(torch.int32).view(m, WORDS)
+
+
+def bitset_set_many(words: torch.Tensor, values: torch.Tensor,
+                    card: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """OR an array container into existing (M, WORDS) int32 words,
+    tracking the cardinality change with the paper's XOR trick (section
+    3.2).  Returns (new words, delta (M,) int32 = popcount(old ^ new))."""
+    new = words | array_to_bitset(values, card)
+    return new, popcount_words(words ^ new)
+
+
+def unpack_bits(words: torch.Tensor) -> torch.Tensor:
+    """(M, WORDS) int32 -> (M, CONTAINER_BITS) bool: bit i of the container
+    at column i (words read as little-endian bytes, as CPU and GPU are)."""
+    b = words.contiguous().view(torch.uint8)
+    shifts = torch.arange(8, dtype=torch.uint8, device=words.device)
+    return ((b[..., None] >> shifts) & 1).view(words.shape[0], -1).bool()
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`unpack_bits`: (M, CONTAINER_BITS) bool -> (M,
+    WORDS) int32."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=bits.device)
+    b = bits.view(bits.shape[0], -1, 8).to(torch.uint8) << shifts
+    return b.sum(dim=-1, dtype=torch.uint8).view(torch.int32)
+
+
+def first_positions(words: torch.Tensor, limit: int
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The first ``limit`` set bits of each row, in order: (row, rank,
+    position) int64 triples.  Words past the ``limit``-th set bit are
+    masked first, so at most ``limit + 31`` positions a row are listed."""
+    per = popcount_u32(words)
+    before = torch.cumsum(per, dim=1) - per
+    bits = unpack_bits(torch.where(before < limit, words, 0))
+    r, pos = bits.nonzero(as_tuple=True)
+    counts = torch.bincount(r, minlength=words.shape[0])
+    first = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(r.numel(), device=words.device) - first[r]
+    keep = rank < limit
+    return r[keep], rank[keep], pos[keep]
+
+
+def bitset_to_array(words: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(N, WORDS) int32 -> ((N, ARRAY_CAP) int32 sorted values, (N,) int32
+    card), the section 3.1 extraction.  Positions beyond the cardinality
+    are padded with CONTAINER_BITS (an impossible value); a row of more
+    than ARRAY_CAP bits keeps its ARRAY_CAP smallest, matching the
+    fixed-capacity layout.  The JAX reference expands a 2^16-long prefix
+    sum a row; this lists the set bits instead, in chunks of rows."""
+    n = words.shape[0]
+    vals = torch.full((n, ARRAY_CAP), CONTAINER_BITS, dtype=torch.int32,
+                      device=words.device)
+    for lo in range(0, n, _BITS_CHUNK):
+        r, rank, pos = first_positions(words[lo:lo + _BITS_CHUNK], ARRAY_CAP)
+        vals[lo + r, rank] = pos.to(torch.int32)
+    return vals, popcount_words(words)

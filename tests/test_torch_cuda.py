@@ -14,7 +14,12 @@ and count) against their plain versions at the edge cases (M = 0 and 1,
 cards 0, 1 and 4,096, identical and disjoint arrays, the values 0 and
 65535, mixed op ids with -1 and 7, all-zero and all-ones words), each with
 one off-contract input that must not fault, and ``merge_one`` /
-``pairwise_card`` with ``backend="cuda"`` against ``backend="ref"``.
+``pairwise_card`` with ``backend="cuda"`` against ``backend="ref"``.  The
+conversion kernels (array_to_bitset, bitset_set_many) and the popcount
+against their plain versions, off-contract values, cards and duplicates
+included, bit-equal; and a ``RoaringTensor`` built with the default device,
+which lands on the card and launches array_to_bitset, the pair kernels and
+segment_reduce, against the same tensor on the CPU.
 
 These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip.  Run
 them on a GPU machine with ``PYTHONPATH=src python -m pytest -q -m cuda
@@ -26,7 +31,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import (
-    array_ops, pair_ops, ref, segment_ops, topk_ops,
+    array_ops, bitset_convert, harley_seal, pair_ops, ref, segment_ops,
+    topk_ops,
 )
 from repro_torch.kernels.ref import ARRAY_CAP, METRICS, WORDS
 
@@ -648,3 +654,109 @@ def test_planner_on_the_card_matches_ref(cuda):
     assert np.array_equal(got, want) and np.array_equal(got, host)
     assert min(pair_ops.launches_by_kernel.values()) > 0
     assert min(array_ops.launches_by_kernel.values()) > 0
+
+
+def _conversion_case(seed, m):
+    """Array rows for the conversion kernels: cards -1, 0, 1, 4,096 and
+    5,000 among sparse ones, sorted distinct values below each card with
+    garbage after it, the values 0 and 65,535, and off-contract rows with
+    duplicates and values outside [0, 65535]; old words with all-zero and
+    all-ones rows."""
+    rng = np.random.default_rng(seed)
+    card = rng.integers(1, 130, m).astype(np.int32)
+    card[:5][:m] = np.array([-1, 0, 1, ARRAY_CAP, 5000])[:m]
+    vals = rng.integers(-2**31, 2**31, (m, ARRAY_CAP),
+                        dtype=np.int64).astype(np.int32)
+    for r in range(m):
+        c = min(max(int(card[r]), 0), ARRAY_CAP)
+        vals[r, :c] = np.sort(rng.choice(1 << 16, c, replace=False))
+    if m > 7:
+        vals[5, :4] = [0, 65535, 65536, -1]
+        vals[6, :6] = [3, 3, 31, 31, 64, 64]
+        vals[7, :5] = [-33, 70000, 2**31 - 1, -2**31, 9]
+        card[5:8] = [4, 6, 5]
+    old = rng.integers(0, 1 << 32, (m, WORDS), dtype=np.uint32)
+    old[::3] = 0
+    old[1::3] = 0xFFFFFFFF
+    return vals, card, old
+
+
+@pytest.mark.parametrize("m", [0, 1, 8, 300])
+def test_conversion_kernels_match_plain(cuda, m):
+    vals, card, old = _conversion_case(m + 40, m)
+    v, c, o = _i32(vals, cuda), _i32(card, cuda), _i32(old, cuda)
+    bitset_convert.reset_launches()
+    got = bitset_convert.array_to_bitset(v, c)
+    new, delta = bitset_convert.bitset_set_many(o, v, c)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.array_to_bitset(v, c))
+    want_new, want_delta = ref.bitset_set_many(o, v, c)
+    assert torch.equal(new, want_new) and torch.equal(delta, want_delta)
+    assert torch.equal(o, _i32(old, cuda))           # input untouched
+    assert bitset_convert.launches_by_kernel == {
+        "array_to_bitset": int(m > 0), "bitset_set_many": int(m > 0)}
+
+
+@pytest.mark.parametrize("m", [0, 1, 8, 300])
+def test_popcount_kernel_matches_plain(cuda, m):
+    _, _, old = _conversion_case(m + 60, m)
+    w = _i32(old, cuda)
+    harley_seal.reset_launches()
+    got = harley_seal.popcount(w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.popcount_words(w))
+    assert harley_seal.launches == int(m > 0)
+
+
+def test_conversion_wrappers_raise_on_bad_input(cuda):
+    v = torch.zeros((4, ARRAY_CAP), dtype=torch.int32, device=cuda)
+    c = torch.zeros(4, dtype=torch.int32, device=cuda)
+    w = torch.zeros((4, WORDS), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        bitset_convert.array_to_bitset(v.to(torch.int64), c)
+    with pytest.raises(ValueError):
+        bitset_convert.array_to_bitset(v, c[:3])
+    with pytest.raises(ValueError):
+        bitset_convert.bitset_set_many(w[:, ::2], v[:, :1024], c)
+    with pytest.raises(ValueError):
+        harley_seal.popcount(w.t())
+
+
+def test_roaring_tensor_on_the_card(cuda):
+    """A RoaringTensor built with the default device lands on the card;
+    its operations launch array_to_bitset, the pair kernels and
+    segment_reduce and equal the same tensor's on the CPU, component by
+    component."""
+    from repro_torch import convert
+    from repro_torch.core.tensor import RoaringTensor
+    bms = _mixed_pair_bitmaps(41)
+    t = RoaringTensor.from_bitmaps(bms[:3], capacity=32)
+    u = RoaringTensor.from_bitmaps(bms[3:], capacity=32)
+    assert t.device.type == "cuda"
+    tc = RoaringTensor.from_bitmaps(bms[:3], capacity=32, device="cpu")
+    uc = RoaringTensor.from_bitmaps(bms[3:], capacity=32, device="cpu")
+
+    def same(x, y):
+        return all(np.array_equal(p, q) for p, q in zip(
+            convert.tensor_to_parts(x), convert.tensor_to_parts(y)))
+    for mod in (bitset_convert, pair_ops, segment_ops):
+        mod.reset_launches()
+    assert torch.equal(t.to_words().cpu(), tc.to_words())
+    for op in ("__and__", "__or__", "__xor__", "andnot"):
+        assert same(getattr(t, op)(u), getattr(tc, op)(uc)), op
+    assert torch.equal(t.and_card(u).cpu(), tc.and_card(uc))
+    assert torch.equal(t.jaccard(u).cpu(), tc.jaccard(uc))
+    got = t.pairwise_card(u, ["and", "xor", "or"], lhs_idx=[0, 2, 2],
+                          rhs_idx=[1, 1, 0])
+    assert torch.equal(got.cpu(), tc.pairwise_card(
+        uc, ["and", "xor", "or"], lhs_idx=[0, 2, 2], rhs_idx=[1, 1, 0]))
+    assert same(t.reduce_or(), tc.reduce_or())
+    assert same(t.run_optimize(), tc.run_optimize())
+    q = np.random.default_rng(3).integers(0, 24 << 16, (3, 500))
+    assert torch.equal(t.contains(q).cpu(), tc.contains(q))
+    assert t.to_bitmaps() == bms[:3]
+    torch.cuda.synchronize()
+    assert bitset_convert.launches_by_kernel["array_to_bitset"] > 0
+    assert pair_ops.launches_by_kernel["bitset_pair_op"] > 0
+    assert pair_ops.launches_by_kernel["bitset_pair_card"] > 0
+    assert segment_ops.launches == 1

@@ -43,10 +43,11 @@ def _imports(path):
 
 def test_package_files_exist():
     for name in ("segment_reduce", "similarity_topk", "pair_ops",
-                 "array_ops"):
+                 "array_ops", "bitset_convert", "popcount"):
         assert (PKG / "kernels" / "csrc" / f"{name}.cu").is_file()
     for name in ("kernels/pair_ops.py", "kernels/array_ops.py",
-                 "core/pairwise.py"):
+                 "core/pairwise.py", "kernels/bitset_convert.py",
+                 "kernels/harley_seal.py", "core/tensor.py"):
         assert PKG / name in FILES
     assert len(FILES) > 10 and all(f.is_file() for f in FILES)
 
@@ -90,8 +91,13 @@ def test_defaults_raise_without_gpu():
     _no_gpu()
     from repro_torch.core import BitmapArena, RoaringBitmap, aggregate
     from repro_torch.core.pairwise import SimilarityEngine
+    from repro_torch.core.tensor import RoaringTensor, block_mask_words
     from repro_torch.data.index import InvertedIndex
     bms = [RoaringBitmap.from_values(np.arange(i, 70000, 3)) for i in (0, 1)]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RoaringTensor.from_bitmaps(bms)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        block_mask_words(bms, 128)
     with pytest.raises(RuntimeError, match="CUDA"):
         SimilarityEngine(bms)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -149,6 +155,26 @@ def test_pair_kernel_route_does_not_fall_back_to_cpu():
     cc = torch.zeros(2, dtype=torch.int32)
     with pytest.raises(ValueError, match="cuda"):
         ops.array_pair_masks(cv, cc, cv, cc, backend="cuda")
+
+
+def test_conversion_kernel_route_does_not_fall_back_to_cpu():
+    """The conversion and popcount wrappers raise for a tensor that is not
+    on the CPU or a GPU, and a forced "cuda" backend raises on CPU
+    tensors."""
+    from repro_torch.kernels import bitset_convert, harley_seal, ops
+    meta = dict(dtype=torch.int32, device="meta")
+    w = torch.zeros((2, 2048), **meta)
+    v = torch.zeros((2, 4096), **meta)
+    c = torch.zeros(2, **meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        bitset_convert.array_to_bitset(v, c)
+    with pytest.raises(ValueError, match="CUDA"):
+        bitset_convert.bitset_set_many(w, v, c)
+    with pytest.raises(ValueError, match="CUDA"):
+        harley_seal.popcount(w)
+    cw = torch.zeros((2, 2048), dtype=torch.int32)
+    with pytest.raises(ValueError, match="cuda"):
+        ops.popcount(cw, backend="cuda")
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -220,8 +246,10 @@ def test_similarity_kernel_route_does_not_fall_back_to_cpu():
                                   "kernels/topk_ops.py",
                                   "kernels/pair_ops.py",
                                   "kernels/array_ops.py",
+                                  "kernels/bitset_convert.py",
+                                  "kernels/harley_seal.py",
                                   "kernels/_build.py", "kernels/ops.py",
-                                  "core/pairwise.py"])
+                                  "core/pairwise.py", "core/tensor.py"])
 def test_every_except_reraises(name):
     tree = ast.parse((PKG / name).read_text())
     for node in ast.walk(tree):
