@@ -40,6 +40,14 @@ toolkit (``nvcc``).  Phases, each timed:
    must be bit-equal; device times of kernel, plain version and library
    yardstick (one ``scatter_add_`` over the masked values for
    array_to_bitset) and the bound are printed.
+2e. The section-4 kernels (the fused bitset op and count for each of and,
+   or, xor and andnot; the A-side sorted-array intersection) against
+   their plain versions on phase 2c's inputs (M = 256 and 8,192) and edge
+   cases (M = 0, 1 and 8: cards 0 and 4,096, one side empty, a card above
+   4,096, a negative card, an A value of 65537 beside B's padding).
+   Words, masks and counts must be bit-equal; device times of kernel,
+   plain version and library yardstick (``torch.searchsorted`` for the
+   intersection) and the bound are printed.
 3. Boolean queries at real scale: an ``InvertedIndex`` over 2^24 documents
    and 1,024 terms on a ``BitmapArena`` on the card (64 dense bitset
    terms, 960 sparse array terms), 64 queries of each boolean class run
@@ -83,8 +91,18 @@ toolkit (``nvcc``).  Phases, each timed:
    and ``to_arena`` followed by ``or_many``, each against the packed numpy
    oracle (host ``run_optimize`` for the kinds' bytes); p50 / p99 per
    operation and the peak device memory.
+8. The caller-less ``kernels.ops`` entry points on the same index:
+   ``popcount`` of all 16,384 dense bitset rows read from the arena's
+   slab, ``bitset_op`` and ``bitset_op_card`` (every op) over the dense
+   terms paired (t, t+1) (8,192 rows), ``bitset_set_many`` of the dense
+   rows with sparse arrays of the same chunks (16,384 rows),
+   ``array_intersect`` and ``array_difference`` over the sparse terms
+   paired (t, t+1) (122,880 array rows a side, 1.875 GiB each) and the
+   plain intersection once at that size; every answer against the packed
+   numpy oracle; p50 / p99, one profiler window per entry point, launches
+   and peak device memory.
 
-Launch counts are set to 0 just before each of phases 3, 4, 5, 6 and 7 and
+Launch counts are set to 0 just before each of phases 3 to 8 and
 read just after it; a kernel that a phase's path runs and that launched no time
 there fails the script.  Then one JSON line with every kernel's numbers,
 and the last line ``{"ok": true, "device": {...}}``.
@@ -120,12 +138,14 @@ OPS = (("or", None), ("and", None), ("xor", None), ("andnot", None),
        ("threshold", "per_segment"), ("threshold", "weights"))
 SOURCES = ("slab", "ids", "dual")
 SOURCES_CU = ("segment_reduce", "similarity_topk", "pair_ops",
-              "array_ops", "bitset_convert", "popcount")   # csrc/<name>.cu
+              "array_ops", "bitset_convert", "popcount",
+              "bitset_ops")                                 # csrc/<name>.cu
 PAIR_OPS = ("and", "or", "xor", "andnot")
 PAIRINGS = ("dense x dense", "dense x sparse", "sparse x dense",
             "sparse x sparse")
 PAIR_KERNELS = ("bitset_pair_op", "bitset_pair_card", "array_bitset_probe",
                 "array_pair_masks", "array_intersect_card")
+SECTION4_KERNELS = ("bitset_op", "bitset_op_card", "array_intersect")
 METRICS = ("jaccard", "cosine", "containment")
 SIM_T = 1024                  # candidates at the main path: the terms
 CONVERT_KERNELS = ("array_to_bitset", "bitset_set_many", "popcount")
@@ -141,18 +161,28 @@ def log(msg: str) -> None:
 def _reset_counts() -> None:
     """Set every kernel wrapper's launch counts to 0."""
     from repro_torch.kernels import (
-        array_ops, bitset_convert, harley_seal, pair_ops, segment_ops,
-        topk_ops,
+        array_ops, bitset_convert, bitset_ops, harley_seal, pair_ops,
+        segment_ops, topk_ops,
     )
     for mod in (segment_ops, topk_ops, pair_ops, array_ops, bitset_convert,
-                harley_seal):
+                harley_seal, bitset_ops):
         mod.reset_launches()
 
 
 def _pair_counts() -> dict:
     """Launches of each pair kernel since the last reset."""
     from repro_torch.kernels import array_ops, pair_ops
-    return {**pair_ops.launches_by_kernel, **array_ops.launches_by_kernel}
+    both = {**pair_ops.launches_by_kernel, **array_ops.launches_by_kernel}
+    return {name: both[name] for name in PAIR_KERNELS}
+
+
+def _section4_counts() -> dict:
+    """Launches of each section-4 kernel (fused bitset op and count,
+    A-side array intersection) since the last reset."""
+    from repro_torch.kernels import array_ops, bitset_ops
+    return {**bitset_ops.launches_by_kernel,
+            "array_intersect": array_ops.launches_by_kernel[
+                "array_intersect"]}
 
 
 # ---------------------------------------------------------------------------
@@ -696,7 +726,8 @@ def _searchsorted_hits(sorted_rows, probes):
 
 
 def _pair_calls(t):
-    """(name, plain call, kernel call, library call or None) per kernel."""
+    """(kernel name, case label, plain call, kernel call, library call or
+    None) per kernel."""
     from repro_torch.kernels import array_ops, pair_ops, ref
     a, b, ids = t["a"], t["b"], t["ids"]
     arr = (t["av"], t["ac"], t["bv"], t["bc"])
@@ -706,17 +737,21 @@ def _pair_calls(t):
     return [
         # rows 9-11: no PyTorch call computes a popcount or a bit test at
         # gathered positions, so there is no library yardstick
-        ("bitset_pair_op", lambda: ref.bitset_pair_op(a, b, ids),
+        ("bitset_pair_op", "bitset_pair_op",
+         lambda: ref.bitset_pair_op(a, b, ids),
          lambda: pair_ops.bitset_pair_op(a, b, ids), None),
-        ("bitset_pair_card", lambda: ref.bitset_pair_card(a, b, ids),
+        ("bitset_pair_card", "bitset_pair_card",
+         lambda: ref.bitset_pair_card(a, b, ids),
          lambda: pair_ops.bitset_pair_card(a, b, ids), None),
-        ("array_bitset_probe",
+        ("array_bitset_probe", "array_bitset_probe",
          lambda: ref.array_bitset_probe(t["av"], t["ac"], a),
          lambda: pair_ops.array_bitset_probe(t["av"], t["ac"], a), None),
-        ("array_pair_masks", lambda: ref.array_pair_masks(*arr),
+        ("array_pair_masks", "array_pair_masks",
+         lambda: ref.array_pair_masks(*arr),
          lambda: array_ops.array_pair_masks(*arr),
          lambda: (_searchsorted_hits(pb, pa), _searchsorted_hits(pa, pb))),
-        ("array_intersect_card", lambda: ref.array_intersect_count(*arr),
+        ("array_intersect_card", "array_intersect_card",
+         lambda: ref.array_intersect_count(*arr),
          lambda: array_ops.array_intersect_card(*arr),
          lambda: _searchsorted_hits(pb, pa)),
     ]
@@ -754,6 +789,12 @@ def _pair_bound(name, x):
     elif name == "array_pair_masks":
         nbytes = m * (8 + 32768 + 4) + vals
         ops = search + float((bc * np.log2(ac + 2)).sum())
+    elif name == "bitset_op":
+        nbytes, ops = m * (16384 + 8192 + 4), m * 2048 * 2
+    elif name == "bitset_op_card":
+        nbytes, ops = m * (16384 + 4), m * 2048 * 2
+    elif name == "array_intersect":
+        nbytes, ops = m * (8 + 16384 + 4) + vals, search
     else:
         nbytes, ops = m * (8 + 4) + vals, search
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -761,20 +802,23 @@ def _pair_bound(name, x):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_pair_kernels(dev, seed, failures):
+def phase_pair_kernels(dev, seed, failures, calls=_pair_calls,
+                       names=PAIR_KERNELS, edges=_pair_edges,
+                       counts=_pair_counts):
     """The five pair kernels against their plain versions: at the path's
     shapes (M = 256, one merge of two terms at 2^24 documents; M = 8,192,
     a count batch) and at edge cases (M = 0, 1 and 8).  Words, masks and
     counts must be bit-equal.  Kernel, plain and library times are device
     times from the profiler (a launch at M = 256 takes microseconds),
-    with CUDA-event times beside them."""
-    cases, max_err = [], {name: 0 for name in PAIR_KERNELS}
+    with CUDA-event times beside them.  Phase 2e runs the same loop over
+    the section-4 kernels (``calls``, ``names``, ``edges``, ``counts``)."""
+    cases, max_err = [], {name: 0 for name in names}
     shapes = [("main", 256), ("main", 8192), ("edge", 0), ("edge", 1),
               ("edge", 8)]
     for kind, m in shapes:
-        x = _pair_inputs(m, seed + m) if kind == "main" else _pair_edges(m)
+        x = _pair_inputs(m, seed + m) if kind == "main" else edges(m)
         t = _to_card(x, dev)
-        for name, plain, kern, lib in _pair_calls(t):
+        for name, label, plain, kern, lib in calls(t):
             want = plain()
             got = kern()
             torch.cuda.synchronize()
@@ -785,7 +829,7 @@ def phase_pair_kernels(dev, seed, failures):
                 if g.numel():
                     max_err[name] = max(max_err[name], int(
                         (g.to(torch.int64) - w).abs().max()))
-            case = f"{kind}/M={m}/{name}"
+            case = f"{kind}/M={m}/{label}"
             if not same:
                 failures.append(f"kernel != plain: {case}")
             row = dict(case=case, kernel=name, rows=m, equal=same)
@@ -810,10 +854,64 @@ def phase_pair_kernels(dev, seed, failures):
             cases.append(row)
         del t
         torch.cuda.empty_cache()
-    edges = [c for c in cases if c["case"].startswith("edge")]
-    log(f"  {len(edges)} edge cases: {sum(c['equal'] for c in edges)} "
-        f"equal; launches so far {_pair_counts()}")
+    edge_rows = [c for c in cases if c["case"].startswith("edge")]
+    log(f"  {len(edge_rows)} edge cases: "
+        f"{sum(c['equal'] for c in edge_rows)} equal; launches so far "
+        f"{counts()}")
     return cases, max_err
+
+
+# ---------------------------------------------------------------------------
+# phase 2e: the section-4 kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _section4_edges(m):
+    """Phase 2c's edge rows (cards 0, 1 and 4,096, A empty, identical,
+    disjoint and half-overlapping arrays, all-zero and all-ones words), and
+    for M = 8: B empty (row 1), a negative card (row 4), a card above 4,096
+    (row 6), and in row 7 A = [0, 65535, 65537] against B = [0, 7, 65535]
+    whose slots past its card hold 65537 (a slot at or above a card never
+    matches)."""
+    x = _pair_edges(m)
+    if m >= 8:
+        x["bc"][1], x["bc"][4], x["ac"][6] = 0, -3, 5000
+        x["av"][7, :3], x["ac"][7] = [0, 65535, 65537], 3
+        x["bv"][7, 3:] = 65537
+    return x
+
+
+def _section4_calls(t):
+    """(kernel name, case label, plain call, kernel call, library call or
+    None): bitset_op and bitset_op_card for each op, array_intersect."""
+    from repro_torch.kernels import array_ops, bitset_ops, ref
+    a, b = t["a"], t["b"]
+    arr = (t["av"], t["ac"], t["bv"], t["bc"])
+    pos = torch.arange(4096, device=a.device)
+    pa = torch.where(pos < t["ac"][:, None], t["av"], 65536)
+    pb = torch.where(pos < t["bc"][:, None], t["bv"], 65537)
+    out = []
+    for op in PAIR_OPS:
+        # no PyTorch call computes a popcount: no library yardstick
+        out += [("bitset_op", f"bitset_op/{op}",
+                 lambda op=op: ref.bitset_op(a, b, op),
+                 lambda op=op: bitset_ops.bitset_op(a, b, op), None),
+                ("bitset_op_card", f"bitset_op_card/{op}",
+                 lambda op=op: ref.bitset_op_card(a, b, op),
+                 lambda op=op: bitset_ops.bitset_op_card(a, b, op), None)]
+    out.append(("array_intersect", "array_intersect",
+                lambda: ref.array_intersect_mask(*arr),
+                lambda: array_ops.array_intersect(*arr),
+                lambda: _searchsorted_hits(pb, pa)))
+    return out
+
+
+def phase_section4_kernels(dev, seed, failures):
+    """The fused bitset op and count (every op) and the A-side array
+    intersection against their plain versions, on phase 2c's inputs at M
+    = 256 and 8,192 and at :func:`_section4_edges`."""
+    return phase_pair_kernels(dev, seed, failures, calls=_section4_calls,
+                              names=SECTION4_KERNELS, edges=_section4_edges,
+                              counts=_section4_counts)
 
 
 # ---------------------------------------------------------------------------
@@ -2127,6 +2225,252 @@ def phase_tensor(dev, postings, sets, seed, failures):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the kernels.ops surface at real scale
+# ---------------------------------------------------------------------------
+
+# the kernels of phase 8's entry points, by name pattern (the trace holds
+# demangled names)
+_OPS_KERNELS = ("bitset_op_kernel<", "array_intersect_kernel",
+                "popcount_kernel", "a2b_kernel<")
+
+
+def _chunk_rows(words64):
+    """(N_DOCS / 64,) uint64 packed words -> (256, 2048) uint32 rows, one
+    a chunk of 2^16 documents."""
+    return words64.reshape(-1, 1024).view(np.uint32)
+
+
+def _array_rows(index, terms, dev):
+    """The array containers of ``terms`` as value rows on the card: row
+    ``i * 256 + chunk`` holds term i's container of that chunk (sorted
+    values, zeros past its card; card 0 where the term has no
+    container).  The values come from the index's own containers on the
+    host and are scattered into place on the card.  Returns (values (rows,
+    4096) int32, card (rows,) int32); raises if a container is not an
+    array."""
+    n_chunks = N_DOCS >> 16
+    vals, rows = [], []
+    for i, t in enumerate(terms):
+        bm = index._get(t)
+        if any(c.kind != "array" for c in bm.containers):
+            raise RuntimeError(f"{t} holds a container that is not an array")
+        vals += [c.values for c in bm.containers]
+        rows.append(np.repeat(i * n_chunks + np.asarray(bm.keys, np.int64),
+                              [c.values.size for c in bm.containers]))
+    vals = np.concatenate(vals).astype(np.int32)
+    rows = np.concatenate(rows)
+    card = np.bincount(rows, minlength=len(terms) * n_chunks)
+    rank = np.arange(rows.size) - (np.cumsum(card) - card)[rows]
+    out = torch.zeros((card.size, 4096), dtype=torch.int32, device=dev)
+    out[torch.from_numpy(rows).to(dev), torch.from_numpy(rank).to(dev)] = \
+        torch.from_numpy(vals).to(dev)
+    return out, torch.from_numpy(card.astype(np.int32)).to(dev)
+
+
+def _intersect_oracle(sets, pairs):
+    """From the packed 2^24-bit sets: for each pair (a, b), A's values as
+    (row, rank) slots with their bit in B's packed set, and per chunk
+    |A|, and |A ∩ B| by np.bitwise_count.  Rows are ``p * 256 + chunk``."""
+    n_chunks = N_DOCS >> 16
+    rows, ranks, hits, a_card, inter = [], [], [], [], []
+    for p, (x, y) in enumerate(pairs):
+        va = sets[x].astype(np.int64)
+        pa, pb = _packed(va), _packed(sets[y].astype(np.int64))
+        chunk = va >> 16
+        hits.append(((pb[va >> 6] >> (va & 63).astype(np.uint64))
+                     & np.uint64(1)).astype(np.int32))
+        rows.append(p * n_chunks + chunk)
+        ranks.append(np.arange(va.size) - np.searchsorted(chunk, chunk))
+        a_card.append(np.bincount(chunk, minlength=n_chunks))
+        inter.append(np.bitwise_count(pa & pb).reshape(n_chunks, -1)
+                     .sum(axis=1))
+    return (np.concatenate(rows), np.concatenate(ranks),
+            np.concatenate(hits), np.concatenate(a_card).astype(np.int32),
+            np.concatenate(inter).astype(np.int32))
+
+
+def phase_ops_surface(dev, index, sets, failures, reps=5):
+    """The caller-less ``kernels.ops`` entry points on the phase-3 index
+    at 2^24 documents, nothing cut: ``ops.popcount`` of all 16,384 dense
+    bitset rows (read from the arena's resident slab); ``ops.bitset_op``
+    and ``ops.bitset_op_card``, every op, over the 64 dense terms paired
+    (t, t+1) (8,192 rows a call); ``ops.bitset_set_many`` of each dense
+    term's rows with sparse term i's array in the same chunk (16,384
+    rows); ``ops.array_intersect`` and ``array_difference`` over the 960
+    sparse terms paired (t, t+1) (122,880 array rows a call, 1.875 GiB a
+    side), and the plain version once at that size.  Every answer against
+    the numpy oracle of the packed sets; p50 / p99 (host clock, ending in
+    a synchronize) over ``reps`` calls, the first checked; one profiler
+    window per entry point; launches and peak device memory."""
+    from repro_torch.kernels import array_ops, ops
+    dense = [f"d{i}" for i in range(N_DENSE)]
+    sparse = [f"s{i}" for i in range(N_SPARSE)]
+    n_chunks = N_DOCS >> 16
+    lat, traces, wrong, checked = {}, {}, {}, {}
+
+    def timed(name, fn):
+        out = None
+        lat[name] = []
+        for i in range(reps):
+            t = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize(dev)
+            lat[name].append((time.perf_counter() - t) * 1e3)
+            if i == 0:
+                out = r
+            del r
+        return out
+
+    def trace(name, fn):
+        tr = _traced(f"ops {name}", fn, dev, _OPS_KERNELS)
+        traces[name] = tr
+        idle = tr["idle_share"]
+        log(f"  {name:20s} window: wall {tr['wall_us'] / 1e3:.3f} ms, "
+            f"device busy {tr['busy_us'] / 1e3:.3f} ms (kernels "
+            f"{tr['kernel_us'] / 1e3:.3f}, PyTorch glue "
+            f"{(tr['busy_us'] - tr['kernel_us']) / 1e3:.3f}); "
+            f"{tr['h2d_bytes']} bytes up, {tr['d2h_bytes']} down; idle "
+            + (f"{idle:.4f}" if idle is not None else "not measured"))
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    arena = index.arena
+    ids = []
+    for t in dense:
+        bm = index._get(t)
+        if list(bm.keys) != list(range(n_chunks)) or any(
+                c.kind != "bitset" for c in bm.containers):
+            raise RuntimeError(f"{t} is not a bitset in every chunk")
+        ids += [arena.lookup(c) for c in bm.containers]
+    if None in ids:
+        raise RuntimeError("a dense container is not resident in the arena")
+    words = arena.device_slab()[torch.tensor(ids, device=dev)]
+    want_rows = np.concatenate([_chunk_rows(sets[t]) for t in dense])
+    t_inputs = time.perf_counter() - t0
+
+    _reset_counts()                         # the ops surface starts here
+    # popcount of every dense bitset row
+    got = timed("popcount", lambda: ops.popcount(words)).cpu().numpy()
+    wrong["popcount"] = int((got != np.bitwise_count(want_rows)
+                             .sum(axis=1)).sum())
+    checked["popcount"] = got.size
+    trace("popcount", lambda: ops.popcount(words))
+
+    # one op over the dense terms paired (t, t+1): 32 x 256 rows
+    pairs = words.view(N_DENSE // 2, 2, n_chunks, 2048)
+    lhs = pairs[:, 0].reshape(-1, 2048).contiguous()
+    rhs = pairs[:, 1].reshape(-1, 2048).contiguous()
+    wp = want_rows.reshape(N_DENSE // 2, 2, n_chunks, 2048)
+    wl, wr = wp[:, 0].reshape(-1, 2048), wp[:, 1].reshape(-1, 2048)
+    for op in PAIR_OPS:
+        want_w = _NP_PAIR[op](wl, wr)
+        want_c = np.bitwise_count(want_w).sum(axis=1)
+        w, c = timed(f"bitset_op/{op}", lambda: ops.bitset_op(lhs, rhs, op))
+        c2 = timed(f"bitset_op_card/{op}",
+                   lambda: ops.bitset_op_card(lhs, rhs, op))
+        wrong[f"bitset_op/{op}"] = int(
+            (w.cpu().numpy().view(np.uint32) != want_w).any(axis=1).sum()
+            + (c.cpu().numpy() != want_c).sum())
+        wrong[f"bitset_op_card/{op}"] = int((c2.cpu().numpy()
+                                             != want_c).sum())
+        checked[f"bitset_op/{op}"] = checked[f"bitset_op_card/{op}"] = \
+            len(want_c)
+        del w, c, c2
+    trace("bitset_op", lambda: ops.bitset_op(lhs, rhs, "and"))
+    trace("bitset_op_card", lambda: ops.bitset_op_card(lhs, rhs, "and"))
+    del pairs, lhs, rhs, wp, wl, wr
+
+    # each dense term's rows ORed with sparse term i's arrays
+    t0 = time.perf_counter()
+    sv, sc = _array_rows(index, sparse[:N_DENSE], dev)
+    want_new = want_rows | np.concatenate(
+        [_chunk_rows(_packed(sets[t].astype(np.int64)))
+         for t in sparse[:N_DENSE]])
+    t_inputs += time.perf_counter() - t0
+    new, delta = timed("bitset_set_many",
+                       lambda: ops.bitset_set_many(words, sv, sc))
+    want_delta = (np.bitwise_count(want_new).sum(axis=1)
+                  - np.bitwise_count(want_rows).sum(axis=1))
+    wrong["bitset_set_many"] = int(
+        (new.cpu().numpy().view(np.uint32) != want_new).any(axis=1).sum()
+        + (delta.cpu().numpy() != want_delta).sum())
+    checked["bitset_set_many"] = len(want_delta)
+    trace("bitset_set_many", lambda: ops.bitset_set_many(words, sv, sc))
+    del new, delta, sv, sc, words, want_new, want_rows
+    torch.cuda.empty_cache()
+
+    # the sorted-array intersection and difference over the sparse terms
+    # paired (t, t+1): 480 x 256 rows
+    t0 = time.perf_counter()
+    av, ac = _array_rows(index, sparse[0::2], dev)
+    bv, bc = _array_rows(index, sparse[1::2], dev)
+    rows, ranks, hits, a_card, inter = _intersect_oracle(
+        sets, list(zip(sparse[0::2], sparse[1::2])))
+    want = torch.zeros(av.shape, dtype=torch.int32, device=dev)
+    want[torch.from_numpy(rows).to(dev), torch.from_numpy(ranks).to(dev)] \
+        = torch.from_numpy(hits).to(dev)
+    t_inputs += time.perf_counter() - t0
+    m = av.shape[0]
+    mask, count = timed("array_intersect",
+                        lambda: ops.array_intersect(av, ac, bv, bc))
+    wrong["array_intersect"] = int(
+        (mask != want).any(dim=1).sum().item()
+        + (count.cpu().numpy() != inter).sum())
+    trace("array_intersect", lambda: ops.array_intersect(av, ac, bv, bc))
+    t = time.perf_counter()
+    pm, pc = ops.array_intersect(av, ac, bv, bc, backend="ref")
+    torch.cuda.synchronize(dev)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    wrong["array_intersect plain"] = int(
+        (pm != mask).any(dim=1).sum().item() + (pc != count).sum().item())
+    del mask, count, pm, pc
+    pos = torch.arange(4096, device=dev)
+    want = (pos[None, :] < torch.from_numpy(a_card).to(dev)[:, None]) \
+        .to(torch.int32).sub_(want)
+    keep, diff = timed("array_difference",
+                       lambda: array_ops.array_difference(av, ac, bv, bc))
+    wrong["array_difference"] = int(
+        (keep != want).any(dim=1).sum().item()
+        + (diff.cpu().numpy() != a_card - inter).sum())
+    checked["array_intersect"] = checked["array_difference"] = m
+    trace("array_difference",
+          lambda: array_ops.array_difference(av, ac, bv, bc))
+    del keep, diff, want
+    torch.cuda.synchronize(dev)
+    launches = {**_section4_counts(), **_convert_counts()}
+    peak = torch.cuda.max_memory_allocated(dev)    # the surface ends here
+    mean_card = float(ac.to(torch.float64).mean()), float(
+        bc.to(torch.float64).mean())
+    del av, ac, bv, bc
+    torch.cuda.empty_cache()
+
+    calls = {name: dict(calls=len(ls), p50_ms=float(np.percentile(ls, 50)),
+                        p99_ms=float(np.percentile(ls, 99)))
+             for name, ls in lat.items()}
+    for name, c in calls.items():
+        log(f"  {name:22s} p50 {c['p50_ms']:9.3f} ms  p99 "
+            f"{c['p99_ms']:9.3f} ms  ({c['calls']} calls, "
+            f"{checked[name]} rows checked)")
+    log(f"  inputs and oracles {t_inputs:.1f} s; array rows {m} a side, "
+        f"mean cards {mean_card[0]:.1f} / {mean_card[1]:.1f}; plain "
+        f"array_intersect at that size {plain_ms:.1f} ms")
+    log(f"  wrong {wrong}")
+    log(f"  launches {launches}; max_memory_allocated {peak}")
+    if any(wrong.values()):
+        failures.append(f"ops surface: answers differ from the oracle: "
+                        f"{wrong}")
+    missing = [k for k in (*SECTION4_KERNELS, "popcount", "bitset_set_many")
+               if launches[k] == 0]
+    if missing:
+        failures.append(f"ops surface: kernels never launched: {missing}")
+    return dict(ops=calls, traces=traces, wrong=wrong, checked=checked,
+                launches=launches, array_rows=m, mean_cards=mean_card,
+                plain_array_intersect_ms=plain_ms, inputs_s=t_inputs,
+                max_memory_allocated=peak)
+
+
+# ---------------------------------------------------------------------------
 
 def _build_all():
     """Build every kernel source at once, one nvcc each, in parallel.
@@ -2157,7 +2501,7 @@ def _build_all():
 
 def _kernel_line(main_path, sim, cases, topk_cases, max_err, topk_err,
                  pair_cases, pair_err, pairwise, convert_cases, convert_err,
-                 tensor):
+                 tensor, section4_cases, section4_err, surface):
     rep = next(c for c in cases if c["case"] == "main/ids/or")
     score = next(c for c in topk_cases
                  if c["case"] == "score/main/jaccard/exclude=-1")
@@ -2206,19 +2550,39 @@ def _kernel_line(main_path, sim, cases, topk_cases, max_err, topk_err,
     ] + [
         # the conversion kernels and the popcount at M = 245,760 (one
         # to_words of the sparse terms), device times from the profiler;
-        # launches from phase 7 (no path runs bitset_set_many, and the
-        # run count forces the plain popcount); library_ms: one
+        # launches of array_to_bitset from phase 7, of bitset_set_many
+        # and popcount from phase 8 (RoaringTensor's run count forces the
+        # plain popcount, as the JAX class does); library_ms: one
         # scatter_add_ of the masked values for array_to_bitset, none for
         # the two popcounts (PyTorch has no popcount)
         row(name, source, f"src/repro/kernels/{site}",
-            tensor["launches"][name], convert_err[name],
+            launches[name], convert_err[name],
             next(c for c in convert_cases
                  if c["case"] == f"main/M={CONVERT_M}/{name}"))
-        for name, source, site in (
-            ("array_to_bitset", "bitset_convert.cu", "bitset_convert.py:84"),
+        for name, source, site, launches in (
+            ("array_to_bitset", "bitset_convert.cu", "bitset_convert.py:84",
+             tensor["launches"]),
             ("bitset_set_many", "bitset_convert.cu",
-             "bitset_convert.py:103"),
-            ("popcount", "popcount.cu", "harley_seal.py:99"))]}
+             "bitset_convert.py:103", surface["launches"]),
+            ("popcount", "popcount.cu", "harley_seal.py:99",
+             surface["launches"]))
+    ] + [
+        # the section-4 kernels at M = 8,192 rows (bitset_op and
+        # bitset_op_card with op "and"), device times from the profiler;
+        # launches from phase 8; library_ms: torch.searchsorted of A into
+        # B and the equality test for array_intersect, none for the two
+        # bitset kernels (PyTorch has no popcount)
+        row(name, source, f"src/repro/kernels/{site}",
+            surface["launches"][name], section4_err[name],
+            next(c for c in section4_cases
+                 if c["case"] == f"main/M=8192/{label}"))
+        for name, label, source, site in (
+            ("bitset_op", "bitset_op/and", "bitset_ops.cu",
+             "bitset_ops.py:69"),
+            ("bitset_op_card", "bitset_op_card/and", "bitset_ops.cu",
+             "bitset_ops.py:96"),
+            ("array_intersect", "array_intersect", "array_ops.cu",
+             "array_ops.py:83"))]}
 
 
 def main() -> int:
@@ -2267,15 +2631,21 @@ def main() -> int:
         "2d (conversion kernels against plain)", phase_convert_kernels, dev,
         args.seed, failures)
     log(f"  {len(convert_cases)} cases, max_abs_err {convert_err}")
+    section4_cases, section4_err = phase(
+        "2e (section-4 kernels against plain)", phase_section4_kernels, dev,
+        args.seed, failures)
+    log(f"  {len(section4_cases)} cases, max_abs_err {section4_err}")
     main_path, ctx = phase("3 (boolean queries at real scale)",
                            phase_main_path, dev, args.seed, failures)
     main_path["pair_launches"] = _pair_counts()
     main_path["convert_launches"] = _convert_counts()
+    main_path["section4_launches"] = _section4_counts()
     sim, sim_cases = phase("4 (similarity at real scale)",
                            phase_similarity, dev, ctx["index"],
                            ctx["sets"], args.seed, failures)
     sim["pair_launches"] = _pair_counts()
     sim["convert_launches"] = _convert_counts()
+    sim["section4_launches"] = _section4_counts()
     server = phase("5 (query server)", phase_server, dev, ctx["index"],
                    ctx["traffic"], ctx["answers"], sim_cases, failures)
     server["faults"] = phase("5 (query server under scripted faults)",
@@ -2283,27 +2653,38 @@ def main() -> int:
                              ctx["sets"], args.seed, failures)
     server["pair_launches"] = _pair_counts()
     server["convert_launches"] = _convert_counts()
+    server["section4_launches"] = _section4_counts()
     pairwise = phase("6 (two-by-two algebra at real scale)",
                      phase_pairwise, dev, ctx["index"], ctx["sets"],
                      args.seed, failures)
     pairwise["convert_launches"] = _convert_counts()
+    pairwise["section4_launches"] = _section4_counts()
     tensor = phase("7 (RoaringTensor at real scale)", phase_tensor, dev,
                    ctx["postings"], ctx["sets"], args.seed, failures)
-    log("conversion and popcount launches in phases 3 / 4 / 5 / 6 / 7: "
-        + "  ".join(f"{k} " + " / ".join(str(p[k]) for p in (
-            main_path["convert_launches"], sim["convert_launches"],
-            server["convert_launches"], pairwise["convert_launches"],
-            tensor["launches"])) for k in CONVERT_KERNELS))
+    tensor["section4_launches"] = _section4_counts()
+    surface = phase("8 (the kernels.ops surface at real scale)",
+                    phase_ops_surface, dev, ctx["index"], ctx["sets"],
+                    failures)
+    per_phase = [{**p["convert_launches"], **p["section4_launches"]}
+                 for p in (main_path, sim, server, pairwise)]
+    per_phase += [{**tensor["launches"], **tensor["section4_launches"]},
+                  surface.get("launches", {})]
+    log("conversion, popcount and section-4 launches in phases 3 / 4 / 5 / "
+        "6 / 7 / 8: " + "  ".join(
+            f"{k} " + " / ".join(str(p.get(k)) for p in per_phase)
+            for k in (*CONVERT_KERNELS, *SECTION4_KERNELS)))
 
     kernels = _kernel_line(main_path, sim, cases, topk_cases, max_err,
                            topk_err, pair_cases, pair_err, pairwise,
-                           convert_cases, convert_err, tensor)
+                           convert_cases, convert_err, tensor,
+                           section4_cases, section4_err, surface)
     REPORT.parent.mkdir(exist_ok=True)
     REPORT.write_text(json.dumps(dict(
         card=card, builds=builds, kernel_cases=cases,
         topk_cases=topk_cases, topk_inputs=topk_info, main_path=main_path,
         similarity=sim, server=server, pair_cases=pair_cases,
         pairwise=pairwise, convert_cases=convert_cases, tensor=tensor,
+        section4_cases=section4_cases, ops_surface=surface,
         kernels=kernels["kernels"],
         phases_s=phases, failures=failures,
         total_s=time.perf_counter() - t_all), indent=1, default=str))

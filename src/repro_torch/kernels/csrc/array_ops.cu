@@ -1,41 +1,53 @@
-// Sorted-array pair kernel for Hopper (sm_90a): two-sided membership masks
-// and the intersection count, or the count alone.
+// Sorted-array kernels for Hopper (sm_90a): the A-side intersection mask and
+// count; the two-sided membership masks and the count; the count alone.
 //
-// Replaces two Pallas calls of the JAX package's
-// src/repro/kernels/array_ops.py: `array_pair_masks` at :161
-// (`_pair_masks_kernel`, :107) and `array_intersect_card` at :216
-// (`_intersect_card_kernel`, :177).
+// Replaces three Pallas calls of the JAX package's
+// src/repro/kernels/array_ops.py: `array_intersect` at :83
+// (`_intersect_kernel`, :34; `array_difference`, :98, wraps it),
+// `array_pair_masks` at :161 (`_pair_masks_kernel`, :107) and
+// `array_intersect_card` at :216 (`_intersect_card_kernel`, :177).
 //
 // Row r holds two sorted arrays of distinct values in [0, 65535]: a[r]'s
 // first a_card[r] slots and b[r]'s first b_card[r] slots (cards clamped to
 // [0, 4096]).  mask_a[r, i] = 1 where A's slot i holds a value of B, mask_b
 // the same from B's side, both 0 at and above the cards; count[r] = the sum
-// of mask_a, as the TPU computes it.
+// of mask_a, as the TPU computes it.  A slot at or above a card never
+// matches, whatever it holds: the JAX reference's rule.  (The Pallas kernel
+// pads B with the value 65537, which an off-contract A value of 65537
+// matches.)
 //
-// What bounds it: bytes, at this slice's sizes.  Per row it reads 32,768
-// bytes of values and 8 of cards and writes 32,768 of masks and 4 of count
-// (about 65,548 bytes; 32,780 in the count-only form).  The search does
-// about 12 shared-memory probes per valid slot and side, which at full
-// arrays is of the same order as the bytes; below a few hundred values a
-// row, as at 0.1% density, the bytes dominate.
+// What bounds them: bytes, at this slice's sizes.  The A-side kernel reads
+// 8 bytes of cards and 4 a valid value of either side and writes 16,384
+// bytes of mask and 4 of count a row; the pair kernel reads 32,768 bytes of
+// values and 8 of cards and writes 32,768 of masks and 4 of count (about
+// 65,548 bytes; 32,780 in the count-only form).  The search does about 12
+// shared-memory probes per valid slot and side, which at full arrays is of
+// the same order as the bytes; below a few hundred values a row, as at 0.1%
+// density, the bytes dominate.
 //
-// Design: one block of 256 threads per row.  Both rows' valid prefixes are
-// staged in shared memory (2 x 16 KiB); then each thread binary-searches
-// each of its A slots in B's prefix, and (with MASKS) each of its B slots in
-// A's prefix.  Every mask slot is written by exactly one thread from its
-// own search, so the masks are deterministic with no atomics, and the count
-// is a block reduction of A's hits.  The TPU compares 512 x 512 tiles all
-// against all and skips tile pairs whose ranges cannot overlap (the paper's
-// Algorithm 1 block stepping); the search does the same work in
-// O(n log n) compares instead of O(n^2 / tile skips).  A merge path and the
-// block compare are later work.
+// Design: one block of 256 threads per row, every mask slot written by
+// exactly one thread from its own search, so the masks are deterministic
+// with no atomics, and the count is a block reduction of A's hits.
+//  * array_intersect_kernel stages only B's valid prefix in shared memory
+//    (at most 16 KiB, with 16-byte loads).  A thread owns four 16-byte
+//    groups of four A slots (a warp reads 512 contiguous bytes), loads a
+//    group only when it starts below A's card, binary-searches its valid
+//    values in B's prefix and writes all four mask slots with one 16-byte
+//    store, zeros included.
+//  * array_pair_kernel stages both rows' valid prefixes (2 x 16 KiB); each
+//    thread binary-searches each of its A slots in B's prefix, and (with
+//    MASKS) each of its B slots in A's prefix.
+// The TPU compares 512 x 512 tiles all against all and skips tile pairs
+// whose ranges cannot overlap (the paper's Algorithm 1 block stepping); the
+// search does the same work in O(n log n) compares instead of O(n^2 / tile
+// skips).  A merge path and the block compare are later work.
 //
 // Off contract (unsorted or repeated values, values outside [0, 65535]) the
 // searches still read only the valid prefix of the other row and end after
-// at most 13 steps, so the kernel stays inside its buffers and terminates.
+// at most 13 steps, so the kernels stay inside their buffers and terminate.
 //
-// Interface: a plain C function, bound from Python with ctypes
-// (repro_torch/kernels/array_ops.py).  It launches on the given stream,
+// Interface: plain C functions, bound from Python with ctypes
+// (repro_torch/kernels/array_ops.py).  Each launches on the given stream,
 // does not synchronise, allocates nothing, and returns cudaGetLastError().
 
 #include <climits>
@@ -45,8 +57,10 @@
 namespace {
 
 constexpr int kArrayCap = 4096;
+constexpr int kSlotVecs = kArrayCap / 4;      // int4 per value row
 constexpr int kThreads = 256;
 constexpr int kSlotsPerThread = kArrayCap / kThreads;     // 16
+constexpr int kSlotVecsPerThread = kSlotVecs / kThreads;  // 4
 
 // Whether `v` occurs in the sorted s[0 .. n): lower bound, then compare.
 __device__ __forceinline__ int found(const int32_t* s, int n, int v) {
@@ -63,6 +77,60 @@ __device__ __forceinline__ int found(const int32_t* s, int n, int v) {
   return lo < n && s[lo] == v;
 }
 
+// Sum of `v` over the block's kThreads threads, valid in thread 0.
+__device__ __forceinline__ unsigned block_sum(unsigned v) {
+  __shared__ unsigned warp_sum[kThreads / 32];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  }
+  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = v;
+  __syncthreads();
+  unsigned total = 0u;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) total += warp_sum[w];
+  }
+  return total;
+}
+
+__global__ void __launch_bounds__(kThreads)
+array_intersect_kernel(const int4* __restrict__ a,
+                       const int32_t* __restrict__ a_card,
+                       const int4* __restrict__ b,
+                       const int32_t* __restrict__ b_card,
+                       int4* __restrict__ mask, int32_t* __restrict__ count) {
+  __shared__ __align__(16) int32_t s_b[kArrayCap];
+  const int64_t row = blockIdx.x;
+  const int na = min(max(__ldg(a_card + row), 0), kArrayCap);
+  const int nb = min(max(__ldg(b_card + row), 0), kArrayCap);
+  const int4* br = b + row * kSlotVecs;
+  for (int g = threadIdx.x; 4 * g < nb; g += kThreads) {
+    reinterpret_cast<int4*>(s_b)[g] = __ldg(br + g);
+  }
+  __syncthreads();
+  const int4* ar = a + row * kSlotVecs;
+  int4* mr = mask + row * kSlotVecs;
+  unsigned acc = 0u;
+#pragma unroll
+  for (int j = 0; j < kSlotVecsPerThread; ++j) {
+    const int g = j * kThreads + threadIdx.x;      // slots 4g .. 4g + 3
+    const int s = 4 * g;
+    int4 m = make_int4(0, 0, 0, 0);
+    if (s < na) {
+      const int4 v = __ldg(ar + g);
+      m.x = found(s_b, nb, v.x);
+      m.y = s + 1 < na ? found(s_b, nb, v.y) : 0;
+      m.z = s + 2 < na ? found(s_b, nb, v.z) : 0;
+      m.w = s + 3 < na ? found(s_b, nb, v.w) : 0;
+      acc += m.x + m.y + m.z + m.w;
+    }
+    mr[g] = m;
+  }
+  const unsigned total = block_sum(acc);
+  if (threadIdx.x == 0) count[row] = static_cast<int32_t>(total);
+}
+
 template <bool MASKS>
 __global__ void __launch_bounds__(kThreads)
 array_pair_kernel(const int32_t* __restrict__ a,
@@ -73,7 +141,6 @@ array_pair_kernel(const int32_t* __restrict__ a,
                   int32_t* __restrict__ count) {
   __shared__ int32_t s_a[kArrayCap];
   __shared__ int32_t s_b[kArrayCap];
-  __shared__ unsigned warp_sum[kThreads / 32];
   const int64_t row = blockIdx.x;
   const int na = min(max(__ldg(a_card + row), 0), kArrayCap);
   const int nb = min(max(__ldg(b_card + row), 0), kArrayCap);
@@ -97,18 +164,8 @@ array_pair_kernel(const int32_t* __restrict__ a,
       mask_b[row * kArrayCap + i] = i < nb ? found(s_a, na, s_b[i]) : 0;
     }
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    acc += __shfl_down_sync(0xffffffffu, acc, off);
-  }
-  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = acc;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned total = 0u;
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) total += warp_sum[w];
-    count[row] = static_cast<int32_t>(total);
-  }
+  const unsigned total = block_sum(acc);
+  if (threadIdx.x == 0) count[row] = static_cast<int32_t>(total);
 }
 
 }  // namespace
@@ -139,5 +196,23 @@ extern "C" int array_pair_cuda(const void* a, const void* a_card,
     array_pair_kernel<false><<<static_cast<unsigned>(m), kThreads, 0, s>>>(
         pa, pac, pb, pbc, nullptr, nullptr, pc);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a, b (m, 4096) int32 values, a_card, b_card (m,) int32; outputs mask
+// (m, 4096) int32 over A's slots and count (m,) int32.  Row pointers must
+// be 16-byte aligned.  m = 0 launches nothing.  Returns the cudaError_t of
+// the launch.
+extern "C" int array_intersect_cuda(const void* a, const void* a_card,
+                                    const void* b, const void* b_card,
+                                    int64_t m, void* mask, void* count,
+                                    void* stream) {
+  if (m == 0) return 0;
+  if (m < 0 || m > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  array_intersect_kernel<<<static_cast<unsigned>(m), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int4*>(a), static_cast<const int32_t*>(a_card),
+      static_cast<const int4*>(b), static_cast<const int32_t*>(b_card),
+      static_cast<int4*>(mask), static_cast<int32_t*>(count));
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,9 +2,9 @@
 
 ``backend``:
   * None   -- the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors (the wrappers in ``segment_ops``, ``topk_ops``, ``pair_ops``,
-    ``array_ops``, ``bitset_convert`` and ``harley_seal`` decide by the
-    tensor's device);
+    tensors (the wrappers in ``segment_ops``, ``topk_ops``,
+    ``bitset_ops``, ``pair_ops``, ``array_ops``, ``bitset_convert`` and
+    ``harley_seal`` decide by the tensor's device);
   * "cuda" -- always the CUDA kernel; a CPU tensor raises;
   * "ref"  -- always the plain PyTorch version (``kernels/ref.py``).
 
@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.kernels import array_ops as _array_ops
 from repro_torch.kernels import bitset_convert as _convert
+from repro_torch.kernels import bitset_ops as _bitset_ops
 from repro_torch.kernels import harley_seal as _hs
 from repro_torch.kernels import pair_ops as _pair_ops
 from repro_torch.kernels import ref
@@ -76,6 +77,22 @@ def popcount(words, *, backend=None):
     if _route(backend, words):
         return ref.popcount_words(words)
     return _hs.popcount(words)
+
+
+def bitset_op(a, b, op: str, *, backend=None):
+    """One logical op over (N, WORDS) int32 rows: (words, (N,) int32
+    card), paper section 4.1.2.  ``op`` in ``ref.PAIR_OPS``; any other
+    raises ValueError on every backend."""
+    if _route(backend, a):
+        return ref.bitset_op(a, b, op)
+    return _bitset_ops.bitset_op(a, b, op)
+
+
+def bitset_op_card(a, b, op: str, *, backend=None):
+    """Count-only :func:`bitset_op` (fast counts, paper section 5.9)."""
+    if _route(backend, a):
+        return ref.bitset_op_card(a, b, op)
+    return _bitset_ops.bitset_op_card(a, b, op)
 
 
 def _values_and_card(values, card, device=None):
@@ -197,6 +214,14 @@ def array_bitset_probe(vals, card, words, *, backend=None):
     if _route(backend, vals):
         return ref.array_bitset_probe(vals, card, words)
     return _pair_ops.array_bitset_probe(vals, card, words)
+
+
+def array_intersect(a_vals, a_card, b_vals, b_card, *, backend=None):
+    """Batched sorted-array intersection (paper section 4.2): (int32 mask
+    (M, ARRAY_CAP) over A's slots, (M,) int32 count)."""
+    if _route(backend, a_vals):
+        return ref.array_intersect_mask(a_vals, a_card, b_vals, b_card)
+    return _array_ops.array_intersect(a_vals, a_card, b_vals, b_card)
 
 
 def array_pair_masks(a_vals, a_card, b_vals, b_card, *, backend=None):

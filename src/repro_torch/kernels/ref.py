@@ -2,14 +2,15 @@
 
 These are the torch twins of the JAX package's ``kernels/ref.py`` for the
 segmented wide aggregation, for the similarity top-k (its score and select
-stages), for the two-by-two pair classes (bitset x bitset, array x
-bitset, array x array) and for the array <-> bitset conversions.  The CPU
-tests run them against the JAX reference, and ``chip_smoke.py`` holds the
-CUDA kernel against them on the card.  On the card's main path only what
-the JAX package also leaves outside its kernels runs here:
-:func:`bitset_to_array` (plain jnp on every JAX backend) and the popcount
-of run starts, which ``RoaringTensor`` forces to the plain version as the
-JAX class does.
+stages), for the paper's section-4 primitives (the fused bitset op and
+count, the sorted-array intersection), for the two-by-two pair classes
+(bitset x bitset, array x bitset, array x array) and for the array <->
+bitset conversions.  The CPU tests run them against the JAX reference, and
+``chip_smoke.py`` holds the CUDA kernel against them on the card.  On the
+card's main path only what the JAX package also leaves outside its kernels
+runs here: :func:`bitset_to_array` (plain jnp on every JAX backend) and the
+popcount of run starts, which ``RoaringTensor`` forces to the plain version
+as the JAX class does.
 
 Word layout: one Roaring bitset container = 2048 32-bit words, bit ``i`` in
 word ``i >> 5`` at position ``i & 31``.  Words are held as bit-reinterpreted
@@ -45,6 +46,51 @@ def popcount_u32(words: torch.Tensor) -> torch.Tensor:
 def popcount_words(words: torch.Tensor) -> torch.Tensor:
     """(..., WORDS) int32 words -> (...,) int32 cardinality."""
     return popcount_u32(words).sum(dim=-1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# the fused bitset op and count (paper sections 4.1.2 and 5.9)
+# ---------------------------------------------------------------------------
+
+_POP_CHUNK = 16384      # rows per popcount pass: int64 temporaries of
+                        # 256 MiB (16 KiB a row)
+
+
+def _apply(a: torch.Tensor, b: torch.Tensor, op: str) -> torch.Tensor:
+    if op == "and":
+        return a & b
+    if op == "or":
+        return a | b
+    if op == "xor":
+        return a ^ b
+    if op == "andnot":
+        return a & ~b
+    raise ValueError(f"unknown op {op!r}; expected one of {PAIR_OPS}")
+
+
+def _popcount_rows(words: torch.Tensor) -> torch.Tensor:
+    """:func:`popcount_words` of (N, WORDS) rows, ``_POP_CHUNK`` rows at a
+    time."""
+    out = torch.empty(words.shape[0], dtype=torch.int32, device=words.device)
+    for lo in range(0, words.shape[0], _POP_CHUNK):
+        out[lo:lo + _POP_CHUNK] = popcount_words(words[lo:lo + _POP_CHUNK])
+    return out
+
+
+def bitset_op(a: torch.Tensor, b: torch.Tensor, op: str
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One logical op over every row: (words (N, WORDS) int32, card (N,)
+    int32) of ``a op b``.  a, b: (N, WORDS) int32 words; op in
+    ``PAIR_OPS`` (andnot is ``a & ~b``); any other op raises ValueError.
+    N = 0 gives empty tensors."""
+    r = _apply(a.to(torch.int32), b.to(torch.int32), op)
+    return r, _popcount_rows(r)
+
+
+def bitset_op_card(a: torch.Tensor, b: torch.Tensor, op: str
+                   ) -> torch.Tensor:
+    """Count-only :func:`bitset_op`: (N,) int32."""
+    return bitset_op(a, b, op)[1]
 
 
 def segment_reduce(slab: torch.Tensor, starts: torch.Tensor, op: str, *,
@@ -276,48 +322,90 @@ def _slots_below(card: torch.Tensor) -> torch.Tensor:
     return pos[None, :] < card.to(torch.int64)[:, None]
 
 
-def _hits(sorted_rows: torch.Tensor, probes: torch.Tensor) -> torch.Tensor:
-    """Per row, whether each probe value occurs in the sorted row: a
-    batched ``searchsorted`` and one gather (O(M * ARRAY_CAP) memory)."""
-    idx = torch.searchsorted(sorted_rows, probes).clamp_(max=ARRAY_CAP - 1)
-    return torch.gather(sorted_rows, 1, idx) == probes
+_INT32_MAX = 2**31 - 1
+_ARRAY_CHUNK = 4096     # rows per pass of the sorted-array searches: int64
+                        # search indices of 128 MiB (32 KiB a row)
 
 
-def _padded(vals: torch.Tensor, card: torch.Tensor, pad: int
-            ) -> torch.Tensor:
-    """Values with every slot at or above ``card`` set to ``pad``.  The
-    A side pads with CONTAINER_BITS and the B side with CONTAINER_BITS + 1,
-    so a padding slot never matches a slot of the other side."""
-    return torch.where(_slots_below(card), vals.to(torch.int32), pad)
+def _found(rows: torch.Tensor, card: torch.Tensor, probes: torch.Tensor
+           ) -> torch.Tensor:
+    """(M, P) bool: whether each probe occurs among the first ``card[r]``
+    slots of its row (sorted there).  A batched ``searchsorted`` and one
+    gather, O(M * ARRAY_CAP) memory; the slots at and above the card are
+    padded with INT32_MAX, which keeps the row sorted, and the lower bound
+    must fall below the card, so a padding slot never matches -- the JAX
+    reference's rule (its Pallas kernel pads with a value that an
+    off-contract probe of 65537 matches)."""
+    padded = torch.where(_slots_below(card), rows, _INT32_MAX)
+    idx = torch.searchsorted(padded, probes)
+    n = card.to(torch.int64).clamp(0, ARRAY_CAP)[:, None]
+    hit = torch.gather(padded, 1, idx.clamp(max=ARRAY_CAP - 1)) == probes
+    return hit & (idx < n)
+
+
+def _intersect_chunks(a_vals, a_card, b_vals, b_card, b_side: bool):
+    """Per ``_ARRAY_CHUNK`` rows: (row slice, A-side hits, B-side hits or
+    None), bool (rows, ARRAY_CAP), 0 at and above each side's card."""
+    for lo in range(0, a_vals.shape[0], _ARRAY_CHUNK):
+        s = slice(lo, lo + _ARRAY_CHUNK)
+        av, bv = a_vals[s].to(torch.int32), b_vals[s].to(torch.int32)
+        ac, bc = a_card[s], b_card[s]
+        hit_a = _found(bv, bc, av) & _slots_below(ac)
+        hit_b = _found(av, ac, bv) & _slots_below(bc) if b_side else None
+        yield s, hit_a, hit_b
+
+
+def array_intersect_mask(a_vals: torch.Tensor, a_card: torch.Tensor,
+                         b_vals: torch.Tensor, b_card: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sorted-array intersection, A's side (paper section 4.2): mask[r, i]
+    = 1 where A's slot i (< a_card) holds a value of B's first b_card
+    slots, and count = the sum of the mask.
+
+    a_vals, b_vals: (M, ARRAY_CAP) int32, sorted and distinct in [0,
+    65535] below their card; a_card, b_card: (M,) int (a card outside [0,
+    ARRAY_CAP] acts clamped).  Returns (mask (M, ARRAY_CAP) int32, count
+    (M,) int32).  The JAX reference's mask is bool and built from an
+    all-vs-all (M, 4096, 4096) compare cube; here A is searched in B, in
+    row chunks, with the same values."""
+    mask = torch.empty(a_vals.shape, dtype=torch.int32,
+                       device=a_vals.device)
+    for s, hit, _ in _intersect_chunks(a_vals, a_card, b_vals, b_card,
+                                       False):
+        mask[s] = hit
+    return mask, mask.sum(dim=-1, dtype=torch.int32)
 
 
 def array_pair_masks(a_vals: torch.Tensor, a_card: torch.Tensor,
                      b_vals: torch.Tensor, b_card: torch.Tensor
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Two-sided membership of sorted array pairs: mask_a[r, i] = 1 where
-    A's slot i (< a_card) holds a value of B's first b_card slots, mask_b
-    the same from B's side, count = sum of mask_a.
+    """Two-sided membership of sorted array pairs: mask_a as in
+    :func:`array_intersect_mask`, mask_b the same from B's side, count =
+    sum of mask_a.
 
-    a_vals, b_vals: (M, ARRAY_CAP) int32, sorted and distinct in [0,
-    65535] below their card; a_card, b_card: (M,) int.  Returns (mask_a,
-    mask_b (M, ARRAY_CAP) int32, count (M,) int32).  Each side is searched
-    in the other (not the JAX reference's all-vs-all cube, 16 MiB a row);
-    the masks are the same."""
-    av = _padded(a_vals, a_card, CONTAINER_BITS)
-    bv = _padded(b_vals, b_card, CONTAINER_BITS + 1)
-    mask_a = _hits(bv, av).to(torch.int32)
-    mask_b = _hits(av, bv).to(torch.int32)
+    Returns (mask_a, mask_b (M, ARRAY_CAP) int32, count (M,) int32).  Each
+    side is searched in the other (not the JAX reference's all-vs-all
+    cube, 16 MiB a row); the masks are the same."""
+    mask_a = torch.empty(a_vals.shape, dtype=torch.int32,
+                         device=a_vals.device)
+    mask_b = torch.empty_like(mask_a)
+    for s, hit_a, hit_b in _intersect_chunks(a_vals, a_card, b_vals, b_card,
+                                             True):
+        mask_a[s], mask_b[s] = hit_a, hit_b
     return mask_a, mask_b, mask_a.sum(dim=-1, dtype=torch.int32)
 
 
 def array_intersect_count(a_vals: torch.Tensor, a_card: torch.Tensor,
                           b_vals: torch.Tensor, b_card: torch.Tensor
                           ) -> torch.Tensor:
-    """Count-only :func:`array_pair_masks`: (M,) int32 |A ∩ B| per row,
-    A's side searched in B's."""
-    av = _padded(a_vals, a_card, CONTAINER_BITS)
-    bv = _padded(b_vals, b_card, CONTAINER_BITS + 1)
-    return _hits(bv, av).sum(dim=-1, dtype=torch.int32)
+    """Count-only :func:`array_intersect_mask`: (M,) int32 |A ∩ B| per
+    row, no mask kept."""
+    count = torch.empty(a_vals.shape[0], dtype=torch.int32,
+                        device=a_vals.device)
+    for s, hit, _ in _intersect_chunks(a_vals, a_card, b_vals, b_card,
+                                       False):
+        count[s] = hit.sum(dim=-1, dtype=torch.int32)
+    return count
 
 
 def array_bitset_probe(vals: torch.Tensor, card: torch.Tensor,

@@ -17,9 +17,14 @@ one off-contract input that must not fault, and ``merge_one`` /
 ``pairwise_card`` with ``backend="cuda"`` against ``backend="ref"``.  The
 conversion kernels (array_to_bitset, bitset_set_many) and the popcount
 against their plain versions, off-contract values, cards and duplicates
-included, bit-equal; and a ``RoaringTensor`` built with the default device,
-which lands on the card and launches array_to_bitset, the pair kernels and
-segment_reduce, against the same tensor on the CPU.
+included, bit-equal.  The section-4 kernels (the fused bitset op and
+count for every op, the A-side array intersection, and the difference on
+top of it) against their plain versions at the edge cases (M = 0 and 1;
+cards 0, 1, 4,096, above 4,096 and negative; one side empty; an A value of
+65537 beside B's padding) and at M = 8,192, with ``ops`` routing to them
+by default on CUDA tensors.  And a ``RoaringTensor`` built with the default
+device, which lands on the card and launches array_to_bitset, the pair
+kernels and segment_reduce, against the same tensor on the CPU.
 
 These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip.  Run
 them on a GPU machine with ``PYTHONPATH=src python -m pytest -q -m cuda
@@ -31,8 +36,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import (
-    array_ops, bitset_convert, harley_seal, pair_ops, ref, segment_ops,
-    topk_ops,
+    array_ops, bitset_convert, bitset_ops, harley_seal, ops, pair_ops, ref,
+    segment_ops, topk_ops,
 )
 from repro_torch.kernels.ref import ARRAY_CAP, METRICS, WORDS
 
@@ -653,7 +658,8 @@ def test_planner_on_the_card_matches_ref(cuda):
     host = pairwise.pairwise_card(ops, pairs, device="cpu")
     assert np.array_equal(got, want) and np.array_equal(got, host)
     assert min(pair_ops.launches_by_kernel.values()) > 0
-    assert min(array_ops.launches_by_kernel.values()) > 0
+    assert array_ops.launches_by_kernel["array_pair_masks"] > 0
+    assert array_ops.launches_by_kernel["array_intersect_card"] > 0
 
 
 def _conversion_case(seed, m):
@@ -760,3 +766,110 @@ def test_roaring_tensor_on_the_card(cuda):
     assert pair_ops.launches_by_kernel["bitset_pair_op"] > 0
     assert pair_ops.launches_by_kernel["bitset_pair_card"] > 0
     assert segment_ops.launches == 1
+
+
+# ---------------------------------------------------------------------------
+# the section-4 kernels: fused bitset op and count, A-side intersection
+# ---------------------------------------------------------------------------
+
+SECTION4_OPS = ("and", "or", "xor", "andnot")
+
+
+@pytest.mark.parametrize("m", [0, 1, 6, 300, 8192])
+def test_bitset_op_kernels_match_plain(cuda, m):
+    a, b, _ = _pair_words(np.random.default_rng(m + 70), m)
+    ta, tb = _i32(a, cuda), _i32(b, cuda)
+    bitset_ops.reset_launches()
+    for op in SECTION4_OPS:
+        want_w, want_c = ref.bitset_op(ta, tb, op)
+        got_w, got_c = bitset_ops.bitset_op(ta, tb, op)
+        got_c2 = bitset_ops.bitset_op_card(ta, tb, op)
+        torch.cuda.synchronize()
+        assert torch.equal(got_w, want_w) and torch.equal(got_c, want_c)
+        assert torch.equal(got_c2, want_c)
+    assert bitset_ops.launches_by_kernel == {
+        "bitset_op": 4 * int(m > 0), "bitset_op_card": 4 * int(m > 0)}
+
+
+def _intersect_case(rng, m):
+    """_array_case's rows, and for m >= 8: B empty in row 1, a card above
+    4,096 in row 6, a negative card in row 4, and in row 7 A = [0, 65535,
+    65537] against B = [0, 7, 65535] padded with 65537."""
+    a, ac, b, bc = _array_case(rng, m)
+    if m >= 8:
+        bc[1], ac[6], bc[4] = 0, 5000, -3
+        a[7, :3], ac[7] = [0, 65535, 65537], 3
+        b[7, 3:] = 65537
+    return a, ac, b, bc
+
+
+def _sparse_case(rng, m, mean=64):
+    """m rows of about ``mean`` sorted distinct values each side, B holding
+    every other value of its A row (the index's 0.1% density)."""
+    gaps = rng.integers(1, 2 * (65536 // mean), (m, 256))
+    a = np.cumsum(gaps, axis=1) - 1
+    ac = (a < 65536).sum(axis=1).astype(np.int32)
+    a = np.pad(np.where(a < 65536, a, 0), ((0, 0), (0, ARRAY_CAP - 256)))
+    b = np.zeros_like(a)
+    b[:, :128] = a[:, :256:2]
+    bc = (ac + 1) // 2
+    return a.astype(np.int32), ac, b.astype(np.int32), bc.astype(np.int32)
+
+
+@pytest.mark.parametrize("m", [0, 1, 8, 256, 8192])
+def test_array_intersect_kernel_matches_plain(cuda, m):
+    rng = np.random.default_rng(m + 80)
+    x = _intersect_case(rng, m) if m <= 256 else _sparse_case(rng, m)
+    args = [_i32(v, cuda) for v in x]
+    want = ref.array_intersect_mask(*args)
+    array_ops.reset_launches()
+    got = array_ops.array_intersect(*args)
+    keep, diff = array_ops.array_difference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    ck, cd = array_ops.array_difference(*[v.cpu() for v in args])
+    assert torch.equal(keep.cpu(), ck) and torch.equal(diff.cpu(), cd)
+    assert array_ops.launches_by_kernel["array_intersect"] == 2 * int(m > 0)
+    if 8 <= m <= 256:
+        assert want[0][7, :4].tolist() == [1, 1, 0, 0]
+
+
+def test_section4_ops_route_to_the_kernels_by_default(cuda):
+    a, b, _ = _pair_words(np.random.default_rng(90), 16)
+    ta, tb = _i32(a, cuda), _i32(b, cuda)
+    x = [_i32(v, cuda) for v in _intersect_case(np.random.default_rng(91),
+                                                 8)]
+    bitset_ops.reset_launches()
+    array_ops.reset_launches()
+    for op in SECTION4_OPS:
+        w, c = ops.bitset_op(ta, tb, op)
+        assert torch.equal(ops.bitset_op_card(ta, tb, op), c)
+        rw, rc = ops.bitset_op(ta, tb, op, backend="ref")
+        assert torch.equal(w, rw) and torch.equal(c, rc)
+    m, c = ops.array_intersect(*x)
+    rm, rc = ops.array_intersect(*x, backend="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(m, rm) and torch.equal(c, rc)
+    assert bitset_ops.launches_by_kernel == {"bitset_op": 4,
+                                             "bitset_op_card": 4}
+    assert array_ops.launches_by_kernel["array_intersect"] == 1
+    m, c = ops.array_intersect(*x, backend="cuda")
+    assert array_ops.launches_by_kernel["array_intersect"] == 2
+
+
+def test_section4_wrappers_raise_on_bad_input(cuda):
+    z = torch.zeros((4, WORDS), dtype=torch.int32, device=cuda)
+    v = torch.zeros((4, ARRAY_CAP), dtype=torch.int32, device=cuda)
+    c = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="unknown op"):
+        bitset_ops.bitset_op(z, z, "nand")
+    with pytest.raises(ValueError, match="unknown op"):
+        ops.bitset_op_card(z, z, "AND")
+    with pytest.raises(TypeError):
+        bitset_ops.bitset_op(z.to(torch.int64), z, "and")
+    with pytest.raises(ValueError):
+        bitset_ops.bitset_op_card(z, z[:3], "or")
+    with pytest.raises(ValueError):
+        array_ops.array_intersect(v[:, ::2], c, v[:, :WORDS], c)
+    with pytest.raises(ValueError):
+        array_ops.array_intersect(v, c, v, c.cpu())

@@ -43,11 +43,12 @@ def _imports(path):
 
 def test_package_files_exist():
     for name in ("segment_reduce", "similarity_topk", "pair_ops",
-                 "array_ops", "bitset_convert", "popcount"):
+                 "array_ops", "bitset_convert", "popcount", "bitset_ops"):
         assert (PKG / "kernels" / "csrc" / f"{name}.cu").is_file()
     for name in ("kernels/pair_ops.py", "kernels/array_ops.py",
                  "core/pairwise.py", "kernels/bitset_convert.py",
-                 "kernels/harley_seal.py", "core/tensor.py"):
+                 "kernels/harley_seal.py", "core/tensor.py",
+                 "kernels/bitset_ops.py"):
         assert PKG / name in FILES
     assert len(FILES) > 10 and all(f.is_file() for f in FILES)
 
@@ -177,6 +178,24 @@ def test_conversion_kernel_route_does_not_fall_back_to_cpu():
         ops.popcount(cw, backend="cuda")
 
 
+def test_section4_kernel_route_does_not_fall_back_to_cpu():
+    """The fused bitset op and the A-side intersection raise for a tensor
+    that is not on the CPU or a GPU, and a forced "cuda" backend raises on
+    CPU tensors."""
+    from repro_torch.kernels import array_ops, bitset_ops, ops
+    meta = dict(dtype=torch.int32, device="meta")
+    w = torch.zeros((2, 2048), **meta)
+    v = torch.zeros((2, 4096), **meta)
+    c = torch.zeros(2, **meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        bitset_ops.bitset_op(w, w, "and")
+    with pytest.raises(ValueError, match="CUDA"):
+        array_ops.array_intersect(v, c, v, c)
+    cw = torch.zeros((2, 2048), dtype=torch.int32)
+    with pytest.raises(ValueError, match="cuda"):
+        ops.bitset_op_card(cw, cw, "xor", backend="cuda")
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     from repro_torch.kernels import _build
     if _build.shutil.which("nvcc") or Path("/usr/local/cuda/bin/nvcc") \
@@ -248,6 +267,7 @@ def test_similarity_kernel_route_does_not_fall_back_to_cpu():
                                   "kernels/array_ops.py",
                                   "kernels/bitset_convert.py",
                                   "kernels/harley_seal.py",
+                                  "kernels/bitset_ops.py",
                                   "kernels/_build.py", "kernels/ops.py",
                                   "core/pairwise.py", "core/tensor.py"])
 def test_every_except_reraises(name):
