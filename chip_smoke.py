@@ -48,6 +48,17 @@ toolkit (``nvcc``).  Phases, each timed:
    Words, masks and counts must be bit-equal; device times of kernel,
    plain version and library yardstick (``torch.searchsorted`` for the
    intersection) and the bound are printed.
+2f. The sharded similarity kernels (the score over ids and the labelled
+   select) against their plain versions: phase 2b's 1,024 candidates
+   (227,240 rows, read through positions of an arena-like table) split
+   over S in {1, 3, 4} shards as the sharded engine splits them, every
+   metric, a tie group of 11 straddling the shards at k = 10, a zero
+   query cardinality, pad slots reading an all-zero row, exclusion of an
+   id on each shard, k in {1, 10, 100} and past every shard's valid
+   count.  Scores, ids and intersections must be bit-equal, and the
+   merged lists equal to the single-device score and select; times of
+   the score over all 1,024 slots and of the select over one shard's list
+   and over the merged S * k = 40 and 400 entries, beside ``torch.sort``.
 3. Boolean queries at real scale: an ``InvertedIndex`` over 2^24 documents
    and 1,024 terms on a ``BitmapArena`` on the card (64 dense bitset
    terms, 960 sparse array terms), 64 queries of each boolean class run
@@ -102,7 +113,19 @@ toolkit (``nvcc``).  Phases, each timed:
    numpy oracle; p50 / p99, one profiler window per entry point, launches
    and peak device memory.
 
-Launch counts are set to 0 just before each of phases 3 to 8 and
+9. The sharded paths on the same index over a ``WideMesh`` of four
+   shards on the card (the arena's per-shard slabs, about 2 GiB more):
+   phase 4's queries through ``similar(mesh=)``, each equal to phase 4's
+   answer and launching the score over ids 4 times and the labelled
+   select 5 times; a warm re-query that uploads no row; phase 3's classes
+   through ``execute_plans(mesh=)``, equal to phase 3's answers; a sharded
+   ``QueryServer`` over a share of phase 5's traffic with one
+   ``slab_mismatch``; ``reduce_or(mesh=)`` of phase 7's tensor, equal to
+   its union; a profiler window; and one edited term, after which one row
+   of one shard patches.  The sharded similarity kernels must launch in
+   phase 9 and in no earlier phase.
+
+Launch counts are set to 0 just before each of phases 3 to 9 and
 read just after it; a kernel that a phase's path runs and that launched no time
 there fails the script.  Then one JSON line with every kernel's numbers,
 and the last line ``{"ok": true, "device": {...}}``.
@@ -1086,6 +1109,238 @@ def _convert_counts() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2f: the sharded similarity kernels (score over ids, labelled
+# select) against their plain versions
+# ---------------------------------------------------------------------------
+
+IDS_STAGES = ("score_ids", "select_ids")
+
+
+def _ids_counts() -> dict:
+    """Launches of the two sharded similarity kernels since the last
+    reset."""
+    from repro_torch.kernels import topk_ops
+    return {s: topk_ops.launches_by_stage[s] for s in IDS_STAGES}
+
+
+def _ids_layout(x, dev, gen):
+    """Phase 2b's candidates in an arena-like table: the 227,240 rows at
+    random positions of a table whose last row is all zero, read through
+    positions (``perm``)."""
+    n = x["rows"].shape[0]
+    perm = torch.randperm(n, device=dev, generator=gen)
+    table = torch.zeros((n + 1, 2048), dtype=torch.int32, device=dev)
+    table[perm] = x["rows"]
+    return table, perm.to(torch.int32)
+
+
+def _shard_inputs(x, perm, s_count, shard, zero_row):
+    """Shard ``shard`` of ``s_count`` in the engine's layout: candidates t
+    with t % S == shard in ascending order, padded to the largest shard's
+    slot count L with slots of id T, card 0 and ONE row that reads the
+    table's all-zero row (so the -2.0 of a pad slot is what a zero row
+    would otherwise score).  Returns the wrapper's arguments after the
+    table and the query, and (n_valid, L)."""
+    dev = x["rows"].device
+    t = len(x["lens"])
+    cands = np.arange(shard, t, s_count)
+    slots = -(-t // s_count)
+    starts_all = x["starts"].cpu().numpy().astype(np.int64)
+    lens = x["lens"][cands].astype(np.int64)
+    n_pad = slots - cands.size
+    offs = np.repeat(np.cumsum(lens) - lens, lens)
+    ridx = np.arange(int(lens.sum())) - offs + np.repeat(starts_all[cands],
+                                                         lens)
+    ridx_t = torch.from_numpy(ridx).to(dev)
+    pos = torch.cat([perm[ridx_t], torch.full((n_pad,), zero_row,
+                                               dtype=torch.int32,
+                                               device=dev)])
+    col = torch.cat([x["row_col"][ridx_t],
+                     torch.zeros(n_pad, dtype=torch.int32, device=dev)])
+    starts = np.concatenate(([0], np.cumsum(np.concatenate(
+        [lens, np.ones(n_pad, np.int64)]))))
+    gidx = np.concatenate([cands, np.full(n_pad, t)])
+    cards = torch.cat([x["cards"][torch.from_numpy(cands).to(dev)],
+                       torch.zeros(n_pad, dtype=torch.int32, device=dev)])
+    return (pos, col, torch.from_numpy(starts.astype(np.int32)).to(dev),
+            cards, torch.from_numpy(gidx.astype(np.int32)).to(dev)), \
+        (int(cands.size), slots)
+
+
+def _ids_select_bound(m, k):
+    t_bytes = (12 * m + 12 * k) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * k * m / INT_OPS_PER_S * 1e3     # two passes a round
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _score_ids_bound(x, n_rows, slots):
+    nbytes = (n_rows * 8192 + x["q"].shape[0] * 8192 + 8 * n_rows
+              + 4 * (slots + 1) + 8 * slots + 8 * slots)
+    ops = n_rows * 2048 * 2
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_ids_kernels(dev, seed, failures):
+    """The score-over-ids and labelled-select kernels against their plain
+    versions, bit-equal: phase 2b's 1,024 candidates (227,240 rows, ties
+    among candidates 9-19) split over S in {1, 3, 4} shards as the engine
+    splits them, every metric, a tie query whose group of 11 straddles
+    the shards at k = 10, a zero query cardinality, every shard's pad
+    slots reading an all-zero row, exclusion of an id on each shard, and
+    k in {1, 10, 100, L + 7} (L + 7 past every shard's valid count).  The
+    merged lists must also equal the single-device score and select of
+    all candidates.  Times: the score over all 1,024 slots, and the
+    select over one shard's list (S = 4, L = 256) and over the merged
+    S * k = 40 and 400 entries."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import topk_ops as tk
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 40)
+    x = _topk_inputs(dev, seed + 10)
+    t = len(x["lens"])
+    table, perm = _ids_layout(x, dev, gen)
+    zero_row = table.shape[0] - 1
+    single = (x["rows"], x["row_col"], x["starts"])
+    s9, e9 = int(x["starts"][9]), int(x["starts"][10])
+    q_tie = torch.zeros_like(x["q"])
+    q_tie[x["row_col"][s9:e9].long()] = x["rows"][s9:e9]
+    variants = [("main", x["q"], x["q_card"]),
+                ("ties", q_tie, int(x["cards"][9])),
+                ("q_card0", torch.zeros_like(x["q"]), 0)]
+    cases, max_err = [], 0.0
+    single_cache = {}
+
+    def check(case, got, want):
+        nonlocal max_err
+        same = _bits_equal(got, want)
+        max_err = max(max_err, _err(got, want))
+        if not same:
+            failures.append(f"kernel != plain: {case}")
+        return same
+
+    for s_count in (1, 3, 4):
+        shard_args = [_shard_inputs(x, perm, s_count, s, zero_row)
+                      for s in range(s_count)]
+        slots = shard_args[0][1][1]
+        for vname, q, qc in variants:
+            for metric in METRICS:
+                excludes = [-1] + (list(range(s_count))
+                                   if vname == "main" else [])
+                for exclude in excludes:
+                    key = (vname, metric, exclude)
+                    if key not in single_cache:
+                        single_cache[key] = ref.similarity_score(
+                            *single, q, qc, x["cards"], exclude,
+                            metric=metric)
+                    sc_all, in_all = single_cache[key]
+                    per = []
+                    for s, (args, (n_valid, _)) in enumerate(shard_args):
+                        pos, col, starts, cards, gidx = args
+                        call = (table, pos, col, starts, q, qc, cards, gidx,
+                                n_valid, exclude)
+                        want = ref.similarity_score_ids(*call,
+                                                        metric=metric)
+                        got = tk.similarity_score_ids(*call, metric=metric)
+                        case = (f"score_ids/S={s_count}/{vname}/{metric}/"
+                                f"exclude={exclude}/shard={s}")
+                        cases.append(dict(case=case,
+                                          equal=check(case, got, want)))
+                        per.append((got, gidx, n_valid))
+                    ks = (1, 10, 100, slots + 7) if exclude == -1 and \
+                        vname == "main" else (10,)
+                    for k in ks:
+                        lists = []
+                        for s, ((score, inter), gidx, n_valid) in \
+                                enumerate(per):
+                            want = ref.topk_select_ids(score, inter, gidx,
+                                                       k)
+                            got = tk.topk_merge(score, inter, gidx, k)
+                            case = (f"select_ids/S={s_count}/{vname}/"
+                                    f"{metric}/exclude={exclude}/k={k}/"
+                                    f"shard={s}")
+                            cases.append(dict(case=case,
+                                              equal=check(case, got, want)))
+                            lists.append(got)
+                        merged = [torch.cat(p) for p in zip(*lists)]
+                        want = ref.topk_select_ids(merged[1], merged[2],
+                                                   merged[0], k)
+                        got = tk.topk_merge(merged[1], merged[2], merged[0],
+                                            k)
+                        case = (f"merge/S={s_count}/{vname}/{metric}/"
+                                f"exclude={exclude}/k={k}")
+                        same = check(case, got, want)
+                        kk = min(k, t - (exclude >= 0))
+                        one = ref.topk_select(sc_all, in_all, kk)
+                        if not _bits_equal([g[:kk] for g in got], one):
+                            same = False
+                            failures.append(f"sharded != single-device: "
+                                            f"{case}")
+                        cases.append(dict(case=case, equal=same))
+                        if vname == "ties" and k == 10 and \
+                                got[0].tolist() != list(range(9, 19)):
+                            failures.append(f"tie group not cut at the "
+                                            f"lowest ids: {case}")
+    # times: the score over all 1,024 slots (one shard of everything)
+    args, _ = _shard_inputs(x, perm, 1, 0, zero_row)
+    pos, col, starts, cards, gidx = args
+    call = (table, pos, col, starts, x["q"], x["q_card"], cards, gidx, t,
+            -1)
+    want, plain_ms = _time_ms(lambda: ref.similarity_score_ids(
+        *call, metric="jaccard"), 3)
+    got, ms = _time_ms(lambda: tk.similarity_score_ids(
+        *call, metric="jaccard"), 20)
+    bound_ms, bound_by = _score_ids_bound(x, int(pos.shape[0]), t)
+    main = dict(case="score_ids/main/jaccard", equal=check(
+        "score_ids/main/jaccard", got, want), ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    cases.append(main)
+    log(f"  {main['case']:40s} equal={main['equal']} kernel {ms:.4f} ms  "
+        f"plain {plain_ms:.3f} ms  bound {bound_ms:.4f} ms ({bound_by})")
+    # the select: one shard's list (S = 4), the merged S * k entries
+    shard_args = [_shard_inputs(x, perm, 4, s, zero_row) for s in range(4)]
+    scored = []
+    for (pos, col, starts, cards, gidx), (n_valid, _) in shard_args:
+        sc, it = tk.similarity_score_ids(table, pos, col, starts, x["q"],
+                                         x["q_card"], cards, gidx, n_valid,
+                                         metric="jaccard")
+        scored.append((sc, it, gidx))
+    timed = [("select_ids/shard/L=256/k=10", scored[0], 10)]
+    for k in (10, 100):
+        lists = [tk.topk_merge(sc, it, g, k) for sc, it, g in scored]
+        gi, sc, it = (torch.cat(p) for p in zip(*lists))
+        timed.append((f"select_ids/merge/M={4 * k}/k={k}", (sc, it, gi), k))
+    for name, (sc, it, gi), k in timed:
+        want = ref.topk_select_ids(sc, it, gi, k)
+        got = tk.topk_merge(sc, it, gi, k)
+        # the library yardstick: a stable sort by score of entries already
+        # in ascending id order gives the same top k
+        order = torch.argsort(gi, stable=True)
+        sc_o = sc[order]
+        lib = torch.sort(sc_o, descending=True, stable=True).indices[:k]
+        same = check(name, got, want) and torch.equal(
+            got[0].long(), gi[order][lib].long())
+        dev_ms = _device_ms(lambda: tk.topk_merge(sc, it, gi, k), 50)
+        dev_plain = _device_ms(lambda: ref.topk_select_ids(sc, it, gi, k),
+                               3)
+        dev_lib = _device_ms(lambda: torch.sort(
+            sc_o, descending=True, stable=True).indices[:k], 50)
+        bound_ms, bound_by = _ids_select_bound(int(sc.shape[0]), k)
+        cases.append(dict(case=name, equal=same, ms=dev_ms,
+                          plain_ms=dev_plain, library_ms=dev_lib,
+                          bound_ms=bound_ms, bound_by=bound_by))
+        log(f"  {name:40s} equal={same} device: kernel {dev_ms:.4f} ms  "
+            f"plain {dev_plain:.3f} ms  torch.sort {dev_lib:.4f} ms; bound "
+            f"{bound_ms:.6f} ms ({bound_by})")
+    log(f"  {len(cases)} cases, {sum(c['equal'] for c in cases)} equal; "
+        f"launches so far {_ids_counts()}")
+    del x, table, perm, single_cache, scored
+    torch.cuda.empty_cache()
+    return cases, max_err
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path at real scale
 # ---------------------------------------------------------------------------
 
@@ -1505,7 +1760,7 @@ def phase_similarity(dev, index, sets, seed, failures):
             (time.perf_counter() - t) * 1e3)
         wrong += not _same_sim(got, want)
         bad_launch += any(tk.launches_by_stage[s] != n0[s] + 1
-                          for s in n0)
+                          for s in ("score", "select"))
     classes = {}
     for metric in METRICS:
         qs = [(t, k) for t, k, m in traffic if m == metric and k == 10][:16]
@@ -1541,7 +1796,7 @@ def phase_similarity(dev, index, sets, seed, failures):
     if bad_launch:
         failures.append(f"similarity: {bad_launch} queries did not launch "
                         f"each stage exactly once")
-    if min(launches.values()) == 0:
+    if min(launches["score"], launches["select"]) == 0:
         failures.append("similarity: a kernel never launched")
     sim_cases = [dict(term=t, k=k, metric=m, answer=a)
                  for (t, k, m), a in zip(traffic, answers)]
@@ -1607,7 +1862,9 @@ def phase_server(dev, index, traffic, answers, sim_cases, failures,
     srv.run_until_idle()
     torch.cuda.synchronize(dev)
     t2 = time.perf_counter()
-    launches = dict(segment_reduce=so.launches, **tk.launches_by_stage)
+    launches = dict(segment_reduce=so.launches,
+                    score=tk.launches_by_stage["score"],
+                    select=tk.launches_by_stage["select"])
     st = srv.stats()                        # the serving path ends here
     wrong = _check_tickets(tickets, [(c, w) for c, _, w in work],
                            _to_packed, "server", failures)
@@ -2014,13 +2271,14 @@ def _jaccard32(inter, ca, cb):
     return np.float32(i32 / union) if union > 0 else np.float32(1.0)
 
 
-def phase_tensor(dev, postings, sets, seed, failures):
+def phase_tensor(dev, postings, sets, seed, failures, keep):
     """``RoaringTensor`` over the index's 1,024 postings and 64 windows
     at capacity 256 on the card, every operation against the packed
     numpy oracle; p50 / p99 (host clock, ending in a synchronize) per
     operation over 5 calls (3 for the largest), the first one checked;
     profiler windows over one more call of the algebra, a count, the
-    count batch, ``reduce_or`` and ``run_optimize``."""
+    count batch, ``reduce_or`` and ``run_optimize``.  The tensor and its
+    union stay in ``keep`` for phase 9's sharded ``reduce_or``."""
     from repro_torch.core import aggregate
     from repro_torch.core.tensor import KIND_RUN, RoaringTensor
     from repro_torch.kernels import bitset_convert, harley_seal, segment_ops
@@ -2195,6 +2453,7 @@ def phase_tensor(dev, postings, sets, seed, failures):
                 **harley_seal.launches_by_kernel, **_pair_counts(),
                 "segment_reduce": segment_ops.launches}
     peak = torch.cuda.max_memory_allocated(dev)       # the path ends here
+    keep.update(tensor=t, union=union)
     del t, sub, arena, bms
     torch.cuda.empty_cache()
 
@@ -2471,6 +2730,210 @@ def phase_ops_surface(dev, index, sets, failures, reps=5):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the sharded paths at real scale
+# ---------------------------------------------------------------------------
+
+SHARDS = 4
+_IDS_KERNELS = ("score_ids_kernel", "select_ids_kernel")
+
+
+def _shard_rows(shards) -> dict:
+    return dict(uploaded=[st.rows_uploaded for st in shards.stats],
+                patched=[st.rows_patched for st in shards.stats])
+
+
+def phase_sharded(dev, ctx, sim_cases, keep, failures):
+    """The sharded paths on phase 3's index (2^24 documents, 1,024 terms,
+    the 2 GiB arena; nothing cut) over a ``WideMesh`` of four shards on
+    the card: the shard slabs built (about 2 GiB more), phase 4's queries
+    through ``similar(mesh=)``, each equal to phase 4's single-device
+    answer (itself held against the numpy oracle) and launching the
+    score-over-ids kernel S times and the labelled select S + 1 times; a
+    warm re-query pass that uploads no row; phase 3's classes through
+    ``execute_plans(mesh=)``, equal to phase 3's answers; a sharded
+    ``QueryServer`` over a share of phase 5's traffic with one
+    ``slab_mismatch``; ``reduce_or(mesh=)`` of phase 7's tensor, equal to
+    its single-device union; one profiler window; and last one mutated
+    term, after which only the owning shard patches and the sharded
+    answer equals the single-device one."""
+    from repro_torch.core import aggregate
+    from repro_torch.dist import WideMesh
+    from repro_torch.kernels import segment_ops as so
+    from repro_torch.kernels import topk_ops as tk
+    from repro_torch.serve import FaultInjector, QueryServer
+    index = ctx["index"]
+    arena = index.arena
+    mesh = WideMesh([dev] * SHARDS)
+    _reset_counts()                         # the sharded path starts here
+    mem0 = torch.cuda.memory_allocated(dev)
+    t = time.perf_counter()
+    shards = arena.shard_slabs(mesh)
+    shards.sync()
+    slabs_s = time.perf_counter() - t
+    slab_bytes = shards.assembled().numel() * 4
+    rows0 = _shard_rows(shards)
+    t = time.perf_counter()
+    index._sim_engine(mesh)
+    engine_s = time.perf_counter() - t
+    log(f"  shard slabs: {slab_bytes} bytes in {slabs_s:.2f} s, rows "
+        f"{rows0['uploaded']}; sharded engine build {engine_s:.2f} s")
+
+    # similarity: phase 4's queries, each against phase 4's answer
+    wrong, bad_launch, lat = 0, 0, {}
+    for c in sim_cases:
+        n0 = dict(tk.launches_by_stage)
+        t = time.perf_counter()
+        got = index.similar(c["term"], c["k"], c["metric"], mesh=mesh)
+        lat.setdefault((c["metric"], c["k"]), []).append(
+            (time.perf_counter() - t) * 1e3)
+        wrong += not _same_sim(got, c["answer"])
+        d = {k: tk.launches_by_stage[k] - n0[k] for k in n0}
+        bad_launch += d != dict(score=0, select=0, score_ids=SHARDS,
+                                select_ids=SHARDS + 1)
+    up0 = _shard_rows(shards)["uploaded"]
+    rewrong = sum(not _same_sim(index.similar(c["term"], c["k"],
+                                              c["metric"], mesh=mesh),
+                                c["answer"]) for c in sim_cases[::8])
+    warm_uploaded = sum(_shard_rows(shards)["uploaded"]) - sum(up0)
+    classes = {}
+    for (metric, k), ls in sorted(lat.items()):
+        classes[f"{metric}/k={k}"] = dict(
+            queries=len(ls), p50_ms=float(np.percentile(ls, 50)),
+            p99_ms=float(np.percentile(ls, 99)))
+    qs = [c for c in sim_cases if c["k"] == 10][:16]
+    tr = _traced("sharded similar", lambda: [
+        index.similar(c["term"], c["k"], c["metric"], mesh=mesh)
+        for c in qs], dev, _IDS_KERNELS)
+    sim = dict(queries=len(sim_cases), wrong=wrong, bad_launch=bad_launch,
+               rewrong=rewrong, warm_rows_uploaded=warm_uploaded,
+               classes=classes, window=dict(
+                   queries=len(qs), wall_us=tr["wall_us"],
+                   busy_us=tr["busy_us"], kernel_us=tr["kernel_us"],
+                   name_us=tr["name_us"], h2d_bytes=tr["h2d_bytes"],
+                   idle_share=tr["idle_share"]))
+    for name, cl in classes.items():
+        log(f"  similar(mesh=) {name:18s} p50 {cl['p50_ms']:.3f} ms  p99 "
+            f"{cl['p99_ms']:.3f} ms  ({cl['queries']} queries)")
+    idle = tr["idle_share"]
+    log(f"  {len(sim_cases)} sharded queries: wrong {wrong}, not launching "
+        f"S and S + 1 {bad_launch}; warm re-query of "
+        f"{len(sim_cases[::8])}: wrong {rewrong}, rows uploaded "
+        f"{warm_uploaded}; window of {len(qs)}: busy "
+        f"{tr['busy_us'] / 1e3:.3f} ms of {tr['wall_us'] / 1e3:.3f} ms, "
+        f"kernels {tr['kernel_us'] / 1e3:.3f} ms, idle "
+        + (f"{idle:.4f}" if idle is not None else "not measured"))
+    if wrong or rewrong:
+        failures.append(f"sharded similar: {wrong} + {rewrong} answers "
+                        f"differ from the single-device answers")
+    if bad_launch:
+        failures.append(f"sharded similar: {bad_launch} queries did not "
+                        f"launch score_ids S and select_ids S + 1 times")
+    if warm_uploaded:
+        failures.append(f"sharded similar: a warm re-query uploaded "
+                        f"{warm_uploaded} rows")
+
+    # boolean: phase 3's classes through execute_plans(mesh=)
+    boolean = {}
+    for cls in CLASSES:
+        plans = [_plan(index, cls, q) for q in ctx["traffic"][cls]]
+        n0 = so.launches
+        t = time.perf_counter()
+        outs = aggregate.execute_plans(plans, mesh=mesh)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t) * 1e3
+        bad = sum(not np.array_equal(_to_packed(g), w)
+                  for g, w in zip(outs, ctx["answers"][cls]))
+        boolean[cls] = dict(queries=len(plans), coalesced_ms=ms,
+                            launches=so.launches - n0, wrong=bad)
+        log(f"  execute_plans(mesh=) {cls:12s} {ms:8.1f} ms, "
+            f"{so.launches - n0} segment_reduce launches, wrong {bad}")
+        if bad:
+            failures.append(f"sharded {cls}: {bad} answers differ from "
+                            f"phase 3's")
+    up1 = _shard_rows(shards)["uploaded"]
+    if up1 != up0:
+        failures.append(f"sharded boolean queries uploaded rows "
+                        f"{up0} -> {up1}")
+
+    # the server: a share of phase 5's traffic, one slab_mismatch
+    work = [(cls, q, ctx["answers"][cls][i]) for cls in CLASSES
+            for i, q in enumerate(ctx["traffic"][cls][:8])]
+    work += [("similar", c, c["answer"]) for c in sim_cases
+             if c["k"] == 10 and not c["term"].startswith("unknown")][::6]
+    srv = QueryServer(index, mesh=mesh, faults=FaultInjector.script(
+        {"slab_mismatch": [True]}))
+    t = time.perf_counter()
+    tickets = [srv.submit(_ticket_query(cls, q)) for cls, q, _ in work]
+    srv.run_until_idle()
+    torch.cuda.synchronize(dev)
+    run_s = time.perf_counter() - t
+    st = srv.stats()
+    srv_wrong = _check_tickets(tickets, [(c, w) for c, _, w in work],
+                               _to_packed, "sharded server", failures)
+    lat_t = [tk_.telemetry.latency * 1e3 for tk_ in tickets]
+    server = dict(tickets=len(tickets), wrong=srv_wrong, stats=st.as_dict(),
+                  run_s=run_s, tickets_per_s=len(tickets) / run_s,
+                  p50_ms=float(np.percentile(lat_t, 50)),
+                  p99_ms=float(np.percentile(lat_t, 99)))
+    log(f"  sharded server: {len(tickets)} tickets in {run_s:.2f} s "
+        f"({server['tickets_per_s']:.1f}/s), wrong {srv_wrong}, replans "
+        f"{st.replans}, rows_repatched {st.rows_repatched}, host_fallbacks "
+        f"{st.host_fallbacks}")
+    if st.replans != 1 or st.host_fallbacks or st.dispatch_retries:
+        failures.append(f"sharded server: {st}")
+
+    # reduce_or(mesh=) of phase 7's tensor
+    tensor = keep.pop("tensor")
+    union = keep.pop("union")
+    n0 = so.launches
+    t = time.perf_counter()
+    res = tensor.reduce_or(mesh=mesh)
+    torch.cuda.synchronize(dev)
+    ro_ms = (time.perf_counter() - t) * 1e3
+    ro_wrong = int(not np.array_equal(_to_packed(res.to_bitmaps()[0]),
+                                      union))
+    reduce_or = dict(ms=ro_ms, launches=so.launches - n0, wrong=ro_wrong)
+    log(f"  reduce_or(mesh=): {ro_ms:.1f} ms, {so.launches - n0} launches, "
+        f"wrong {ro_wrong}")
+    if ro_wrong:
+        failures.append("sharded reduce_or differs from the single-device "
+                        "union")
+    del tensor, res
+    torch.cuda.empty_cache()
+
+    # one mutated term: only the owning shard patches
+    term = "s0"
+    bm = index.postings[term]
+    vals = bm.to_array()
+    doc = int(np.setdiff1d(np.arange(int(vals[0]), int(vals[0]) + 64),
+                           vals)[0])
+    bm.add(doc)
+    p0 = _shard_rows(shards)["patched"]
+    got = index.similar(term, 10, "jaccard", mesh=mesh)
+    want = index.similar(term, 10, "jaccard")
+    p1 = _shard_rows(shards)["patched"]
+    patched = [b - a for a, b in zip(p0, p1)]
+    mut_wrong = int(not _same_sim(got, want))
+    log(f"  one edit of {term}: rows patched per shard {patched}, wrong "
+        f"{mut_wrong}")
+    if sum(patched) != 1 or max(patched) != 1 or mut_wrong:
+        failures.append(f"sharded refresh: patched {patched}, wrong "
+                        f"{mut_wrong}")
+
+    launches = {**dict(tk.launches_by_stage), "segment_reduce":
+                so.launches}                # the sharded path ends here
+    mem = torch.cuda.memory_allocated(dev) - mem0
+    log(f"  launches {launches}; shard slabs and engines hold +{mem} bytes")
+    if min(launches[k] for k in (*IDS_STAGES, "segment_reduce")) == 0:
+        failures.append(f"sharded: a kernel never launched {launches}")
+    return dict(shards=SHARDS, slab_bytes=slab_bytes, slabs_s=slabs_s,
+                engine_s=engine_s, rows_at_build=rows0, similarity=sim,
+                boolean=boolean, server=server, reduce_or=reduce_or,
+                edit=dict(term=term, patched=patched, wrong=mut_wrong),
+                launches=launches, allocated_delta=mem)
+
+
+# ---------------------------------------------------------------------------
 
 def _build_all():
     """Build every kernel source at once, one nvcc each, in parallel.
@@ -2501,7 +2964,8 @@ def _build_all():
 
 def _kernel_line(main_path, sim, cases, topk_cases, max_err, topk_err,
                  pair_cases, pair_err, pairwise, convert_cases, convert_err,
-                 tensor, section4_cases, section4_err, surface):
+                 tensor, section4_cases, section4_err, surface, ids_cases,
+                 ids_err, sharded):
     rep = next(c for c in cases if c["case"] == "main/ids/or")
     score = next(c for c in topk_cases
                  if c["case"] == "score/main/jaccard/exclude=-1")
@@ -2582,7 +3046,24 @@ def _kernel_line(main_path, sim, cases, topk_cases, max_err, topk_err,
             ("bitset_op_card", "bitset_op_card/and", "bitset_ops.cu",
              "bitset_ops.py:96"),
             ("array_intersect", "array_intersect", "array_ops.cu",
-             "array_ops.py:83"))]}
+             "array_ops.py:83"))
+    ] + [
+        # the sharded similarity kernels, launches from phase 9: the score
+        # over ids at row 5's size (T = 1,024 slots, 227,240 rows, CUDA
+        # events; no PyTorch call computes it), the labelled select on the
+        # merged S * k = 40 entries of a k = 10 query (device times;
+        # library_ms: a stable torch.sort by score of the entries in
+        # ascending id order)
+        row("similarity_score_ids", "similarity_topk.cu",
+            "src/repro/kernels/topk_ops.py:273",
+            sharded["launches"]["score_ids"], ids_err,
+            next(c for c in ids_cases
+                 if c["case"] == "score_ids/main/jaccard")),
+        row("topk_merge", "similarity_topk.cu",
+            "src/repro/kernels/topk_ops.py:310",
+            sharded["launches"]["select_ids"], ids_err,
+            next(c for c in ids_cases
+                 if c["case"] == "select_ids/merge/M=40/k=10"))]}
 
 
 def main() -> int:
@@ -2635,17 +3116,23 @@ def main() -> int:
         "2e (section-4 kernels against plain)", phase_section4_kernels, dev,
         args.seed, failures)
     log(f"  {len(section4_cases)} cases, max_abs_err {section4_err}")
+    ids_cases, ids_err = phase(
+        "2f (sharded similarity kernels against plain)", phase_ids_kernels,
+        dev, args.seed, failures)
+    log(f"  {len(ids_cases)} cases, max_abs_err {ids_err}")
     main_path, ctx = phase("3 (boolean queries at real scale)",
                            phase_main_path, dev, args.seed, failures)
     main_path["pair_launches"] = _pair_counts()
     main_path["convert_launches"] = _convert_counts()
     main_path["section4_launches"] = _section4_counts()
+    main_path["ids_launches"] = _ids_counts()
     sim, sim_cases = phase("4 (similarity at real scale)",
                            phase_similarity, dev, ctx["index"],
                            ctx["sets"], args.seed, failures)
     sim["pair_launches"] = _pair_counts()
     sim["convert_launches"] = _convert_counts()
     sim["section4_launches"] = _section4_counts()
+    sim["ids_launches"] = _ids_counts()
     server = phase("5 (query server)", phase_server, dev, ctx["index"],
                    ctx["traffic"], ctx["answers"], sim_cases, failures)
     server["faults"] = phase("5 (query server under scripted faults)",
@@ -2654,30 +3141,52 @@ def main() -> int:
     server["pair_launches"] = _pair_counts()
     server["convert_launches"] = _convert_counts()
     server["section4_launches"] = _section4_counts()
+    server["ids_launches"] = _ids_counts()
     pairwise = phase("6 (two-by-two algebra at real scale)",
                      phase_pairwise, dev, ctx["index"], ctx["sets"],
                      args.seed, failures)
     pairwise["convert_launches"] = _convert_counts()
     pairwise["section4_launches"] = _section4_counts()
+    pairwise["ids_launches"] = _ids_counts()
+    keep = {}
     tensor = phase("7 (RoaringTensor at real scale)", phase_tensor, dev,
-                   ctx["postings"], ctx["sets"], args.seed, failures)
+                   ctx["postings"], ctx["sets"], args.seed, failures, keep)
     tensor["section4_launches"] = _section4_counts()
+    tensor["ids_launches"] = _ids_counts()
     surface = phase("8 (the kernels.ops surface at real scale)",
                     phase_ops_surface, dev, ctx["index"], ctx["sets"],
                     failures)
+    surface["ids_launches"] = _ids_counts()
+    sharded = phase("9 (the sharded paths at real scale)", phase_sharded,
+                    dev, ctx, sim_cases, keep, failures)
+    sharded["pair_launches"] = _pair_counts()
+    sharded["convert_launches"] = _convert_counts()
+    sharded["section4_launches"] = _section4_counts()
+    ids_per_phase = [p["ids_launches"] for p in (main_path, sim, server,
+                                                 pairwise, tensor, surface)]
+    ids_per_phase.append({k: sharded["launches"][k] for k in IDS_STAGES})
+    log("sharded similarity launches in phases 3 / 4 / 5 / 6 / 7 / 8 / 9: "
+        + "  ".join(f"{k} " + " / ".join(str(p[k]) for p in ids_per_phase)
+                    for k in IDS_STAGES))
+    if any(p[k] for p in ids_per_phase[:-1] for k in IDS_STAGES):
+        failures.append(f"a sharded similarity kernel launched outside "
+                        f"phase 9: {ids_per_phase}")
     per_phase = [{**p["convert_launches"], **p["section4_launches"]}
                  for p in (main_path, sim, server, pairwise)]
     per_phase += [{**tensor["launches"], **tensor["section4_launches"]},
-                  surface.get("launches", {})]
+                  surface.get("launches", {}),
+                  {**sharded["convert_launches"],
+                   **sharded["section4_launches"]}]
     log("conversion, popcount and section-4 launches in phases 3 / 4 / 5 / "
-        "6 / 7 / 8: " + "  ".join(
+        "6 / 7 / 8 / 9: " + "  ".join(
             f"{k} " + " / ".join(str(p.get(k)) for p in per_phase)
             for k in (*CONVERT_KERNELS, *SECTION4_KERNELS)))
 
     kernels = _kernel_line(main_path, sim, cases, topk_cases, max_err,
                            topk_err, pair_cases, pair_err, pairwise,
                            convert_cases, convert_err, tensor,
-                           section4_cases, section4_err, surface)
+                           section4_cases, section4_err, surface, ids_cases,
+                           ids_err, sharded)
     REPORT.parent.mkdir(exist_ok=True)
     REPORT.write_text(json.dumps(dict(
         card=card, builds=builds, kernel_cases=cases,
@@ -2685,6 +3194,7 @@ def main() -> int:
         similarity=sim, server=server, pair_cases=pair_cases,
         pairwise=pairwise, convert_cases=convert_cases, tensor=tensor,
         section4_cases=section4_cases, ops_surface=surface,
+        ids_cases=ids_cases, sharded=sharded,
         kernels=kernels["kernels"],
         phases_s=phases, failures=failures,
         total_s=time.perf_counter() - t_all), indent=1, default=str))

@@ -1,7 +1,7 @@
 """Wide-aggregation planner: K-bitmap OR/AND/XOR/ANDNOT/threshold, one
 kernel launch per op class.
 
-The port of the JAX package's ``core/aggregate.py`` on one device.  The
+The port of the JAX package's ``core/aggregate.py``.  The
 paper's wide union (section 5.8, ``roaring_bitmap_or_many``) streams
 containers through an in-register accumulator; sections 4.1.2 and 5.9 ask
 for the logical op and the population count in the same pass.  Kaser &
@@ -33,7 +33,32 @@ ids: the kernel gathers them from the device slab, and only cold rows are
 staged per call.  Every entry point runs on ``device`` ("cuda" unless the
 caller passes another; with an arena, the arena's device).
 ``execute_plan_host`` is the numpy-only route the query server degrades
-to.  The sharded multi-device paths of the JAX package are not ported yet.
+to.
+
+**Sharded path.**  With a ``dist.WideMesh`` of S > 1 shards (``mesh=``, or
+installed with ``set_default_mesh``), each slab segment's rows go
+round-robin to the shards (``_shard_plan``), every shard runs the same
+segmented reduce on its rows, and the partials fold on the mesh's first
+device by the JAX package's exchange rules:
+
+  * OR / XOR partials fold with the op (both are associative and
+    commutative over disjoint row sets);
+  * ANDNOT replicates the minuend on every shard, so the local partials
+    ``a & ~local_or`` fold with AND: ``(a & ~x) & (a & ~y) == a & ~(x|y)``;
+  * AND exchanges an occupancy mask with the partials: a shard holding no
+    rows of a segment contributes all ones (the kernel's empty-segment
+    zeros would be wrong to fold), and a segment no shard holds is empty;
+  * threshold exchanges bit-sliced occurrence counters
+    (``kernels.ops.segment_counters``), added across shards before one
+    comparator pass.
+
+With an arena, every shard reads its resident rows from the arena's
+per-shard slabs through their positions (``ShardSlabs``), and only cold
+rows ride a small staged block whose row 0 is zero, so a warm sharded
+aggregate moves ids to the card and no container rows.  The JAX package
+runs each shard inside ``shard_map`` and all-gathers the partials; the port
+launches each shard in turn from one process and gathers them with
+``.to()``.  A one-shard mesh takes the single-device path.
 """
 
 from __future__ import annotations
@@ -49,12 +74,31 @@ from repro_torch.core.containers import (
     RunContainer, optimize,
 )
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from repro_torch.kernels.ref import WORDS
 from repro_torch.kernels.segment_ops import counter_planes
 
 __all__ = ["or_many", "and_many", "xor_many", "andnot_many",
-           "threshold_many", "WidePlan", "plan_wide", "execute_plans",
-           "execute_plan_host"]
+           "threshold_many", "set_default_mesh", "WidePlan", "plan_wide",
+           "execute_plans", "execute_plan_host"]
+
+
+def set_default_mesh(mesh) -> None:
+    """Install the mesh of every wide aggregate not given ``mesh=`` (None
+    restores the single-device path).  It is stored in ``dist.ctx``, so
+    this and ``ctx.set_wide_mesh`` / ``ctx.install_wide_mesh`` are one."""
+    from repro_torch.dist import ctx
+    ctx.set_wide_mesh(mesh)
+
+
+def _resolve_mesh(mesh):
+    from repro_torch.dist import ctx
+    return ctx.resolve_wide(mesh)[0]
+
+
+def _mesh_size(mesh) -> int:
+    from repro_torch.dist import ctx
+    return ctx.resolve_wide(mesh)[1]
 
 
 def _bitmap_cls():
@@ -324,9 +368,11 @@ def _repack_segments(seg_keys, words: torch.Tensor,
 def _dispatch(seg_keys: list, seg_rows: list[list], op: str, threshold,
               backend, device: torch.device,
               seg_weights: list[list[int]] | None = None,
-              arena=None) -> dict:
+              arena=None, mesh=None) -> dict:
     """Reduce every pending segment in one kernel launch per depth bucket
     and repack each segment's (words, card) into the optimal container kind.
+    With a mesh of more than one shard, the rows shard across it instead
+    (``_shard_reduce`` / ``_shard_reduce_arena``).
 
     ``seg_keys`` are opaque hashable identities (plain chunk keys for one
     query; ``(query, chunk-key)`` tuples on the coalesced multi-query
@@ -369,6 +415,26 @@ def _dispatch(seg_keys: list, seg_rows: list[list], op: str, threshold,
             tvec = [tvec[i] for i in keep]
         if not seg_keys:
             return peeled
+    mesh = _resolve_mesh(mesh)
+    if mesh is not None and _mesh_size(mesh) > 1:
+        lens = [len(r) for r in seg_rows]
+        tmax = max(tvec) if tvec is not None else threshold
+        planes = None
+        if op == "threshold" and seg_weights is not None:
+            planes = _planes_for([sum(w) for w in seg_weights], tmax)
+        t_arg = threshold if tvec is None else tvec
+        if arena is not None:
+            words, cards = _shard_reduce_arena(
+                arena, seg_rows, lens, seg_weights, op, t_arg, backend,
+                mesh, planes=planes, tmax=tmax)
+        else:
+            slab64 = np.stack([w for rows in seg_rows for w in rows])
+            words, cards = _shard_reduce(
+                torch.from_numpy(slab64.view(np.int32).reshape(-1, WORDS)),
+                lens, seg_weights, op, t_arg, backend, mesh, planes=planes,
+                tmax=tmax)
+        peeled.update(_repack_segments(seg_keys, words, cards))
+        return peeled
     # bucket segments by depth: one deep segment would otherwise set the
     # counter width (planes, from jmax) of every shallow coalesced
     # threshold segment, and the plain version's (S, jmax, WORDS) gather.
@@ -461,6 +527,195 @@ def _stage_arena_rows(arena, rows_g: list[list]):
 
 
 # ---------------------------------------------------------------------------
+# the sharded dispatch
+# ---------------------------------------------------------------------------
+
+def _shard_plan(seg_sizes: list[int], d: int, op: str,
+                seg_weights: list[list[int]] | None):
+    """Round-robin each segment's rows across ``d`` shards.
+
+    Returns per shard (row ids into the segment-major slab, per-row
+    weights, segment starts); every shard sees the SAME segment structure
+    (some local segments may be empty -> the kernel's identity).  For
+    "andnot" the minuend (each segment's row 0) is REPLICATED on every
+    shard so the local partials ``a & ~local_or`` fold with AND."""
+    ids = [[] for _ in range(d)]
+    wts = [[] for _ in range(d)]
+    starts = [[0] for _ in range(d)]
+    base = 0
+    for si, nrow in enumerate(seg_sizes):
+        w = None if seg_weights is None else seg_weights[si]
+        for dev in range(d):
+            if op == "andnot":
+                mine = [base] + list(range(base + 1 + dev, base + nrow, d))
+                mw = [1] * len(mine)
+            else:
+                mine = list(range(base + dev, base + nrow, d))
+                mw = [1] * len(mine) if w is None else \
+                    [w[i - base] for i in mine]
+            ids[dev].extend(mine)
+            wts[dev].extend(mw)
+            starts[dev].append(len(ids[dev]))
+        base += nrow
+    return ids, wts, starts
+
+
+def _shard_planes(op, planes, seg_sizes, seg_weights, threshold, tmax):
+    """The counter width of a sharded threshold: wide enough for the
+    total weight of a segment over every shard, and for every bit of T."""
+    if op != "threshold" or planes is not None:
+        return planes
+    return _planes_for(seg_sizes if seg_weights is None else
+                       [sum(w) for w in seg_weights],
+                       tmax if tmax is not None else threshold)
+
+
+def _shard_partial(op, starts, jmax, planes, weights, reduce, rows):
+    """One shard's contribution: bit-sliced counters of ``rows()`` for
+    "threshold"; else the words of ``reduce(op)`` (the segmented kernel),
+    with, for "and", the all-ones identity in the shard's empty segments
+    and its occupancy mask."""
+    if op == "threshold":
+        return kops.segment_counters(rows(), starts, jmax=jmax,
+                                     planes=planes, weights=weights)
+    pw, _ = reduce(op)
+    if op == "and":
+        occ = (starts[1:] - starts[:-1]) > 0
+        return torch.where(occ[:, None], pw, -1), occ
+    return pw
+
+
+def _fold(op, partials: list, threshold, merge: torch.device):
+    """Fold the shards' partials on ``merge`` into (words (S, WORDS),
+    cards (S,)), by the exchange rules of the module docstring."""
+    if op == "threshold":
+        tot = partials[0].to(merge)
+        for p in partials[1:]:
+            tot = kref.bitsliced_add(tot, p.to(merge))
+        t = threshold if isinstance(threshold, (int, np.integer)) else \
+            torch.tensor(threshold, dtype=torch.int32, device=merge)
+        words = kref.counters_ge(tot, t)
+    elif op == "and":
+        words, occ = (x.to(merge) for x in partials[0])
+        for pw, po in partials[1:]:
+            words = words & pw.to(merge)
+            occ = occ | po.to(merge)
+        words = torch.where(occ[:, None], words, 0)
+    else:
+        words = partials[0].to(merge)
+        for pw in partials[1:]:
+            pw = pw.to(merge)
+            words = words | pw if op == "or" else \
+                words ^ pw if op == "xor" else words & pw
+    return words, kref._popcount_rows(words)
+
+
+def _upload(dev, *arrays) -> list[torch.Tensor]:
+    """Int arrays to ``dev`` as int32 in one copy; a tensor view each."""
+    arrays = [np.asarray(a, np.int64) for a in arrays]
+    both = torch.from_numpy(np.concatenate(arrays).astype(np.int32)).to(dev)
+    return both.split([a.size for a in arrays])
+
+
+def _jmax(starts: list[int]) -> int:
+    return max(1, int(np.diff(starts).max(initial=1)))
+
+
+def _shard_reduce(slab: torch.Tensor, seg_sizes: list[int],
+                  seg_weights: list[list[int]] | None, op: str, threshold,
+                  backend, mesh, planes: int | None = None,
+                  tmax: int | None = None):
+    """Sharded segmented reduce of rows without an arena: split the rows
+    of ``slab`` (N, WORDS) int32, segment-major, across the mesh
+    (``_shard_plan``), copy each shard's rows to its device, reduce them
+    with the segmented kernel, and fold the partials (``_fold``).  Returns
+    (words (S, WORDS), cards (S,)) on the mesh's first device, the
+    single-device plan's bits."""
+    devices = mesh.devices
+    ids, wts, starts = _shard_plan(seg_sizes, len(devices), op, seg_weights)
+    planes = _shard_planes(op, planes, seg_sizes, seg_weights, threshold,
+                           tmax)
+    partials = []
+    for dev, ids_d, w_d, st_d in zip(devices, ids, wts, starts):
+        (sel,) = _upload(slab.device, ids_d)
+        rows = slab.index_select(0, sel.long()).to(dev)
+        w_t, st_t = _upload(dev, w_d, st_d)
+        jmax = _jmax(st_d)
+        partials.append(_shard_partial(
+            op, st_t, jmax, planes, w_t,
+            lambda o: kops.segment_reduce(rows, st_t, o, jmax=jmax,
+                                          backend=backend),
+            lambda: rows))
+    return _fold(op, partials, threshold, devices[0])
+
+
+def _shard_reduce_arena(arena, seg_rows: list[list], seg_sizes: list[int],
+                        seg_weights: list[list[int]] | None, op: str,
+                        threshold, backend, mesh, planes: int | None = None,
+                        tmax: int | None = None):
+    """Sharded segmented reduce over arena row refs: the routing and the
+    folds of ``_shard_reduce``, with every shard reading its resident rows
+    from the arena's per-shard slabs through their positions
+    (``ShardSlabs.assembled``; ids cross to the card, never container
+    words) and its cold rows from a small staged block whose row 0 is
+    zero, so ``table[pos] | staged[sidx]`` selects each slot's one real
+    row.  A cold slot's position is 0, the arena's reserved zero row."""
+    shards = arena.shard_slabs(mesh)
+    devices = mesh.devices
+    ids, wts, starts = _shard_plan(seg_sizes, len(devices), op, seg_weights)
+    planes = _shard_planes(op, planes, seg_sizes, seg_weights, threshold,
+                           tmax)
+    flat = [r for rows in seg_rows for r in rows]
+    pos = np.zeros(len(flat), np.int64)
+    sidx = np.zeros(len(flat), np.int64)
+    host: list[np.ndarray] = []
+    res_slots, res_ids = [], []
+    for i, r in enumerate(flat):
+        if isinstance(r, np.ndarray):
+            sidx[i] = 1 + len(host)         # staged row 0: reserved zero
+            host.append(r)
+        else:
+            res_slots.append(i)
+            res_ids.append(r)
+    if res_slots:
+        pos[res_slots] = shards.positions(res_ids)
+    staged = None                           # one block: one device
+    if host:
+        hb = np.zeros((1 + len(host), 1024), np.uint64)
+        hb[1:] = np.stack(host)
+        staged = torch.from_numpy(hb.view(np.int32).reshape(-1, WORDS)) \
+            .to(shards.device)
+        arena.stats.host_rows_staged += len(host)
+    for st in shards.stats:
+        st.device_gathers += 1
+    table = shards.assembled()
+    partials = []
+    for dev, ids_d, w_d, st_d in zip(devices, ids, wts, starts):
+        sel = np.asarray(ids_d, np.int64)
+        pos_t, sidx_t, w_t, st_t = _upload(dev, pos[sel], sidx[sel], w_d,
+                                           st_d)
+        jmax = _jmax(st_d)
+        if staged is None:
+            def reduce(o):
+                return kops.segment_reduce_rows(table, pos_t, st_t, o,
+                                                jmax=jmax, backend=backend)
+
+            def rows():
+                return table[pos_t.long()]
+        else:
+            def reduce(o):
+                return kops.segment_reduce_rows_dual(
+                    table, staged, pos_t, sidx_t, st_t, o, jmax=jmax,
+                    backend=backend)
+
+            def rows():
+                return kref.gather_rows_dual(table, staged, pos_t, sidx_t)
+        partials.append(_shard_partial(op, st_t, jmax, planes, w_t, reduce,
+                                       rows))
+    return _fold(op, partials, threshold, devices[0])
+
+
+# ---------------------------------------------------------------------------
 # query plans: planning separated from dispatch so N queries can coalesce
 # into ONE launch per op class
 # ---------------------------------------------------------------------------
@@ -542,15 +797,17 @@ def plan_wide(op: str, bitmaps, t: int = 0, weights=None, *,
     return plan
 
 
-def _finish(plan: WidePlan, backend):
+def _finish(plan: WidePlan, backend, mesh):
     merged = dict(plan.merged)
     merged.update(_dispatch(plan.seg_keys, plan.seg_rows, plan.op,
                             plan.threshold, backend, plan.device,
-                            seg_weights=plan.seg_weights, arena=plan.arena))
+                            seg_weights=plan.seg_weights, arena=plan.arena,
+                            mesh=mesh))
     return _build(merged)
 
 
-def execute_plans(plans, *, backend: str | None = None) -> list:
+def execute_plans(plans, *, backend: str | None = None,
+                  mesh=None) -> list:
     """Execute many ``WidePlan``s with ONE slab launch per op class.
 
     Every plan's pending segments join one slab per op (threshold plans
@@ -558,7 +815,8 @@ def execute_plans(plans, *, backend: str | None = None) -> list:
     so a batch of N queries costs O(op classes) dispatches, not O(N).
     Returns one RoaringBitmap per plan, bit-identical to finishing each
     plan alone: segment results are independent by construction, and the
-    repack path is shared."""
+    repack path is shared.  With a ``mesh`` of more than one shard, each
+    class's rows shard across it (one launch per shard)."""
     plans = list(plans)
     results = [dict(p.merged) for p in plans]
     by_op: dict[tuple, list[int]] = {}   # (op, arena, device) class
@@ -582,7 +840,7 @@ def execute_plans(plans, *, backend: str | None = None) -> list:
         out = _dispatch(keys, rows, op,
                         ts if op == "threshold" else 0, backend, dev,
                         seg_weights=wts if any_w else None,
-                        arena=plans[idxs[0]].arena)
+                        arena=plans[idxs[0]].arena, mesh=mesh)
         for (i, k), cont in out.items():
             results[i][k] = cont
     return [_build(r) for r in results]
@@ -634,12 +892,14 @@ def execute_plan_host(plan: WidePlan):
 # ---------------------------------------------------------------------------
 
 def or_many(bitmaps, *, backend: str | None = None, arena=None,
-            device=None):
+            device=None, mesh=None):
     """Union of K bitmaps in one kernel launch (paper section 5.8).
     ``arena``: resident containers are read from the device slab without
-    per-call staging; ``device`` as in ``plan_wide``."""
+    per-call staging; ``device`` as in ``plan_wide``; ``mesh`` a
+    ``dist.WideMesh``: with more than one shard, one launch a shard and
+    the partials folded (see the module docstring)."""
     return _finish(plan_wide("or", bitmaps, backend=backend, arena=arena,
-                             device=device), backend)
+                             device=device), backend, mesh)
 
 
 def _plan_or(bitmaps, prefer_kernel: bool, arena=None) -> WidePlan:
@@ -684,12 +944,13 @@ def _plan_or(bitmaps, prefer_kernel: bool, arena=None) -> WidePlan:
 
 
 def xor_many(bitmaps, *, backend: str | None = None, arena=None,
-             device=None):
+             device=None, mesh=None):
     """Wide symmetric difference: a value survives iff it occurs in an odd
     number of inputs (K-ary XOR).  ``arena``: resident containers dispatch
-    from the device slab without per-call staging (see ``plan_wide``)."""
+    from the device slab without per-call staging (see ``plan_wide``);
+    ``mesh`` as in ``or_many``."""
     return _finish(plan_wide("xor", bitmaps, backend=backend, arena=arena,
-                             device=device), backend)
+                             device=device), backend, mesh)
 
 
 def _plan_xor(bitmaps, arena=None) -> WidePlan:
@@ -726,13 +987,15 @@ def _plan_xor(bitmaps, arena=None) -> WidePlan:
 
 
 def and_many(bitmaps, *, backend: str | None = None, arena=None,
-             device=None):
+             device=None, mesh=None):
     """Intersection of K bitmaps: cardinality-ascending key pruning with
     empty-key early exit, array-anchored host filtering for sparse groups,
     one kernel launch for the dense remainder.  ``arena`` / ``device`` as
-    in ``plan_wide``."""
+    in ``plan_wide``; ``mesh`` as in ``or_many`` (each shard sends its
+    occupancy with its partial, so a shard without rows of a segment does
+    not zero it)."""
     return _finish(plan_wide("and", bitmaps, backend=backend, arena=arena,
-                             device=device), backend)
+                             device=device), backend, mesh)
 
 
 def _plan_and(bitmaps, arena=None) -> WidePlan:
@@ -777,7 +1040,7 @@ def _plan_and(bitmaps, arena=None) -> WidePlan:
 
 
 def andnot_many(minuend, subtrahends, *, backend: str | None = None,
-                arena=None, device=None):
+                arena=None, device=None, mesh=None):
     """Difference chain ``a - (b1 | b2 | ...)`` as ONE plan: subtrahends
     OR-reduce segment-wise and a fused ANDNOT finalizes in the kernel
     ("Compressed bitmap indexes: beyond unions and intersections",
@@ -787,10 +1050,11 @@ def andnot_many(minuend, subtrahends, *, backend: str | None = None,
     subtrahend group contains a full chunk drop immediately; array-probe
     and interval-sweep fast paths mirror the other aggregates.
     ``arena``: resident containers dispatch from the device slab without
-    per-call staging (see ``plan_wide``)."""
+    per-call staging (see ``plan_wide``); ``mesh`` as in ``or_many`` (the
+    minuend is replicated on every shard)."""
     return _finish(plan_wide("andnot", [minuend, *subtrahends],
                              backend=backend, arena=arena, device=device),
-                   backend)
+                   backend, mesh)
 
 
 def _plan_andnot(minuend, subtrahends, arena=None) -> WidePlan:
@@ -859,7 +1123,8 @@ def _check_weights(weights, k: int) -> list[int] | None:
 
 
 def threshold_many(bitmaps, t: int, *, weights=None,
-                   backend: str | None = None, arena=None, device=None):
+                   backend: str | None = None, arena=None, device=None,
+                   mesh=None):
     """T-occurrence query: values whose (weighted) occurrence count over
     the K inputs reaches ``t`` (Kaser & Lemire's threshold function; T=1 is
     union, unweighted T=K intersection).
@@ -869,10 +1134,11 @@ def threshold_many(bitmaps, t: int, *, weights=None,
     unweighted plan, bit for bit).  Keys whose total attainable weight
     stays below ``t`` are pruned on the host.  ``arena``: resident
     containers dispatch from the device slab without per-call staging
-    (see ``plan_wide``)."""
+    (see ``plan_wide``); ``mesh`` as in ``or_many`` (the shards exchange
+    bit-sliced counters)."""
     return _finish(plan_wide("threshold", bitmaps, t, weights,
                              backend=backend, arena=arena, device=device),
-                   backend)
+                   backend, mesh)
 
 
 def _plan_threshold(bitmaps, t, weights, prefer_kernel: bool,

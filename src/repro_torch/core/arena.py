@@ -22,6 +22,11 @@ Layout and lifecycle:
   per-bitmap ``_version`` snapshot decides when :meth:`adopt` re-walks a
   bitmap; rows shared between bitmaps are refcounted.
 
+* **Per-shard slabs** (:meth:`BitmapArena.shard_slabs`, the sharded
+  engine's and the sharded aggregates' storage) -- the rows round-robined
+  over the shards of a ``dist.WideMesh``: global row ``r`` on shard
+  ``r % S`` at local index ``r // S``.  See :class:`ShardSlabs`.
+
 Typical use::
 
     arena = BitmapArena()                        # on "cuda"
@@ -99,6 +104,7 @@ class BitmapArena:
         self._entries: dict[int, _Entry] = {}   # id(bm) -> _Entry
         self._row_of: dict[int, int] = {}       # id(container) -> row
         self._ref: dict[int, int] = {}          # row -> refcount
+        self._shards: ShardSlabs | None = None  # per-shard slab mode
         self.stats = ArenaStats()
 
     # -- directory ----------------------------------------------------
@@ -230,11 +236,14 @@ class BitmapArena:
             self.stats.rows_freed += 1
 
     def _note_dirty(self, ids) -> None:
-        """Record host-mirror edits for the next patch; a slab never
-        uploaded skips this, since its first upload reads the whole
-        mirror anyway."""
+        """Record host-mirror edits against every device view: the slab's
+        dirty list and, in per-shard slab mode, the owning shards' pending
+        rows.  A view never uploaded skips this, since its first upload
+        reads the whole mirror anyway."""
         if self._dev is not None:
             self._dirty.extend(ids)
+        if self._shards is not None:
+            self._shards.note_many(ids)
 
     def _alloc(self) -> int:
         if self._free:
@@ -296,7 +305,148 @@ class BitmapArena:
 
     def sync(self) -> None:
         """Flush pending patches (uploading the slab if it never was) and
-        wait until the device copy is ready."""
+        wait until the device copy is ready; in per-shard slab mode the
+        shard slabs are flushed and waited for too."""
         self.device_slab()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        if self._shards is not None:
+            self._shards.sync()
+
+    # -- per-shard slab mode -------------------------------------------
+
+    def shard_slabs(self, mesh=None) -> "ShardSlabs":
+        """Per-shard slab mode: the arena's rows round-robined over the
+        devices of a 1-D mesh (``dist.WideMesh``), the host mirror still
+        authoritative, each shard patched copy-on-write.  Every shard must
+        sit on one device (see :class:`ShardSlabs`).
+
+        The first call stripes the host mirror into S slabs (one upload);
+        later calls return the same :class:`ShardSlabs`, whose
+        slabs take the host's edits shard by shard (only shards owning
+        dirty rows patch).  Another mesh rebuilds.  ``mesh=None`` reads
+        the installed mesh (``dist.ctx.resolve_wide``)."""
+        from repro_torch.dist import ctx
+        mesh, size, _ = ctx.resolve_wide(mesh)
+        if mesh is None:
+            raise ValueError("shard_slabs needs a mesh (none installed)")
+        if self._shards is None or self._shards.mesh != mesh:
+            self._shards = ShardSlabs(self, mesh, size)
+        return self._shards
+
+
+class ShardSlabs:
+    """Round-robin per-shard slabs over a 1-D mesh: the storage of the
+    sharded ``SimilarityEngine`` and of the sharded wide aggregates.
+
+    * Global row ``r`` lives on shard ``r % S`` at local index ``r // S``
+      (so the map never changes when the arena grows); shard ``s`` is a
+      ``(cap_s, WORDS)`` int32 slab, ``cap_s = ceil(capacity / S)``.
+    * The S slabs are the S row blocks of one ``(S * cap_s, WORDS)``
+      buffer on the mesh's device: the JAX package's ``assembled()`` array,
+      here one allocation instead of a view over S device buffers.  Global
+      row ``r`` sits at position ``(r % S) * cap_s + r // S``
+      (:meth:`positions`), and a shard's launch reads its rows there,
+      wherever the round-robin placed them -- without a gathered copy,
+      where the JAX package gathers them with a take from the assembled
+      array.  Position 0 is global row 0, the arena's reserved zero row,
+      so pad slots and cold rows point at it as in the JAX package.  (A
+      shard's own slab has no such row: its local row 0 is global row
+      ``s``, which holds data on every shard ``s >= 1``.)
+    * Every shard of the mesh must sit on one device (S slabs on one card,
+      or on the CPU): a shard's rows can then be read by every other
+      shard's launch.  Shards on distinct devices would need a
+      cross-device gather of the rows they read, which is not ported;
+      ``BitmapArena.shard_slabs`` raises for such a mesh.
+    * Host edits batch into one out-of-place patch of the buffer; only
+      shards owning dirty rows take rows, and a slab handed out earlier
+      keeps its contents (copy-on-write).  Growth pads each shard on the
+      device; existing rows never cross again.
+
+    ``stats[s]`` is shard ``s``'s ``ArenaStats``: its uploads and patches
+    are counted here, not in the arena's own stats (which keep counting
+    the single-device slab); a warm sharded query leaves their
+    ``rows_uploaded`` unchanged.
+    """
+
+    def __init__(self, arena: BitmapArena, mesh, size: int):
+        devices = set(mesh.devices)
+        if len(devices) != 1:
+            raise NotImplementedError(
+                f"per-shard arena slabs need every shard on one device; "
+                f"the mesh spans {sorted(map(str, devices))}")
+        self.arena = arena
+        self.mesh = mesh
+        self.size = int(size)
+        self.device = mesh.devices[0]
+        self.cap_s = 0
+        self._buf: torch.Tensor | None = None    # (S * cap_s, WORDS) int32
+        self._pending: set[int] = set()      # global rows dirty since flush
+        self.stats = [ArenaStats() for _ in range(self.size)]
+
+    def note_many(self, ids) -> None:
+        """Mark global rows dirty (the arena calls this on host edits)."""
+        if self._buf is not None:
+            self._pending.update(int(r) for r in ids)
+
+    def _ensure(self) -> None:
+        """Build the slabs at first use; afterwards grow them (zero rows
+        on the device) and flush pending rows (one out-of-place patch)."""
+        S = self.size
+        host = self.arena._host
+        need = -(-host.shape[0] // S)
+        if self._buf is None:
+            block = np.zeros((S, need, 1024), np.uint64)
+            for s in range(S):
+                rows_s = host[s::S]
+                block[s, : rows_s.shape[0]] = rows_s
+                self.stats[s].rows_uploaded += max(
+                    0, -(-(self.arena._n - s) // S))
+            self._buf = torch.from_numpy(
+                block.view(np.int32).reshape(-1, WORDS)).to(self.device)
+            self.cap_s = need
+            self._pending.clear()
+            return
+        if need > self.cap_s:
+            grown = torch.zeros((S, need, WORDS), dtype=torch.int32,
+                                device=self.device)
+            grown[:, : self.cap_s] = self._buf.view(S, self.cap_s, WORDS)
+            self._buf = grown.view(S * need, WORDS)
+            self.cap_s = need
+        if self._pending:
+            rids = np.array(sorted(self._pending), np.int64)
+            rows = torch.from_numpy(np.ascontiguousarray(
+                host[rids]).view(np.int32).reshape(len(rids), WORDS))
+            pos = (rids % S) * self.cap_s + rids // S
+            self._buf = self._buf.index_put(
+                (torch.from_numpy(pos).to(self.device),),
+                rows.to(self.device))
+            for s, n in zip(*np.unique(rids % S, return_counts=True)):
+                self.stats[s].rows_uploaded += int(n)
+                self.stats[s].rows_patched += int(n)
+            self._pending.clear()
+
+    def positions(self, ids) -> np.ndarray:
+        """Positions of global rows ``ids`` in :meth:`assembled`:
+        ``(r % S) * cap_s + r // S``, the JAX package's numbers (numpy;
+        flushed first, since growth changes ``cap_s``)."""
+        self._ensure()
+        ids = np.asarray(ids, np.int64)
+        return (ids % self.size) * self.cap_s + ids // self.size
+
+    def assembled(self) -> torch.Tensor:
+        """The ``(S * cap_s, WORDS)`` int32 buffer of every shard's slab,
+        flushed; index it with :meth:`positions`."""
+        self._ensure()
+        return self._buf
+
+    def shard_slab(self, s: int) -> torch.Tensor:
+        """Shard ``s``'s ``(cap_s, WORDS)`` int32 slab (a view), flushed."""
+        self._ensure()
+        return self._buf[s * self.cap_s:(s + 1) * self.cap_s]
+
+    def sync(self) -> None:
+        """Flush every shard and wait for the device."""
+        self._ensure()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -334,54 +334,60 @@ class RoaringBitmap:
     # segment, and one kernel launch reduces every segment, whatever K.
     # ``arena``: an optional BitmapArena whose resident containers are read
     # from the device slab; ``device``: where the kernel runs ("cuda" by
-    # default; with an arena, the arena's device).  Results are
-    # bit-identical with or without an arena.
+    # default; with an arena, the arena's device); ``mesh``: an optional
+    # ``dist.WideMesh`` -- with more than one shard, rows shard round-robin
+    # and the partials fold across shards.  Results are bit-identical with
+    # or without an arena or a mesh.
     # ------------------------------------------------------------------
 
     @staticmethod
     def or_many(bitmaps: list["RoaringBitmap"], *, arena=None,
-                device=None) -> "RoaringBitmap":
+                device=None, mesh=None) -> "RoaringBitmap":
         """Wide union (paper section 5.8, ``roaring_bitmap_or_many``)."""
         from repro_torch.core import aggregate
-        return aggregate.or_many(bitmaps, arena=arena, device=device)
+        return aggregate.or_many(bitmaps, arena=arena, device=device,
+                                 mesh=mesh)
 
     @staticmethod
     def and_many(bitmaps: list["RoaringBitmap"], *, arena=None,
-                 device=None) -> "RoaringBitmap":
+                 device=None, mesh=None) -> "RoaringBitmap":
         """Wide intersection with cardinality-ascending key pruning and
         empty-key early exit."""
         from repro_torch.core import aggregate
-        return aggregate.and_many(bitmaps, arena=arena, device=device)
+        return aggregate.and_many(bitmaps, arena=arena, device=device,
+                                  mesh=mesh)
 
     @staticmethod
     def xor_many(bitmaps: list["RoaringBitmap"], *, arena=None,
-                 device=None) -> "RoaringBitmap":
+                 device=None, mesh=None) -> "RoaringBitmap":
         """Wide symmetric difference: values present in an odd number of
         inputs."""
         from repro_torch.core import aggregate
-        return aggregate.xor_many(bitmaps, arena=arena, device=device)
+        return aggregate.xor_many(bitmaps, arena=arena, device=device,
+                                  mesh=mesh)
 
     @staticmethod
     def andnot_many(minuend: "RoaringBitmap",
                     subtrahends: list["RoaringBitmap"], *, arena=None,
-                    device=None) -> "RoaringBitmap":
+                    device=None, mesh=None) -> "RoaringBitmap":
         """Difference chain ``a - (b1 | b2 | ...)`` as one fused plan: the
         subtrahend union is never materialized."""
         from repro_torch.core import aggregate
         return aggregate.andnot_many(minuend, subtrahends, arena=arena,
-                                     device=device)
+                                     device=device, mesh=mesh)
 
     @staticmethod
     def threshold_many(bitmaps: list["RoaringBitmap"], t: int, *,
-                       weights=None, arena=None,
-                       device=None) -> "RoaringBitmap":
+                       weights=None, arena=None, device=None,
+                       mesh=None) -> "RoaringBitmap":
         """T-occurrence query ("Threshold and Symmetric Functions over
         Bitmaps", Kaser & Lemire): values whose (weighted) occurrence count
         across the inputs reaches ``t``; ``weights`` are optional
         per-bitmap positive ints."""
         from repro_torch.core import aggregate
         return aggregate.threshold_many(bitmaps, t, weights=weights,
-                                        arena=arena, device=device)
+                                        arena=arena, device=device,
+                                        mesh=mesh)
 
     # ------------------------------------------------------------------
     # maintenance (paper: run_optimize / shrink_to_fit)

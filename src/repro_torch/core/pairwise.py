@@ -1,5 +1,5 @@
 """Batched pairwise set algebra and top-k similarity: the port of the JAX
-package's ``core/pairwise.py`` on one device.
+package's ``core/pairwise.py``.
 
 Two-by-two algebra (the paper's central contribution, sections 4.2-4.5,
 and its fast counts, section 5.9).  Given one ``a ⊕ b`` (:func:`merge_one`)
@@ -32,9 +32,10 @@ class launches.  Every route gives the same containers and counts.
 
 Similarity (:class:`SimilarityEngine`): the scores do not leave the card
 either -- a query is one score launch and one select launch
-(``kernels/topk_ops.py``) and only k results come back.
-
-The sharded top-k of the JAX module (``mesh=``) is not ported yet.
+(``kernels/topk_ops.py``) and only k results come back.  With ``mesh=``
+(a ``dist.WideMesh`` of S > 1 shards) the pruned candidates are scored
+shard by shard over the arena's per-shard slabs and the S k-lists merge
+on the card.
 """
 
 from __future__ import annotations
@@ -665,17 +666,40 @@ class SimilarityEngine:
     kernel query after a build).  A postings edit then costs one
     :meth:`refresh`: the arena repatches only the changed rows and the
     next query gathers again from the patched slab.
+
+    With a ``mesh`` of S > 1 shards (and an arena) every query that is not
+    forced to the host takes the sharded route (:meth:`_topk_sharded`):
+    the same pruning as the host sweep picks the survivors, survivor ``t``
+    goes to shard ``t % S``, each shard scores and selects its survivors
+    over the arena's per-shard slabs (``kernels.ops.similarity_topk_ids``:
+    two launches), and one labelled select merges the S k-lists
+    (``kernels.ops.topk_merge``).  Ties go to the lowest global index at
+    both selects, so the answer is the single-device engine's.
     """
 
-    def __init__(self, bitmaps, *, arena=None, device=None):
+    def __init__(self, bitmaps, *, arena=None, device=None, mesh=None):
         """``bitmaps``: the candidate set, index-aligned with results.
         ``arena``: an optional shared ``BitmapArena``; the candidates are
         adopted into it and the engine becomes a view over its slab.
         ``device``: where kernel queries run, "cuda" by default (raises
-        when no GPU is present); with an arena, the arena's device."""
+        when no GPU is present); with an arena, the arena's device.
+        ``mesh``: an optional 1-D ``dist.WideMesh``; with more than one
+        shard the engine runs the sharded route over the arena's per-shard
+        slabs, which needs an arena.  A 1-shard mesh gives the
+        single-device engine."""
         self._bitmaps = list(bitmaps)
         self._arena = arena
         self.device = kops.resolve_device(device, arena)
+        self._mesh = None
+        self._nshards = 1
+        if mesh is not None:
+            from repro_torch.dist import ctx
+            m, size, _ = ctx.resolve_wide(mesh)
+            if size > 1:
+                if arena is None:
+                    raise ValueError("sharded SimilarityEngine (mesh=) "
+                                     "requires an arena-backed engine")
+                self._mesh, self._nshards = m, size
         self._build()
 
     def _build(self) -> None:
@@ -879,36 +903,152 @@ class SimilarityEngine:
         done = self._shortcut(exclude, qc, k, metric)
         if done is not None:
             return done
+        if self._mesh is not None and backend != "host":
+            return self._topk_sharded(query, qc, k, metric, exclude,
+                                      backend)
         if self._use_kernel(backend):
             return self._topk_kernel(self._query_words_dev(query), qc, k,
                                      metric, exclude, backend)
         return self._topk_host(self._query_words(query), qc, k, metric,
                                exclude)
 
+    # -- sharded route (per-shard arena slabs, k-lists merged) ----------
+
+    def _query_words_dev_sharded(self, query, shards) -> torch.Tensor:
+        """(C, WORDS) int32 query block on the shards' device: a member
+        query reads its rows from the per-shard slabs of the shards that
+        own them (no container words cross from the host); a bitmap query
+        ships only its occupied rows."""
+        out = torch.zeros((max(self.n_keys, 1), WORDS), dtype=torch.int32,
+                          device=shards.device)
+        if _is_member(query):
+            s, e = int(self.starts[query]), int(self.starts[query + 1])
+            if s < e:
+                pos = shards.positions(self.row_ids[s:e])
+                out.index_copy_(
+                    0, torch.from_numpy(self.row_col[s:e].astype(np.int64))
+                    .to(shards.device),
+                    shards.assembled().index_select(
+                        0, torch.from_numpy(pos).to(shards.device)))
+            return out
+        cols, rows = self._bitmap_rows(query)
+        if cols:
+            out.index_copy_(
+                0, torch.from_numpy(np.asarray(cols, np.int64))
+                .to(shards.device),
+                torch.from_numpy(np.stack(rows).view(np.int32)
+                                 .reshape(-1, WORDS)).to(shards.device))
+        return out
+
+    def _plan_sharded(self, q64, qc, k, metric, exclude, shards) -> list:
+        """Host planning of one sharded query: the pruning of
+        :meth:`_topk_host` (bounds, the k best bounds scored exactly, the
+        running k-th score tau, survivors = bound >= tau), so the same
+        candidates survive; then survivor ``t`` goes to shard ``t % S``.
+
+        Returns, per shard, ``(n_valid, n_rows, ints)``: its count of
+        survivors, their count of rows R, and one int32 array holding in
+        turn the assembled-slab positions (R) and key columns (R) of those
+        rows, the row offsets (L + 1), global ids (L) and cardinalities (L)
+        of the slots.  Every shard has L = the largest survivor count (at
+        least 1) slots; a shard's slots past its own count are padding with
+        no rows, id ``n`` and card 0.  Nothing else is padded: there is no
+        compilation to reuse."""
+        ub = _scores_host(np.minimum(qc, self.cards), qc, self.cards,
+                          metric)
+        if exclude is not None:
+            ub[exclude] = np.float32(-1.0)
+        seeds = np.argsort(-ub, kind="stable")[:k]
+        tau = _scores_host(self._host_inter(seeds, q64), qc,
+                           self.cards[seeds], metric).min()
+        # exact seed scores are <= their bounds, so the seeds survive; the
+        # excluded candidate's bound is -1 < 0 <= tau, so it never does
+        surv = np.flatnonzero(ub >= tau)
+        S = self._nshards
+        home = surv % S
+        slots = max(1, int(np.bincount(home, minlength=S).max()))
+        out = []
+        for s in range(S):
+            cs = surv[home == s]                 # ascending global ids
+            gidx = np.full(slots, self.n, np.int64)
+            gidx[: cs.size] = cs
+            cards = np.zeros(slots, np.int64)
+            cards[: cs.size] = self.cards[cs]
+            lens, ridx = self._rows_of(cs)
+            starts = np.zeros(slots + 1, np.int64)
+            starts[1: cs.size + 1] = np.cumsum(lens)
+            starts[cs.size + 1:] = starts[cs.size]
+            pos = shards.positions(self.row_ids[ridx])
+            out.append((int(cs.size), int(ridx.size), np.concatenate(
+                [pos, self.row_col[ridx], starts, gidx, cards]).astype(
+                    np.int32)))
+        return out
+
+    def _topk_sharded(self, query, qc, k, metric, exclude, backend):
+        """The sharded route: :meth:`_plan_sharded` picks and places the
+        survivors; each shard scores its survivors, reading their rows from
+        the per-shard slabs through their positions (ids cross from the
+        host, never container words), and selects its k best; the S
+        k-lists are gathered on the merge device (the mesh's first) and
+        one labelled select merges them.  Ties go to the lowest global
+        candidate index at both selects, so the answer is the
+        single-device route's."""
+        shards = self._arena.shard_slabs(self._mesh)
+        plan = self._plan_sharded(self._query_words(query), qc, k, metric,
+                                  exclude, shards)
+        q_words = self._query_words_dev_sharded(query, shards)
+        table = shards.assembled()
+        for st in shards.stats:
+            st.device_gathers += 1
+        merge = self._mesh.devices[0]
+        ex = -1 if exclude is None else exclude
+        lists = []
+        for (n_valid, r, ints), dev in zip(plan, self._mesh.devices):
+            ints = torch.from_numpy(ints).to(dev)      # one copy a shard
+            slots = (ints.shape[0] - 2 * r - 1) // 3
+            pos, col, starts, gidx, cards = ints.split(
+                [r, r, slots + 1, slots, slots])
+            out = kops.similarity_topk_ids(
+                table, pos, col, starts, q_words.to(dev), qc, cards, gidx,
+                metric=metric, k=k, n_valid=n_valid, exclude=ex,
+                backend=backend)
+            lists.append([t.to(merge) for t in out])
+        gidx, score, inter = (torch.cat(parts) for parts in zip(*lists))
+        idx, score, inter = kops.topk_merge(score, inter, gidx, k,
+                                            backend=backend)
+        return (idx.cpu().numpy().astype(np.int64), score.cpu().numpy(),
+                inter.cpu().numpy().astype(np.int64))
+
     def topk_batch(self, queries, k: int, metric: str = "jaccard", *,
                    backend: str | None = None) -> list:
         """``[self.topk(q, k, metric, backend=backend) for q in queries]``
         (the query server's similarity batch).  On the kernel route each
-        query runs its own score and select launches, as the JAX package's
-        kernel route loops per query."""
+        query runs its own score and select launches, and on the sharded
+        route its own shard launches and merge, as the JAX package's
+        kernel and sharded routes loop per query."""
         if metric not in METRICS:
             raise ValueError(metric)
         return [self.topk(q, k, metric, backend=backend) for q in queries]
 
     # -- pruned host route ----------------------------------------------
 
+    def _rows_of(self, sel: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """(row count of each selected candidate, the indices of their
+        rows in candidate order)."""
+        lens = (self.starts[sel + 1] - self.starts[sel]).astype(np.int64)
+        offs = np.repeat(np.cumsum(lens) - lens, lens)
+        ridx = np.arange(int(lens.sum())) - offs + np.repeat(
+            self.starts[sel].astype(np.int64), lens)
+        return lens, ridx
+
     def _host_inter(self, sel: np.ndarray, q64: np.ndarray) -> np.ndarray:
         """Exact intersection cardinalities of the selected candidates:
         gather their rows, AND with the query's key columns, popcount,
         sum per candidate."""
         out = np.zeros(sel.size, np.int64)
-        lens = (self.starts[sel + 1] - self.starts[sel]).astype(np.int64)
-        total = int(lens.sum())
-        if total == 0:
+        lens, ridx = self._rows_of(sel)
+        if ridx.size == 0:
             return out
-        offs = np.repeat(np.cumsum(lens) - lens, lens)
-        ridx = np.arange(total) - offs + np.repeat(
-            self.starts[sel].astype(np.int64), lens)
         per = np.bitwise_count(
             self.rows[ridx] & q64[self.row_col[ridx]]).sum(axis=1)
         np.add.at(out, np.repeat(np.arange(sel.size), lens),

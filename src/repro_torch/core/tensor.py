@@ -423,7 +423,8 @@ class RoaringTensor:
     # wide aggregation (paper section 5.8 on device)
     # ====================================================================
 
-    def reduce_or(self, backend: str | None = None) -> "RoaringTensor":
+    def reduce_or(self, backend: str | None = None,
+                  mesh=None) -> "RoaringTensor":
         """OR-reduce the whole batch axis into a single bitmap using one
         ``segment_reduce`` launch (a host bridge: the segment plan depends
         on the concrete keys).
@@ -431,10 +432,13 @@ class RoaringTensor:
         Every non-empty slot of every batch row becomes one slab row;
         slots sharing a chunk key across the batch form a segment; the
         kernel that powers ``RoaringBitmap.or_many`` reduces them fused
-        with the cardinality.  Only the live slots are decompressed.
-        Returns a batch-1 tensor whose capacity is the number of distinct
-        keys rounded up to a power of two, as in the JAX package.  Unlike
-        it, no ``mesh=``: the sharded path is not ported."""
+        with the cardinality.  Only the live slots are decompressed.  With
+        a ``mesh`` (``dist.WideMesh``) of more than one shard, each
+        segment's rows shard across it, one launch a shard, and the
+        partials fold with OR (``aggregate._shard_reduce``).  Returns a
+        batch-1 tensor whose capacity is the number of distinct keys
+        rounded up to a power of two, as in the JAX package (the sharded
+        route: the number of distinct keys, as there)."""
         dev = self.device
         keys = self.keys.reshape(-1).cpu().numpy()
         kinds = self.kinds.reshape(-1).cpu().numpy()
@@ -449,6 +453,14 @@ class RoaringTensor:
         sorted_keys = keys[order]
         uniq, first = np.unique(sorted_keys, return_index=True)
         starts = np.concatenate((first, [sorted_keys.size])).astype(np.int32)
+        from repro_torch.core import aggregate
+        mesh = aggregate._resolve_mesh(mesh)
+        if mesh is not None and aggregate._mesh_size(mesh) > 1:
+            slab = self._slot_words(torch.from_numpy(order).to(dev))
+            rw, cards = aggregate._shard_reduce(
+                slab, np.diff(starts).tolist(), None, "or", 0, backend, mesh)
+            return repack(torch.from_numpy(uniq.astype(np.int32)).to(
+                rw.device)[None, :], cards[None, :], rw[None])
         jmax = int(np.diff(starts).max())
         s_pad = 1 if uniq.size <= 1 else 1 << (uniq.size - 1).bit_length()
         out_keys = np.full(s_pad, SENTINEL, np.int32)

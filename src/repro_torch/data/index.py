@@ -51,6 +51,7 @@ class InvertedIndex:
         # cached (snapshot, terms, SimilarityEngine); the snapshot
         # revalidates against direct postings edits -- see _sim_engine
         self._sim = None
+        self._sim_sharded: dict = {}      # mesh -> the same, per mesh
 
     @classmethod
     def from_postings(cls, postings, n_docs: int, *, arena=None,
@@ -162,7 +163,7 @@ class InvertedIndex:
         device (two empty postings score 1.0)."""
         return self._get(a).jaccard(self._get(b), device=self.device)
 
-    def _sim_engine(self):
+    def _sim_engine(self, mesh=None):
         """(terms, SimilarityEngine) over every posting list, cached and
         rebuilt lazily after a postings change.  Changes through the index
         drop the cache; direct edits of the public ``postings`` dict
@@ -173,10 +174,24 @@ class InvertedIndex:
         With an arena, a stale snapshot over the same terms and bitmap
         objects refreshes the engine in place (``refresh()``: the arena
         repatches only the edited rows); a changed term set or a replaced
-        bitmap builds a new engine."""
+        bitmap builds a new engine.
+
+        ``mesh``: an optional 1-D ``dist.WideMesh``.  With more than one
+        shard the engine runs the sharded route, which needs an
+        arena-backed index; engines are cached per mesh, so sharded and
+        single-device engines over the same postings coexist."""
+        key = None
+        if mesh is not None:
+            from repro_torch.dist import ctx
+            m, size, _ = ctx.resolve_wide(mesh)
+            if size > 1:
+                if self.arena is None:
+                    raise ValueError(
+                        "similar(mesh=) requires an arena-backed index")
+                key = m
         snap = tuple((t, id(bm), bm._version, bm.cardinality)
                      for t, bm in self.postings.items())
-        ent = self._sim
+        ent = self._sim if key is None else self._sim_sharded.get(key)
         if ent is None or ent[0] != snap:
             terms = list(self.postings)
             if (self.arena is not None and ent is not None
@@ -187,12 +202,18 @@ class InvertedIndex:
                 eng.refresh()
             else:
                 eng = SimilarityEngine((self.postings[t] for t in terms),
-                                       arena=self.arena, device=self.device)
-            ent = self._sim = (snap, terms, eng)
+                                       arena=self.arena, device=self.device,
+                                       mesh=key)
+            ent = (snap, terms, eng)
+            if key is None:
+                self._sim = ent
+            else:
+                self._sim_sharded[key] = ent
         return ent[1], ent[2]
 
     def similar(self, term: str, top_k: int = 10, metric: str = "jaccard",
-                *, backend: str | None = None) -> list[tuple[str, float]]:
+                *, backend: str | None = None,
+                mesh=None) -> list[tuple[str, float]]:
         """The ``top_k`` terms most similar to ``term``.
 
         Args: ``term`` the query term (an unknown term queries as an empty
@@ -200,14 +221,17 @@ class InvertedIndex:
         terms); ``metric`` "jaccard" (|A∩B| / |A∪B|), "cosine" (|A∩B| /
         sqrt(|A||B|)) or "containment" (|A∩B| / |A|, the query side);
         ``backend`` as for ``SimilarityEngine.topk`` -- every route gives
-        the same bits.
+        the same bits; ``mesh`` a ``dist.WideMesh`` for the sharded route
+        over the arena's per-shard slabs (an arena-backed index only; a
+        1-shard mesh is the single-device route) -- the same bits, tie
+        order included.
 
         Returns [(term, score)] best first; ties order by term insertion.
         On the card: one score and one select launch over the engine's
         resident rows."""
         if metric not in METRICS:
             raise ValueError(metric)
-        terms, eng = self._sim_engine()
+        terms, eng = self._sim_engine(mesh)
         if term in self.postings:
             query = terms.index(term)
         else:

@@ -1,9 +1,12 @@
 // Similarity top-k for Hopper (sm_90a): a score kernel and a select kernel,
-// two launches.
+// and their labelled twins for one shard of the sharded engine.
 //
-// Replaces the two Pallas calls of the JAX package's `similarity_topk` in
+// Replaces four Pallas calls of the JAX package's
 // src/repro/kernels/topk_ops.py: the score stage at :147 (`_score_kernel`,
-// :58) and the select stage at :166 (`_select_kernel`, :86).
+// :58) and the select stage at :166 (`_select_kernel`, :86) of
+// `similarity_topk`; the shard's score stage at :273 (`_score_ids_kernel`,
+// :190, in `similarity_topk_ids`) and the labelled select at :310
+// (`_select_ids_kernel`, :220, in `topk_merge`).
 //
 // Score.  inter[t] = sum over rows r in starts[t]..starts[t+1] of
 // popc(rows[r] & q_words[row_col[r]]), then score[t] = the metric of
@@ -48,6 +51,27 @@
 // one block of 1024 threads, each scanning a strided share of a scratch
 // copy of the scores (L1-resident at this slice's T = 1,024), warp shuffles
 // and one shared-memory step per round.  Scores are never NaN.
+//
+// Score over ids (one shard).  The same block per slot and the same
+// float32 metric code, with three differences.  The slot's rows are read
+// from the shard's own slab through local positions (`table[pos[r]]`), as
+// segment_reduce reads an arena slab, so no gathered copy of the rows is
+// made (the JAX package gathers them with an XLA take outside its kernel).
+// Each slot carries its global candidate id: the slot whose id is `exclude`
+// scores -1.0, and then every slot at or past `n_valid` (padding) scores
+// -2.0, in that order.  And each position is checked against the slab's
+// rows like row_col against the query block.  Bound by bytes, as the score
+// kernel: 8192 bytes a row read once, plus 8 bytes of pos and row_col.
+//
+// Select over ids.  k rounds over M labelled entries: a block-wide max of
+// the key (score descending, global id ascending) gives the round's score m
+// and id w; then every entry with id w and score m is masked to -2.0
+// together, and the round's inter is the largest of theirs (at least 0).
+// The rounds keep going once every entry is masked, as the JAX package's
+// do, so a shard with fewer than k valid slots gives the same k-list.  One
+// block of 1024 threads, two block reductions a round; bound by their
+// latency, as the select kernel (12 bytes an entry read, 12 a result
+// written).  The same kernel merges the gathered S*k lists.
 //
 // Interface: plain C functions, bound from Python with ctypes
 // (repro_torch/kernels/topk_ops.py).  Each launches on the given stream,
@@ -199,6 +223,159 @@ select_kernel(const float* __restrict__ score,
   }
 }
 
+__global__ void __launch_bounds__(kScoreThreads)
+score_ids_kernel(const uint4* __restrict__ table, int64_t n_table,
+                 const int32_t* __restrict__ pos,
+                 const int32_t* __restrict__ row_col, int64_t n_pos,
+                 const int32_t* __restrict__ starts,
+                 const uint4* __restrict__ q_words, int64_t n_cols,
+                 int q_card, const int32_t* __restrict__ cards,
+                 const int32_t* __restrict__ gidx, int n_valid, int exclude,
+                 int metric, float* __restrict__ score,
+                 int32_t* __restrict__ inter) {
+  const int t = blockIdx.x;
+  const int64_t r0 = starts[t];
+  const int64_t r1 = starts[t + 1];
+  if (!(r0 >= 0 && r0 <= r1 && r1 <= n_pos)) __trap();
+  unsigned acc = 0u;
+  bool bad = false;
+#pragma unroll 2
+  for (int64_t r = r0; r < r1; ++r) {
+    int64_t p = __ldg(pos + r);
+    int64_t c = __ldg(row_col + r);
+    const bool ok = p >= 0 && p < n_table && c >= 0 && c < n_cols;
+    bad |= !ok;
+    p = ok ? p : 0;
+    c = ok ? c : 0;
+    const uint4* row = table + p * kRowVecs;
+    const uint4* q = q_words + c * kRowVecs;
+#pragma unroll
+    for (int j = 0; j < kVecsPerThread; ++j) {
+      const int v = j * kScoreThreads + threadIdx.x;
+      acc += popc_and(__ldg(row + v), __ldg(q + v));
+    }
+  }
+  if (bad) __trap();
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    acc += __shfl_down_sync(0xffffffffu, acc, off);
+  }
+  __shared__ unsigned warp_sum[kScoreThreads / 32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) warp_sum[warp] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned total = 0u;
+#pragma unroll
+    for (int w = 0; w < kScoreThreads / 32; ++w) total += warp_sum[w];
+    const int n = static_cast<int>(total);
+    float s = metric_score(n, q_card, cards[t], metric);
+    if (gidx[t] == exclude) s = -1.0f;
+    if (t >= n_valid) s = -2.0f;
+    inter[t] = n;
+    score[t] = s;
+  }
+}
+
+// (score, id) key that wins: the larger score, then the lower id; `have`
+// is 0 for a thread that saw no entry, which always loses.
+__device__ __forceinline__ void better_key(float& v, int& g, int& have,
+                                           float ov, int og, int ohave) {
+  if (ohave && (!have || ov > v || (ov == v && og < g))) {
+    v = ov;
+    g = og;
+    have = 1;
+  }
+}
+
+__global__ void __launch_bounds__(kSelectThreads)
+select_ids_kernel(const float* __restrict__ score,
+                  const int32_t* __restrict__ inter,
+                  const int32_t* __restrict__ gidx, int n, int k,
+                  float* work, int32_t* __restrict__ out_gidx,
+                  float* __restrict__ out_score,
+                  int32_t* __restrict__ out_inter) {
+  __shared__ float s_val[kSelectThreads / 32];
+  __shared__ int s_gid[kSelectThreads / 32];
+  __shared__ int s_have[kSelectThreads / 32];
+  __shared__ int s_max[kSelectThreads / 32];
+  __shared__ float win_val;
+  __shared__ int win_gid;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < n; i += kSelectThreads) work[i] = score[i];
+  __syncthreads();
+  for (int round = 0; round < k; ++round) {
+    float v = 0.0f;
+    int g = 0;
+    int have = 0;
+    for (int i = threadIdx.x; i < n; i += kSelectThreads) {
+      better_key(v, g, have, work[i], gidx[i], 1);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ov = __shfl_down_sync(0xffffffffu, v, off);
+      const int og = __shfl_down_sync(0xffffffffu, g, off);
+      const int oh = __shfl_down_sync(0xffffffffu, have, off);
+      better_key(v, g, have, ov, og, oh);
+    }
+    if (lane == 0) {
+      s_val[warp] = v;
+      s_gid[warp] = g;
+      s_have[warp] = have;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      v = s_val[lane];
+      g = s_gid[lane];
+      have = s_have[lane];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_down_sync(0xffffffffu, v, off);
+        const int og = __shfl_down_sync(0xffffffffu, g, off);
+        const int oh = __shfl_down_sync(0xffffffffu, have, off);
+        better_key(v, g, have, ov, og, oh);
+      }
+      if (lane == 0) {
+        win_val = v;
+        win_gid = g;
+      }
+    }
+    __syncthreads();
+    const float m = win_val;
+    const int w = win_gid;
+    // every entry of the winning (id, score) masks in this round; each
+    // entry belongs to one thread, so the read and the write do not race
+    int best = 0;
+    for (int i = threadIdx.x; i < n; i += kSelectThreads) {
+      if (gidx[i] == w && work[i] == m) {
+        best = max(best, inter[i]);
+        work[i] = -2.0f;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      best = max(best, __shfl_down_sync(0xffffffffu, best, off));
+    }
+    if (lane == 0) s_max[warp] = best;
+    __syncthreads();
+    if (warp == 0) {
+      best = s_max[lane];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        best = max(best, __shfl_down_sync(0xffffffffu, best, off));
+      }
+      if (lane == 0) {
+        out_gidx[round] = w;
+        out_score[round] = m;
+        out_inter[round] = best;
+      }
+    }
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 // rows (n_rows, 2048) int32, row_col (n_rows,) int32, starts (n_cand + 1,)
@@ -244,5 +421,54 @@ extern "C" int similarity_select_cuda(const void* score, const void* inter,
       static_cast<const float*>(score), static_cast<const int32_t*>(inter),
       n, k, static_cast<float*>(work), static_cast<int32_t*>(out_idx),
       static_cast<float*>(out_score), static_cast<int32_t*>(out_inter));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// table (n_table, 2048) int32 (a shard's slab), pos and row_col (n_pos,)
+// int32, starts (n_slots + 1,) int32 offsets into pos, q_words (n_cols,
+// 2048) int32, cards and gidx (n_slots,) int32; outputs score (n_slots,)
+// float32 and inter (n_slots,) int32.  exclude: a global id scored -1.0
+// (-1: none); slots >= n_valid score -2.0.  Row pointers must be 16-byte
+// aligned.  Returns the cudaError_t of the launch.
+extern "C" int similarity_score_ids_cuda(
+    const void* table, int64_t n_table, const void* pos, const void* row_col,
+    int64_t n_pos, const void* starts, int n_slots, const void* q_words,
+    int64_t n_cols, int q_card, const void* cards, const void* gidx,
+    int n_valid, int exclude, int metric, void* score, void* inter,
+    void* stream) {
+  if (n_slots <= 0) return 0;
+  if (metric < kJaccard || metric > kContainment || n_cols < 1 ||
+      n_table < 1 || q_card < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  score_ids_kernel<<<n_slots, kScoreThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(table), n_table,
+      static_cast<const int32_t*>(pos), static_cast<const int32_t*>(row_col),
+      n_pos, static_cast<const int32_t*>(starts),
+      static_cast<const uint4*>(q_words), n_cols, q_card,
+      static_cast<const int32_t*>(cards), static_cast<const int32_t*>(gidx),
+      n_valid, exclude, metric, static_cast<float*>(score),
+      static_cast<int32_t*>(inter));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// score (n,) float32, inter and gidx (n,) int32 in; work (n,) float32
+// scratch; out_gidx (k,) int32, out_score (k,) float32, out_inter (k,)
+// int32 out.  n >= 1, k >= 1 (k may exceed n).  Returns the cudaError_t of
+// the launch.
+extern "C" int similarity_select_ids_cuda(const void* score,
+                                          const void* inter,
+                                          const void* gidx, int n, int k,
+                                          void* work, void* out_gidx,
+                                          void* out_score, void* out_inter,
+                                          void* stream) {
+  if (n < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  select_ids_kernel<<<1, kSelectThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(score), static_cast<const int32_t*>(inter),
+      static_cast<const int32_t*>(gidx), n, k, static_cast<float*>(work),
+      static_cast<int32_t*>(out_gidx), static_cast<float*>(out_score),
+      static_cast<int32_t*>(out_inter));
   return static_cast<int>(cudaGetLastError());
 }

@@ -185,6 +185,45 @@ def similarity_topk(rows, row_col, starts, q_words, q_card, cards, *,
                                      cards, exclude, metric=metric, k=k)
 
 
+def similarity_topk_ids(table, pos, row_col, starts, q_words, q_card, cards,
+                        gidx, *, metric: str, k: int, n_valid: int,
+                        exclude: int = -1, backend=None):
+    """One shard of the sharded similarity top-k: score the slots (rows
+    read as ``table[pos]`` from the shard's slab, each slot labelled with
+    its global id ``gidx``, slots at or past ``n_valid`` padding,
+    ``exclude`` a global id), then select k with ties to the lowest global
+    id.  See ``topk_ops`` for the layout.  Unlike the JAX package's, it
+    reads the rows through positions and takes no ``jmax``."""
+    if _route(backend, table):
+        return ref.similarity_topk_ids(table, pos, row_col, starts, q_words,
+                                       q_card, cards, gidx, n_valid, exclude,
+                                       metric=metric, k=k)
+    return _topk_ops.similarity_topk_ids(table, pos, row_col, starts,
+                                         q_words, q_card, cards, gidx,
+                                         n_valid, exclude, metric=metric,
+                                         k=k)
+
+
+def topk_merge(score, inter, gidx, k: int, *, backend=None):
+    """Merge gathered labelled k-lists (S*k entries) to the global top-k:
+    one labelled select, ties to the lowest global id -- the order of a
+    select over the unsharded scores."""
+    if _route(backend, score):
+        return ref.topk_select_ids(score, inter, gidx, k)
+    return _topk_ops.topk_merge(score, inter, gidx, k)
+
+
+def segment_counters(slab, starts, *, jmax: int, planes: int, weights=None,
+                     backend=None):
+    """Per-segment bit-sliced occurrence counters (S, planes, WORDS) int32,
+    the exchange of the sharded threshold path.  Plain PyTorch on every
+    device and backend, as the JAX package's are plain jnp on every
+    backend: it is no Pallas site."""
+    _check_backend(backend)
+    return ref.segment_counters(slab, starts, jmax=jmax, planes=planes,
+                                weights=weights)
+
+
 def _opids(opids, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(opids, dtype=torch.int32,
                            device=like.device).contiguous()

@@ -2,15 +2,17 @@
 
 These are the torch twins of the JAX package's ``kernels/ref.py`` for the
 segmented wide aggregation, for the similarity top-k (its score and select
-stages), for the paper's section-4 primitives (the fused bitset op and
-count, the sorted-array intersection), for the two-by-two pair classes
-(bitset x bitset, array x bitset, array x array) and for the array <->
-bitset conversions.  The CPU tests run them against the JAX reference, and
+stages, and their labelled twins for one shard of the sharded engine), for
+the paper's section-4 primitives (the fused bitset op and count, the
+sorted-array intersection), for the two-by-two pair classes (bitset x
+bitset, array x bitset, array x array) and for the array <-> bitset
+conversions.  The CPU tests run them against the JAX reference, and
 ``chip_smoke.py`` holds the CUDA kernel against them on the card.  On the
 card's main path only what the JAX package also leaves outside its kernels
-runs here: :func:`bitset_to_array` (plain jnp on every JAX backend) and the
+runs here: :func:`bitset_to_array` (plain jnp on every JAX backend), the
 popcount of run starts, which ``RoaringTensor`` forces to the plain version
-as the JAX class does.
+as the JAX class does, and the sharded threshold's bit-sliced counters and
+the sharded folds' popcount (plain jnp there too).
 
 Word layout: one Roaring bitset container = 2048 32-bit words, bit ``i`` in
 word ``i >> 5`` at position ``i & 31``.  Words are held as bit-reinterpreted
@@ -290,6 +292,75 @@ def similarity_topk(rows: torch.Tensor, row_col: torch.Tensor,
     return topk_select(score, inter, k)
 
 
+def similarity_score_ids(table: torch.Tensor, pos: torch.Tensor,
+                         row_col: torch.Tensor, starts: torch.Tensor,
+                         q_words: torch.Tensor, q_card, cards: torch.Tensor,
+                         gidx: torch.Tensor, n_valid: int, exclude: int = -1,
+                         *, metric: str
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The score stage of one shard: :func:`similarity_score` over a
+    candidate subset whose rows are ``table[pos]`` (a shard's slab read
+    through local positions), each slot labelled with its global
+    candidate id ``gidx`` (L,).  The slot whose global id is ``exclude``
+    scores -1.0, and then every slot at or past ``n_valid`` (layout
+    padding) scores -2.0 -- in that order, since an all-zero pad row would
+    otherwise score 1.0 under the zero-denominator convention.  Returns
+    (score (L,) float32, inter (L,) int32)."""
+    rows = table[pos.to(device=table.device, dtype=torch.int64)]
+    score, inter = similarity_score(rows, row_col, starts, q_words, q_card,
+                                    cards, -1, metric=metric)
+    slot = torch.arange(score.shape[0], device=score.device)
+    score = torch.where(gidx.to(score.device) == exclude, -1.0, score)
+    score = torch.where(slot >= n_valid, -2.0, score)
+    return score, inter
+
+
+def topk_select_ids(score: torch.Tensor, inter: torch.Tensor,
+                    gidx: torch.Tensor, k: int
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Top-k over labelled entries: k rounds of (max score, lowest global
+    id ``gidx`` among the maxes); every entry with that id and score is
+    masked to -2.0 together, and the round's intersection is the largest
+    of theirs (at least 0).  It is the shard-merge tie rule: applied to
+    each shard's candidates and again to the gathered S*k lists, it gives
+    the order of :func:`topk_select` over all candidates, ties to the
+    lowest global index.  Any k >= 1: once every entry is masked, rounds
+    repeat the lowest id among the -2.0 entries, as the JAX package's do.
+    Returns (gidx (k,) int32, score (k,) float32, inter (k,) int32)."""
+    if k < 1 or score.shape[0] < 1:
+        raise ValueError(f"need k >= 1 and >= 1 entry, got k={k}, "
+                         f"{score.shape[0]} entries")
+    big = torch.tensor(2**31 - 1, dtype=torch.int32, device=score.device)
+    gidx = gidx.to(torch.int32)
+    inter = inter.to(torch.int32)
+    work = score.to(torch.float32).clone()
+    ids, tops, inters = [], [], []
+    for _ in range(k):
+        m = work.max()
+        w = torch.where(work == m, gidx, big).min()
+        hit = (gidx == w) & (work == m)
+        ids.append(w)
+        tops.append(m)
+        inters.append(torch.where(hit, inter, 0).max())
+        work = torch.where(hit, -2.0, work)
+    return torch.stack(ids), torch.stack(tops), torch.stack(inters)
+
+
+def similarity_topk_ids(table: torch.Tensor, pos: torch.Tensor,
+                        row_col: torch.Tensor, starts: torch.Tensor,
+                        q_words: torch.Tensor, q_card, cards: torch.Tensor,
+                        gidx: torch.Tensor, n_valid: int, exclude: int = -1,
+                        *, metric: str, k: int
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One shard's score then select: (gidx (k,) int32, score (k,)
+    float32, inter (k,) int32), best first, ties to the lowest global
+    id."""
+    score, inter = similarity_score_ids(table, pos, row_col, starts,
+                                        q_words, q_card, cards, gidx,
+                                        n_valid, exclude, metric=metric)
+    return topk_select_ids(score, inter, gidx, k)
+
+
 # ---------------------------------------------------------------------------
 # two-by-two pair classes
 # ---------------------------------------------------------------------------
@@ -515,3 +586,81 @@ def bitset_to_array(words: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         r, rank, pos = first_positions(words[lo:lo + _BITS_CHUNK], ARRAY_CAP)
         vals[lo + r, rank] = pos.to(torch.int32)
     return vals, popcount_words(words)
+
+
+# ---------------------------------------------------------------------------
+# bit-sliced occurrence counters: the exchange of the sharded threshold path
+# (each shard counts its rows, the shards' counters are added bit-sliced,
+# then one comparator pass gives the words).  Plain PyTorch on every device,
+# as the JAX package's are plain jnp on every backend: no Pallas site.
+# ---------------------------------------------------------------------------
+
+_COUNT_ELEMS = 1 << 24  # gathered words per pass of segment_counters: int64
+                        # temporaries of 128 MiB
+
+
+def segment_counters(slab: torch.Tensor, starts: torch.Tensor, *, jmax: int,
+                     planes: int, weights: torch.Tensor | None = None
+                     ) -> torch.Tensor:
+    """Per-segment bit-sliced occurrence counters: for every one of the
+    2^16 bit positions, the (weighted) count of the segment's rows that set
+    it, as (S, planes, WORDS) int32 words where plane ``p`` holds bit ``p``
+    of each count.  slab (N, WORDS) int32 rows segment-major, starts
+    (S + 1,), jmax >= the longest segment, weights (N,) int32 (default 1);
+    every count must be below 2^planes."""
+    dev = slab.device
+    starts = starts.to(device=dev, dtype=torch.int64)
+    n, s = slab.shape[0], starts.shape[0] - 1
+    out = torch.zeros((s, planes, WORDS), dtype=torch.int32, device=dev)
+    if n == 0 or s == 0:
+        return out
+    step = max(1, _COUNT_ELEMS // (jmax * WORDS))
+    for lo in range(0, s, step):
+        st = starts[lo:lo + step + 1]
+        row = st[:-1, None] + torch.arange(jmax, device=dev)[None, :]
+        valid = row < st[1:, None]
+        rows = row.clamp(max=n - 1)
+        g = torch.where(valid[..., None], slab[rows], 0)
+        w = torch.ones_like(rows, dtype=torch.int64) if weights is None \
+            else weights.to(device=dev, dtype=torch.int64)[rows]
+        w = torch.where(valid, w, 0)
+        acc = torch.zeros((st.shape[0] - 1, planes, WORDS),
+                          dtype=torch.int64, device=dev)
+        for b in range(32):
+            cnt = (((g >> b) & 1) * w[..., None]).sum(dim=1)
+            for p in range(planes):
+                acc[:, p] |= ((cnt >> p) & 1) << b
+        out[lo:lo + step] = acc.to(torch.int32)   # bit 31 into the sign
+    return out
+
+
+def bitsliced_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Ripple-carry add of two bit-sliced counter sets (..., planes, WORDS)
+    int32.  The sum keeps ``planes`` planes: callers size them so that the
+    total over every shard fits."""
+    carry = torch.zeros_like(a[..., 0, :])
+    out = []
+    for i in range(a.shape[-2]):
+        ai, bi = a[..., i, :], b[..., i, :]
+        out.append(ai ^ bi ^ carry)
+        carry = (ai & bi) | (carry & (ai ^ bi))
+    return torch.stack(out, dim=-2)
+
+
+def counters_ge(planes_arr: torch.Tensor, t) -> torch.Tensor:
+    """Bitwise magnitude comparator: the words of the positions whose
+    bit-sliced count (..., planes, WORDS) is >= ``t``, an int or a (S,)
+    tensor of per-segment thresholds against (S, planes, WORDS) counters.
+    Only the low ``planes`` bits of ``t`` are read.  Returns (..., WORDS)
+    int32."""
+    t = torch.as_tensor(t, dtype=torch.int64, device=planes_arr.device)
+    if t.ndim == 1:
+        t = t[:, None]                  # broadcast over the word lanes
+    gt = torch.zeros_like(planes_arr[..., 0, :])
+    eq = torch.full_like(gt, -1)
+    for i in reversed(range(planes_arr.shape[-2])):
+        ci = planes_arr[..., i, :]
+        tmask = (-((t >> i) & 1)).to(torch.int32)   # all ones or zero
+        gt = gt | (eq & ci & ~tmask)
+        eq = eq & ~(ci ^ tmask)
+    return gt | eq

@@ -1,4 +1,5 @@
-"""Similarity top-k: a score kernel and a select kernel, two CUDA launches.
+"""Similarity top-k: a score kernel and a select kernel, two CUDA launches,
+and their labelled twins for one shard of the sharded engine.
 
 ``core.pairwise.SimilarityEngine`` lays its candidates out once, on the
 device, in the form the JAX package's ``kernels/topk_ops.py`` consumes:
@@ -16,10 +17,21 @@ device, in the form the JAX package's ``kernels/topk_ops.py`` consumes:
 cardinality and float32 metric per candidate) and :func:`topk_select` the
 select kernel (k rounds of max with ties to the lowest index), both from
 ``csrc/similarity_topk.cu``; :func:`similarity_topk` runs the two in turn,
-and only the k results leave the card.  On a CUDA tensor each wrapper
-launches its kernel or raises; on a CPU tensor it takes the plain version
-in ``kernels/ref.py``.  ``launches`` counts kernel launches (CPU calls do
-not count), ``launches_by_stage`` splits them into "score" and "select".
+and only the k results leave the card.
+
+The sharded engine (``SimilarityEngine(mesh=)``) gives each shard a subset
+of the candidates, each slot labelled with its global candidate id:
+:func:`similarity_score_ids` scores a shard's slots, reading their rows from
+the shard's own slab through local positions, and :func:`topk_merge`
+selects over labelled entries with ties to the lowest global id -- once
+per shard, and once over the gathered S*k lists.  :func:`similarity_topk_ids`
+runs the first two in turn.  The JAX package's ``similarity_topk_ids``
+selects inside its score call; here the two are separate launches.
+
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
+tensor it takes the plain version in ``kernels/ref.py``.  ``launches``
+counts kernel launches (CPU calls do not count), ``launches_by_stage``
+splits them into "score", "select", "score_ids" and "select_ids".
 """
 
 from __future__ import annotations
@@ -32,7 +44,7 @@ import torch
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.ref import METRICS, WORDS
 
-_STAGES = ("score", "select")
+_STAGES = ("score", "select", "score_ids", "select_ids")
 
 launches = 0
 launches_by_stage = {stage: 0 for stage in _STAGES}
@@ -48,7 +60,8 @@ def reset_launches() -> None:
 
 @functools.cache
 def _kernels():
-    """The two C entry points, built and bound on first use."""
+    """The four C entry points (score, select, score_ids, select_ids),
+    built and bound on first use."""
     lib = _build.library("similarity_topk")
     p, i, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     score = lib.similarity_score_cuda
@@ -57,7 +70,14 @@ def _kernels():
     select = lib.similarity_select_cuda
     select.argtypes = [p, p, i, i, p, p, p, p, p]
     select.restype = ctypes.c_int
-    return score, select
+    score_ids = lib.similarity_score_ids_cuda
+    score_ids.argtypes = [p, n, p, p, n, p, i, p, n, i, p, p, i, i, i, p, p,
+                          p]
+    score_ids.restype = ctypes.c_int
+    select_ids = lib.similarity_select_ids_cuda
+    select_ids.argtypes = [p, p, p, i, i, p, p, p, p, p]
+    select_ids.restype = ctypes.c_int
+    return score, select, score_ids, select_ids
 
 
 def _check(name: str, t: torch.Tensor, device: torch.device,
@@ -172,3 +192,114 @@ def similarity_topk(rows: torch.Tensor, row_col: torch.Tensor,
     score, inter = similarity_score(rows, row_col, starts, q_words, q_card,
                                     cards, exclude, metric=metric)
     return topk_select(score, inter, k)
+
+
+def similarity_score_ids(table: torch.Tensor, pos: torch.Tensor,
+                         row_col: torch.Tensor, starts: torch.Tensor,
+                         q_words: torch.Tensor, q_card: int,
+                         cards: torch.Tensor, gidx: torch.Tensor,
+                         n_valid: int, exclude: int = -1, *, metric: str
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One shard's score stage: (score (L,) float32, inter (L,) int32).
+
+    table (P, WORDS) is the shard's slab; slot ``t`` owns the entries
+    ``starts[t]:starts[t+1]`` of pos and row_col (R,), and reads its rows
+    as ``table[pos[r]]`` against ``q_words[row_col[r]]``; cards and gidx
+    (L,) are the slots' cardinalities and global candidate ids, all int32
+    on one device.  The slot whose global id is ``exclude`` scores -1.0,
+    then every slot at or past ``n_valid`` scores -2.0.  Positions, key
+    columns and offsets are checked inside the kernel (a bad one traps)."""
+    if metric not in METRICS:
+        raise ValueError(f"unknown metric {metric!r}")
+    if table.device.type == "cpu":
+        return ref.similarity_score_ids(table, pos, row_col, starts,
+                                        q_words, q_card, cards, gidx,
+                                        n_valid, exclude, metric=metric)
+    dev = table.device
+    if dev.type != "cuda":
+        raise ValueError(f"table is on {dev}; the kernel needs CUDA")
+    for name, t, nd, wd in (("table", table, 2, WORDS), ("pos", pos, 1, None),
+                            ("row_col", row_col, 1, None),
+                            ("starts", starts, 1, None),
+                            ("q_words", q_words, 2, WORDS),
+                            ("cards", cards, 1, None),
+                            ("gidx", gidx, 1, None)):
+        _check(name, t, dev, torch.int32, nd, wd)
+    n_slots = starts.shape[0] - 1
+    if row_col.shape[0] != pos.shape[0] or cards.shape[0] != n_slots \
+            or gidx.shape[0] != n_slots:
+        raise ValueError("need one row_col per position and one card and "
+                         "one id per slot")
+    if not 0 <= int(q_card) < 2**31 or q_words.shape[0] < 1 \
+            or table.shape[0] < 1:
+        raise ValueError("need 0 <= q_card < 2^31, >= 1 query row and >= 1 "
+                         "table row")
+    score = torch.empty(n_slots, dtype=torch.float32, device=dev)
+    inter = torch.empty(n_slots, dtype=torch.int32, device=dev)
+    fn = _kernels()[2]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(table.data_ptr(), table.shape[0], pos.data_ptr(),
+                 row_col.data_ptr(), pos.shape[0], starts.data_ptr(),
+                 n_slots, q_words.data_ptr(), q_words.shape[0], int(q_card),
+                 cards.data_ptr(), gidx.data_ptr(), int(n_valid),
+                 int(exclude), METRICS.index(metric), score.data_ptr(),
+                 inter.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"similarity_score_ids_cuda failed: cudaError "
+                           f"{err}")
+    _count("score_ids")
+    return score, inter
+
+
+def topk_merge(score: torch.Tensor, inter: torch.Tensor, gidx: torch.Tensor,
+               k: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The labelled select: (gidx (k,) int32, score (k,) float32, inter
+    (k,) int32) over M >= 1 entries labelled with global ids, k rounds of
+    (max score, lowest id among the maxes), entries of the winning id and
+    score masked together; any k >= 1 (see ``ref.topk_select_ids``)."""
+    n = score.shape[0]
+    if k < 1 or n < 1:
+        raise ValueError(f"need k >= 1 and >= 1 entry, got k={k}, {n} "
+                         f"entries")
+    if score.device.type == "cpu":
+        return ref.topk_select_ids(score, inter, gidx, k)
+    dev = score.device
+    if dev.type != "cuda":
+        raise ValueError(f"score is on {dev}; the kernel needs CUDA")
+    _check("score", score, dev, torch.float32, 1)
+    _check("inter", inter, dev, torch.int32, 1)
+    _check("gidx", gidx, dev, torch.int32, 1)
+    if inter.shape[0] != n or gidx.shape[0] != n:
+        raise ValueError("score, inter and gidx differ in length")
+    work = torch.empty(n, dtype=torch.float32, device=dev)
+    out_gidx = torch.empty(k, dtype=torch.int32, device=dev)
+    top = torch.empty(k, dtype=torch.float32, device=dev)
+    top_inter = torch.empty(k, dtype=torch.int32, device=dev)
+    fn = _kernels()[3]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(score.data_ptr(), inter.data_ptr(), gidx.data_ptr(), n, k,
+                 work.data_ptr(), out_gidx.data_ptr(), top.data_ptr(),
+                 top_inter.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"similarity_select_ids_cuda failed: cudaError "
+                           f"{err}")
+    _count("select_ids")
+    return out_gidx, top, top_inter
+
+
+def similarity_topk_ids(table: torch.Tensor, pos: torch.Tensor,
+                        row_col: torch.Tensor, starts: torch.Tensor,
+                        q_words: torch.Tensor, q_card: int,
+                        cards: torch.Tensor, gidx: torch.Tensor,
+                        n_valid: int, exclude: int = -1, *, metric: str,
+                        k: int
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One shard's score then labelled select: (gidx (k,) int32, score (k,)
+    float32, inter (k,) int32), best first, ties to the lowest global id.
+    On CUDA, two launches."""
+    score, inter = similarity_score_ids(table, pos, row_col, starts,
+                                        q_words, q_card, cards, gidx,
+                                        n_valid, exclude, metric=metric)
+    return topk_merge(score, inter, gidx, k)

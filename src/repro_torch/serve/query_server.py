@@ -1,5 +1,5 @@
 """Fault-tolerant continuous query server over a warm inverted index: the
-port of the JAX package's ``serve/query_server.py`` on one device.
+port of the JAX package's ``serve/query_server.py``.
 
 The paper's adopters (Druid, Pinot, Elasticsearch) serve thousands of
 concurrent queries against one shared index; this module is that serving
@@ -9,7 +9,8 @@ coalesces everything queued into one ``segment_reduce`` launch per op class
 (``core.aggregate.execute_plans`` -- a query id is just another segment
 coordinate) plus one ``SimilarityEngine.topk_batch`` per (k, metric)
 similarity class over the cached candidate rows (each query runs its own
-score and select launches).  The server runs on its index's device.
+score and select launches).  The server runs on its index's device, or,
+with ``mesh=``, over the shards of a ``dist.WideMesh``.
 
 Robustness contract (the point of the module):
 
@@ -165,15 +166,22 @@ class QueryServer:
     ``serve.faults.FaultInjector``.  The server uses its index's arena,
     when it has one: postings stay device-resident across ticks and the
     ``slab_mismatch`` recovery rung revalidates generations (repatching
-    only edited rows) instead of dropping the cached engine.  The JAX
-    package's ``mesh=`` (sharded serving) is not ported."""
+    only edited rows) instead of dropping the cached engine.  ``mesh`` a
+    ``dist.WideMesh``: similarity tickets then coalesce against the
+    sharded engine (per-shard arena slabs, k-lists merged on the card) and
+    coalesced boolean plans run through ``execute_plans(mesh=)``, with the
+    same recovery ladder: ``slab_mismatch`` revalidates through the arena
+    (only shards owning dirty rows patch), and the last host fallback
+    stays unsharded."""
 
     def __init__(self, index, *, backend: str | None = None,
                  max_queue: int = 4096, max_batch: int = 1024,
                  max_batch_bytes: int = 256 << 20, max_retries: int = 2,
-                 backoff_s: float = 0.005, clock=None, faults=None):
+                 backoff_s: float = 0.005, clock=None, faults=None,
+                 mesh=None):
         self.index = index
         self.backend = backend
+        self.mesh = mesh
         self.arena = index.arena
         self.max_queue = int(max_queue)
         self.max_batch = int(max_batch)
@@ -346,11 +354,12 @@ class QueryServer:
         sims = [t for t in tickets if t.query.kind == "similar"]
         if booleans:
             out = aggregate.execute_plans([t._plan for t in booleans],
-                                          backend=self.backend)
+                                          backend=self.backend,
+                                          mesh=self.mesh)
             for t, bm in zip(booleans, out):
                 t._value = bm
         if sims:
-            terms, eng = self.index._sim_engine()
+            terms, eng = self.index._sim_engine(self.mesh)
             by_class: dict[tuple, list[Ticket]] = {}
             for t in sims:
                 by_class.setdefault((t.query.k, t.query.metric),

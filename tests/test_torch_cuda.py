@@ -24,7 +24,11 @@ cards 0, 1, 4,096, above 4,096 and negative; one side empty; an A value of
 65537 beside B's padding) and at M = 8,192, with ``ops`` routing to them
 by default on CUDA tensors.  And a ``RoaringTensor`` built with the default
 device, which lands on the card and launches array_to_bitset, the pair
-kernels and segment_reduce, against the same tensor on the CPU.
+kernels and segment_reduce, against the same tensor on the CPU.  The
+sharded similarity kernels (the score over ids and the labelled select)
+against their plain versions, pad slots, exclusion and k past the entry
+count included, a bad position trapping; and ``similar(mesh=)`` and the
+sharded aggregates over shards on the card against the CPU's answers.
 
 These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip.  Run
 them on a GPU machine with ``PYTHONPATH=src python -m pytest -q -m cuda
@@ -346,7 +350,8 @@ def test_similar_on_the_card_matches_the_host_route(cuda, arena):
                 assert np.float32([s for _, s in got]).tobytes() == \
                     np.float32([s for _, s in want]).tobytes()
                 n += 1
-    assert topk_ops.launches_by_stage == {"score": n, "select": n}
+    assert topk_ops.launches_by_stage == {"score": n, "select": n,
+                                          "score_ids": 0, "select_ids": 0}
 
 
 @pytest.mark.parametrize("arena", [False, True])
@@ -873,3 +878,142 @@ def test_section4_wrappers_raise_on_bad_input(cuda):
         array_ops.array_intersect(v[:, ::2], c, v[:, :WORDS], c)
     with pytest.raises(ValueError):
         array_ops.array_intersect(v, c, v, c.cpu())
+
+
+# ---------------------------------------------------------------------------
+# the sharded similarity kernels (score over ids, labelled select) and the
+# sharded paths on the card
+# ---------------------------------------------------------------------------
+
+def _ids_inputs(seed, lens, n_valid, c=6):
+    """``_topk_inputs`` rows scattered into a larger table, read through
+    positions; slots at or past ``n_valid`` are padding with no rows, id
+    1000 and card 0."""
+    rows, row_col, starts, q, q_card, cards = _topk_inputs(seed, lens, c)
+    starts[n_valid + 1:] = starts[n_valid]       # pad slots: no rows
+    rng = np.random.default_rng(seed + 1)
+    n = int(starts[-1])
+    table = rng.integers(0, 1 << 32, (2 * n + 5, WORDS), dtype=np.uint32)
+    pos = rng.permutation(table.shape[0])[:n].astype(np.int32)
+    table[pos] = rows[:n]
+    gidx = np.sort(rng.choice(999, len(lens), replace=False)).astype(
+        np.int32)
+    gidx[n_valid:] = 1000
+    cards[n_valid:] = 0
+    return table, pos, row_col[:n], starts, q, q_card, cards, gidx
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("n_valid", [len(LENS), 5])
+@pytest.mark.parametrize("exclude", [-1, "first", 999])
+def test_score_ids_kernel_matches_plain(cuda, metric, n_valid, exclude):
+    table, pos, col, starts, q, q_card, cards, gidx = _ids_inputs(
+        4, LENS, n_valid)
+    ex = int(gidx[0]) if exclude == "first" else exclude
+    args = [_dev(a, cuda) for a in (table, pos, col, starts, q)]
+    rest = (_dev(cards, cuda), _dev(gidx, cuda), n_valid, ex)
+    want = ref.similarity_score_ids(*args, q_card, *rest, metric=metric)
+    n0 = topk_ops.launches_by_stage["score_ids"]
+    got = topk_ops.similarity_score_ids(*args, q_card, *rest,
+                                        metric=metric)
+    torch.cuda.synchronize()
+    assert topk_ops.launches_by_stage["score_ids"] == n0 + 1
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [1, 13, 400, 3000])
+@pytest.mark.parametrize("k", [1, 10, 100])
+def test_select_ids_kernel_matches_plain(cuda, n, k):
+    """Coarse scores (ties), repeated ids, pad entries at -2.0 and k past
+    n: the rounds after every entry is masked must match too."""
+    rng = np.random.default_rng(n + k)
+    score = (rng.integers(-2, 6, n) / 4).astype(np.float32)
+    gidx = rng.integers(0, max(2, n // 3), n).astype(np.int32)
+    inter = rng.integers(0, 1 << 20, n).astype(np.int32)
+    s, i, g = _dev(score, cuda), _dev(inter, cuda), _dev(gidx, cuda)
+    want = ref.topk_select_ids(s, i, g, k)
+    n0 = topk_ops.launches_by_stage["select_ids"]
+    got = topk_ops.topk_merge(s, i, g, k)
+    torch.cuda.synchronize()
+    assert topk_ops.launches_by_stage["select_ids"] == n0 + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_ids_kernels_fault_on_a_bad_position(cuda):
+    """A position past the table traps in the score-over-ids kernel (child
+    process: a trap leaves the CUDA context unusable)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    code = """
+import torch
+from repro_torch.kernels import topk_ops
+dev = torch.device("cuda")
+i32 = dict(dtype=torch.int32, device=dev)
+table = torch.zeros((4, 2048), **i32)
+q = torch.zeros((2, 2048), **i32)
+pos = torch.tensor([0, 1, 4], **i32)
+col = torch.tensor([0, 1, 1], **i32)
+starts = torch.tensor([0, 2, 3], **i32)
+z = torch.zeros(2, **i32)
+topk_ops.similarity_score_ids(table, pos, col, starts, q, 0, z, z, 2,
+                              metric="jaccard")
+torch.cuda.synchronize()
+print("NO FAULT")
+"""
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, env=env)
+    assert proc.returncode != 0, proc.stdout
+    assert "NO FAULT" not in proc.stdout
+
+
+@pytest.mark.parametrize("s", [2, 3])
+def test_sharded_similar_on_the_card(cuda, s):
+    """``similar(mesh=)`` over S shards on the card equals the CPU's
+    single-device answers, with S score-over-ids and S + 1 labelled
+    select launches a query."""
+    from repro_torch.dist import WideMesh
+    host, card = _index_pair(cuda, True)
+    mesh = WideMesh([cuda] * s)
+    topk_ops.reset_launches()
+    n = 0
+    for metric in METRICS:
+        for term in ("t0", "dup", "nope"):
+            for k in (1, 5, 30):
+                got = card.similar(term, k, metric, mesh=mesh)
+                want = host.similar(term, k, metric)
+                assert [t for t, _ in got] == [t for t, _ in want]
+                assert np.float32([x for _, x in got]).tobytes() == \
+                    np.float32([x for _, x in want]).tobytes()
+                n += 1
+    assert topk_ops.launches_by_stage == {
+        "score": 0, "select": 0, "score_ids": s * n,
+        "select_ids": (s + 1) * n}
+
+
+def test_sharded_aggregates_on_the_card(cuda):
+    from repro_torch.core import BitmapArena
+    from repro_torch.core import aggregate
+    from repro_torch.dist import WideMesh
+    host, card = _index_pair(cuda, True)
+    mesh = WideMesh([cuda] * 3)
+    terms = ["t0", "t1", "t2", "t3", "t5"]
+    bms = [card.postings[t] for t in terms]
+    hb = [host.postings[t] for t in terms]
+    arena = card.arena
+    segment_ops.reset_launches()
+    for name, kw in (("or_many", {}), ("and_many", {}), ("xor_many", {}),
+                     ("threshold_many", dict(t=2)),
+                     ("threshold_many", dict(t=4, weights=[1, 2, 3, 1, 2]))):
+        got = getattr(aggregate, name)(bms, arena=arena, mesh=mesh, **kw)
+        want = getattr(aggregate, name)(hb, device="cpu", **kw)
+        assert got == want, name
+    got = aggregate.andnot_many(bms[0], bms[1:], arena=arena, mesh=mesh)
+    assert got == aggregate.andnot_many(hb[0], hb[1:], device="cpu")
+    assert segment_ops.launches > 0
+    assert isinstance(arena, BitmapArena)

@@ -48,7 +48,8 @@ def test_package_files_exist():
     for name in ("kernels/pair_ops.py", "kernels/array_ops.py",
                  "core/pairwise.py", "kernels/bitset_convert.py",
                  "kernels/harley_seal.py", "core/tensor.py",
-                 "kernels/bitset_ops.py"):
+                 "kernels/bitset_ops.py", "dist/__init__.py",
+                 "dist/ctx.py"):
         assert PKG / name in FILES
     assert len(FILES) > 10 and all(f.is_file() for f in FILES)
 
@@ -119,6 +120,15 @@ def test_defaults_raise_without_gpu():
         RoaringBitmap.pairwise_card("or", [tuple(bms)])
     with pytest.raises(RuntimeError, match="CUDA"):
         RoaringBitmap.jaccard_matrix(bms)
+    from repro_torch.dist import WideMesh, install_wide_mesh
+    with pytest.raises(RuntimeError, match="CUDA"):
+        WideMesh(["cuda", "cuda"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        install_wide_mesh(1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        aggregate.or_many(bms, mesh=WideMesh(["cpu", "cpu"]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SimilarityEngine(bms, mesh=WideMesh(["cpu", "cpu"]))
 
 
 def test_kernel_route_does_not_fall_back_to_cpu():
@@ -269,7 +279,8 @@ def test_similarity_kernel_route_does_not_fall_back_to_cpu():
                                   "kernels/harley_seal.py",
                                   "kernels/bitset_ops.py",
                                   "kernels/_build.py", "kernels/ops.py",
-                                  "core/pairwise.py", "core/tensor.py"])
+                                  "core/pairwise.py", "core/tensor.py",
+                                  "core/aggregate.py", "dist/ctx.py"])
 def test_every_except_reraises(name):
     tree = ast.parse((PKG / name).read_text())
     for node in ast.walk(tree):

@@ -193,7 +193,8 @@ def test_cpu_wrapper_takes_plain_version_and_counts_nothing():
                                 metric="cosine", k=5)
     _same(got, want)
     assert ttopk.launches == 0
-    assert ttopk.launches_by_stage == {"score": 0, "select": 0}
+    assert ttopk.launches_by_stage == {"score": 0, "select": 0,
+                                       "score_ids": 0, "select_ids": 0}
 
 
 def test_bad_arguments_raise():
