@@ -59,6 +59,18 @@ toolkit (``nvcc``).  Phases, each timed:
    merged lists equal to the single-device score and select; times of
    the score over all 1,024 slots and of the select over one shard's list
    and over the merged S * k = 40 and 400 entries, beside ``torch.sort``.
+2g. The Roaring block-sparse decode attention kernel against its plain
+   version at Gemma2-27B's decode shape (B = 4, H = 32, Hkv = 16, D = 128,
+   S = 8,192, block 128, bfloat16, softcap 50, the serving engine's mask:
+   sink 1 + local 8 blocks, three pinned blocks on row 0; kv_len 5,121 to
+   5,160, different on each row) and at edge cases: an empty mask; kv_len
+   0, 1, mid-block and S; bits past kv_len; every bit set; softcap 0;
+   float32; g in {1, 2, 8}; D in {64, 256}; block 256; B = 1 and 64.
+   float32 within atol = rtol = 2e-5, bfloat16 within one bf16 ulp of
+   each (sequence, head) row's largest output (the ratio printed), rows
+   with no visible position exactly 0.  Device times of the kernel and the
+   plain version, its bytes bound, and ``F.scaled_dot_product_attention``
+   over the expanded boolean mask at softcap 0 (live and full density).
 3. Boolean queries at real scale: an ``InvertedIndex`` over 2^24 documents
    and 1,024 terms on a ``BitmapArena`` on the card (64 dense bitset
    terms, 960 sparse array terms), 64 queries of each boolean class run
@@ -124,8 +136,24 @@ toolkit (``nvcc``).  Phases, each timed:
    its union; a profiler window; and one edited term, after which one row
    of one shard patches.  The sharded similarity kernels must launch in
    phase 9 and in no earlier phase.
+10. Gemma2-27B served at full width and depth, after phases 3-9 have
+   released their device tensors: random bfloat16 weights from ``--seed``
+   on the card (27,227,128,320 parameters), ``Engine(max_seq=8192,
+   BlockPolicy(1, 8))``, B = 4 prompts of 5,120 tokens, 32 new tokens
+   greedily, then 32 more under a ``lexicon_constraint`` (every token in
+   the set; after ``release_all`` every page free).  The decode attention
+   kernel launches 23 times a new token, never in prefill and in no
+   earlier phase.  From the state after the first prefill, one
+   ``decode_step(backend="ref")`` and one with the kernel give logits
+   within 8 bf16 ulps of the largest, and each global layer's kernel
+   output matches the plain version on the full-size cache within phase
+   2g's limit; the gaps that a dropped last visible block gives, per
+   layer and in the logits, are printed beside them.  Prefill seconds, decode ms a step
+   (p50, p99), tokens/s, a profiler window over four steps (idle share,
+   the kernel's share of device time), the step's bytes bound and the
+   peak device memory.
 
-Launch counts are set to 0 just before each of phases 3 to 9 and
+Launch counts are set to 0 just before each of phases 3 to 10 and
 read just after it; a kernel that a phase's path runs and that launched no time
 there fails the script.  Then one JSON line with every kernel's numbers,
 and the last line ``{"ok": true, "device": {...}}``.
@@ -138,6 +166,7 @@ report goes to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import re
 import subprocess
@@ -162,7 +191,7 @@ OPS = (("or", None), ("and", None), ("xor", None), ("andnot", None),
 SOURCES = ("slab", "ids", "dual")
 SOURCES_CU = ("segment_reduce", "similarity_topk", "pair_ops",
               "array_ops", "bitset_convert", "popcount",
-              "bitset_ops")                                 # csrc/<name>.cu
+              "bitset_ops", "block_sparse_attn")            # csrc/<name>.cu
 PAIR_OPS = ("and", "or", "xor", "andnot")
 PAIRINGS = ("dense x dense", "dense x sparse", "sparse x dense",
             "sparse x sparse")
@@ -184,11 +213,11 @@ def log(msg: str) -> None:
 def _reset_counts() -> None:
     """Set every kernel wrapper's launch counts to 0."""
     from repro_torch.kernels import (
-        array_ops, bitset_convert, bitset_ops, harley_seal, pair_ops,
-        segment_ops, topk_ops,
+        array_ops, bitset_convert, bitset_ops, block_sparse_attn, harley_seal,
+        pair_ops, segment_ops, topk_ops,
     )
     for mod in (segment_ops, topk_ops, pair_ops, array_ops, bitset_convert,
-                harley_seal, bitset_ops):
+                harley_seal, bitset_ops, block_sparse_attn):
         mod.reset_launches()
 
 
@@ -291,6 +320,7 @@ def _time_ms(fn, reps):
 
 
 _LAUNCHES = ("Memcpy", "Memset", "LaunchKernel")    # runtime calls
+_CU_LAUNCHES = ("cuLaunchKernel", "cuMemcpy", "cuMemset")   # below them
 # segment_reduce's two kernels as the trace names them; PyTorch's own
 # reductions are at::native::reduce_kernel<...>, which a bare
 # "reduce_kernel" would also match
@@ -314,7 +344,12 @@ def _trace_window(fn, dev, names=(), lead=64):
     time of the kernels whose names match one of the regular expressions
     ``names`` (in all and per name), the eight kernels that took the most
     time, and the bytes the copies moved up and down; ``lead_kept`` says
-    how many lead adds kept theirs."""
+    how many lead adds kept theirs.  Kernels that PyTorch's libraries
+    launch with ``cuLaunchKernel`` (cuBLASLt's, the attention kernels)
+    have no runtime call to match, so ``span_busy_us`` also sums every
+    device event that starts inside the measured range,
+    ``span_top_kernels`` ranks those, and ``cu_launches`` counts the
+    range's ``cuLaunchKernel`` / ``cuMemcpy`` / ``cuMemset`` calls."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -337,19 +372,30 @@ def _trace_window(fn, dev, names=(), lead=64):
                  if e.get("cat") == "user_annotation"
                  and e.get("name") == "chip_smoke.measured"), (0.0, 0.0))
     calls, lead_calls, work, by_kernel = {}, {}, {}, {}
+    span_busy, span_kernels, cu_launches = 0.0, {}, 0
     for e in events:
         cat, name = e.get("cat", ""), e.get("name", "")
         corr = e.get("args", {}).get("correlation")
+        inside = span[0] <= e.get("ts", -1.0) <= span[1]
         if cat == "cuda_runtime" and any(k in name for k in _LAUNCHES):
-            inside = span[0] <= e["ts"] <= span[1]
             (calls if inside else lead_calls)[corr] = e
+        elif name.startswith(_CU_LAUNCHES):
+            cu_launches += inside
         elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
             work[corr] = e
+            if inside:
+                span_busy += float(e.get("dur", 0.0))
+                if cat == "kernel":
+                    span_kernels[name[:100]] = span_kernels.get(
+                        name[:100], 0.0) + float(e.get("dur", 0.0))
     mine = [work[c] for c in calls if c in work]
     out = dict(wall_us=wall_us, lead=lead, busy_us=0.0, kernel_us=0.0,
                name_us={n: 0.0 for n in names}, h2d_bytes=0, d2h_bytes=0,
                device_events=len(mine), runtime_calls=len(calls),
-               lead_kept=sum(c in work for c in lead_calls))
+               lead_kept=sum(c in work for c in lead_calls),
+               span_busy_us=span_busy, cu_launches=cu_launches,
+               span_top_kernels=sorted(span_kernels.items(),
+                                       key=lambda kv: -kv[1])[:8])
     for e in mine:
         name, dur = e.get("name", ""), float(e.get("dur", 0.0))
         out["busy_us"] += dur
@@ -1114,6 +1160,12 @@ def _convert_counts() -> dict:
 # ---------------------------------------------------------------------------
 
 IDS_STAGES = ("score_ids", "select_ids")
+
+
+def _bsa_count() -> int:
+    """Launches of the decode attention kernel since the last reset."""
+    from repro_torch.kernels import block_sparse_attn
+    return block_sparse_attn.launches
 
 
 def _ids_counts() -> dict:
@@ -2934,6 +2986,485 @@ def phase_sharded(dev, ctx, sim_cases, keep, failures):
 
 
 # ---------------------------------------------------------------------------
+# phase 2g: the decode attention kernel against its plain version
+# ---------------------------------------------------------------------------
+
+LIVE = dict(b=4, h=32, hkv=16, d=128, s=8192, bs=128)   # Gemma2-27B decode
+PINNED = (2, 17, 29)          # phase 2g's pinned blocks on row 0
+
+
+def _engine_mask(dev, kv_lens, s, bs, pinned=PINNED):
+    """The serving engine's mask words for ``kv_lens``: ``BlockPolicy(1,
+    8)`` (sink 1 + local 8), with ``pinned`` blocks on row 0 only."""
+    from repro_torch.core import RoaringBitmap
+    from repro_torch.core.tensor import block_mask_words
+    from repro_torch.serve import BlockPolicy
+    pol = BlockPolicy(1, 8)
+    pin = BlockPolicy(1, 8, RoaringBitmap.from_values(list(pinned)))
+    sets = [(pin if i == 0 else pol).visible_set(kl, bs, device=dev)
+            for i, kl in enumerate(kv_lens)]
+    return block_mask_words(sets, s // bs, device=dev)
+
+
+def _bsa_inputs(dev, gen, b, h, hkv, d, s, bs, dtype=torch.bfloat16,
+                kv_len=None, words=None):
+    """q, k, v from ``gen`` on the card (k scaled by 0.3, as the JAX kernel
+    test draws it), mask words (default: the engine's mask) and kv_len
+    (default: different on each row, 5,121 + 13 i at S = 8,192 as after a
+    5,120-token prompt, else S - 1 - 97 i)."""
+    q = torch.randn((b, h, d), generator=gen, device=dev).to(dtype)
+    k = (torch.randn((b, hkv, s, d), generator=gen, device=dev)
+         * 0.3).to(dtype)
+    v = torch.randn((b, hkv, s, d), generator=gen, device=dev).to(dtype)
+    if kv_len is None:
+        kv_len = [5121 + 13 * i if s >= 8192 else max(1, s - 1 - 97 * i)
+                  for i in range(b)]
+    kvl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    if words is None:
+        words = _engine_mask(dev, kv_len, s, bs)
+    return q, k, v, words, kvl
+
+
+def _visible_positions(words, kvl, s, bs):
+    """(B, S) bool: position visible (its block's bit set, below kv_len)."""
+    from repro_torch.kernels.ref import block_mask_bits
+    pos = torch.arange(s, device=words.device)
+    vis = block_mask_bits(words, s // bs)[:, pos // bs]
+    return vis & (pos[None, :] < kvl[:, None])
+
+
+def _bsa_bound(q, k, words, kvl, bs):
+    """Least time for one call, in ms, and what bounds it: the K and V
+    rows at visible valid positions read once, q read, the output
+    written, the mask words and kv_len read once, over the HBM rate;
+    against 4 * g * D float32 operations a visible key and head group
+    over the fp32 rate (67 T/s)."""
+    b, h, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    n_vis = int(_visible_positions(words, kvl, s, bs).sum())
+    el = q.element_size()
+    nbytes = (2 * n_vis * hkv * d * el + 2 * b * h * d * el
+              + words.numel() * 4 + kvl.numel() * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * n_vis * h * d / INT_OPS_PER_S * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"),
+            nbytes, n_vis)
+
+
+def _bf16_ulp_ratio(got, want):
+    """The largest |got - want| over one bfloat16 ulp of the largest
+    magnitude of ``want`` in its (sequence, head) row; the bf16 check
+    holds it to at most 1.  The kernel and the plain version sum the same
+    float32 terms in other orders, an error that scales with the row's
+    magnitude: an element near 0 after cancellation can differ by more
+    than its own ulp, never by more than the row's."""
+    g, w = got.float(), want.float()
+    top = w.abs().amax(dim=-1, keepdim=True).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    return float(((g - w).abs() / ulp).max()) if g.numel() else 0.0
+
+
+def _sdpa(q, k, v, words, kvl, bs, scale):
+    """One ``F.scaled_dot_product_attention`` call over the expanded
+    boolean mask (the library yardstick; softcap 0 only, rows with a
+    visible position only)."""
+    import torch.nn.functional as F
+    vis = _visible_positions(words, kvl, k.shape[2], bs)
+    return lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], k, v, attn_mask=vis[:, None, None, :],
+        scale=scale, enable_gqa=True)[:, :, 0, :]
+
+
+def phase_bsa_kernel(dev, seed, failures):
+    """The Roaring block-sparse decode attention kernel against its plain
+    version at Gemma2-27B's decode shape and at edge cases (see the module
+    docstring, phase 2g).  float32: atol = rtol = 2e-5; bfloat16: within
+    one bf16 ulp of each (sequence, head) row's largest output; rows with
+    no visible position exactly 0."""
+    from repro_torch.kernels import block_sparse_attn as bsa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(dev).manual_seed(seed + 17)
+    L = LIVE
+    full_words = torch.full((L["b"], 2), -1, dtype=torch.int32, device=dev)
+    cases = [
+        ("live", dict(L), 50.0, {}),
+        ("live/softcap=0", dict(L), 0.0, {}),
+        ("live/softcap=0/full", dict(L), 0.0, dict(words=full_words)),
+        ("empty mask", dict(L, s=2048), 50.0, dict(
+            words=torch.zeros((4, 1), dtype=torch.int32, device=dev))),
+        ("kv_len 0/1/mid/S, bits past kv_len", dict(L, s=2048), 50.0, dict(
+            kv_len=[0, 1, 1000, 2048], words=torch.full(
+                (4, 1), -1, dtype=torch.int32, device=dev))),
+        ("every bit set", dict(L, s=2048), 50.0, dict(words=torch.full(
+            (4, 1), -1, dtype=torch.int32, device=dev))),
+        ("float32", dict(L, s=2048), 50.0, dict(dtype=torch.float32)),
+        ("float32/softcap=0", dict(L, s=2048), 0.0,
+         dict(dtype=torch.float32)),
+        ("g=1", dict(L, h=16, s=2048), 50.0, {}),
+        ("g=2 (live)", dict(L, s=2048), 50.0, {}),
+        ("g=8", dict(L, h=128, s=2048), 50.0, {}),
+        ("D=64", dict(L, d=64, s=2048), 50.0, {}),
+        ("D=256", dict(L, d=256, s=2048), 50.0, {}),
+        ("block 256", dict(L, s=2048, bs=256), 50.0, {}),
+        ("B=1", dict(L, b=1, s=2048), 50.0, {}),
+        ("B=64", dict(L, b=64, s=2048), 50.0, dict(
+            kv_len=[1 + 31 * i for i in range(64)])),
+    ]
+    rows, max_err = [], 0.0
+    for name, shape, softcap, kw in cases:
+        bs = shape["bs"]
+        dims = {k_: v_ for k_, v_ in shape.items() if k_ != "bs"}
+        q, k, v, words, kvl = _bsa_inputs(dev, gen, bs=bs, **dims, **kw)
+        scale = q.shape[-1] ** -0.5
+
+        def kern():
+            return bsa.decode_attention(q, k, v, words, kvl, block_size=bs,
+                                        softcap=softcap)
+
+        def plain():
+            return ref.block_sparse_attention_decode(
+                q, k, v, words, kvl, block_size=bs, softcap=softcap)
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        max_err = max(max_err, err)
+        empty = ~_visible_positions(words, kvl, k.shape[2], bs).any(dim=-1)
+        zeros_ok = bool((got[empty] == 0).all())
+        ulps = None
+        if q.dtype == torch.float32:
+            ok = bool(torch.allclose(got, want, atol=2e-5, rtol=2e-5))
+        else:
+            ulps = _bf16_ulp_ratio(got, want)
+            ok = ulps <= 1.0
+        ok = ok and zeros_ok
+        (bound_ms, bound_by), nbytes, n_vis = _bsa_bound(q, k, words, kvl,
+                                                         bs)
+        row = dict(case=name, dtype=str(q.dtype), shape=list(k.shape),
+                   block_size=bs, softcap=softcap, equal=ok,
+                   max_abs_err=err, max_row_ulps=ulps,
+                   empty_rows=int(empty.sum()),
+                   visible_positions=n_vis, bytes=nbytes,
+                   bound_ms=bound_ms, bound_by=bound_by)
+        if name.startswith("live"):
+            row.update(ms=_device_ms(kern, 50), plain_ms=_device_ms(plain, 5),
+                       event_ms=_time_ms(kern, 50)[1],
+                       event_plain_ms=_time_ms(plain, 5)[1])
+            if softcap == 0.0:
+                # CUDA events: the profiler window misses the attention
+                # kernels PyTorch launches with cuLaunchKernel
+                sdpa = _sdpa(q, k, v, words, kvl, bs, scale)
+                lib, lib_ms = _time_ms(sdpa, 20)
+                row.update(library_ms=lib_ms,
+                           library_max_abs_err=float(
+                               (lib.float() - want.float()).abs().max()))
+            log(f"  {name:36s} ok={ok} err {err:.3g} ({ulps} row ulps); "
+                f"device: kernel "
+                f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms"
+                + (f"  sdpa {row['library_ms']:.4f} ms"
+                   if "library_ms" in row else "")
+                + f"; bound {bound_ms:.4f} ms ({bound_by}, {nbytes} bytes,"
+                f" {n_vis} visible positions)")
+        else:
+            log(f"  {name:36s} ok={ok} err {err:.3g} ({ulps} row ulps), "
+                f"{n_vis} visible positions, {int(empty.sum())} empty rows")
+        rows.append(row)
+        if not ok:
+            failures.append(f"decode_attention kernel != plain: {name} "
+                            f"(max_abs_err {err}, zero rows ok {zeros_ok})")
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+    bf16_ulps = max(r["max_row_ulps"] for r in rows
+                    if r["max_row_ulps"] is not None)
+    log(f"  {len(rows)} cases: {sum(r['equal'] for r in rows)} within "
+        f"tolerance, max_abs_err {max_err:.3g}, bf16 at most {bf16_ulps} "
+        f"row ulps (limit 1); launches so far {bsa.launches}")
+    return rows, max_err
+
+
+# ---------------------------------------------------------------------------
+# phase 10: Gemma2-27B serving at full width and depth
+# ---------------------------------------------------------------------------
+
+SERVE_B, SERVE_PROMPT, SERVE_MAX_SEQ, SERVE_NEW = 4, 5120, 8192, 32
+
+
+class _TimedModel:
+    """Delegates ``prefill`` and ``decode_step`` to the engine's model,
+    timing each with the host clock around a synchronize, counting the
+    decode kernel's launches in each prefill, and keeping the first
+    prefill's state and logits for the kernel-against-plain check."""
+
+    def __init__(self, model):
+        self.model = model
+        self.prefill_s, self.step_ms, self.prefill_launches = [], [], []
+        self.kept = None
+
+    def prefill(self, *a, **kw):
+        from repro_torch.kernels import block_sparse_attn as bsa
+        torch.cuda.synchronize()
+        n0, t = bsa.launches, time.perf_counter()
+        out = self.model.prefill(*a, **kw)
+        torch.cuda.synchronize()
+        self.prefill_s.append(time.perf_counter() - t)
+        self.prefill_launches.append(bsa.launches - n0)
+        if self.kept is None:
+            self.kept = out
+        return out
+
+    def decode_step(self, *a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = self.model.decode_step(*a, **kw)
+        torch.cuda.synchronize()
+        self.step_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+
+def _decode_bound(model, kv_len, words):
+    """Least time of one decode step, in ms, and its bytes: every weight
+    read once (the tied embedding once, as the head), plus each local
+    layer's K and V rows inside its window and each global layer's at
+    visible valid positions, over the HBM rate."""
+    cfg = model.cfg
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    row = cfg.n_kv_heads * cfg.hd * 2 * 2              # K and V, bf16
+    local = sum(min(kl, cfg.sliding_window) for kl in kv_len) * row
+    vis = int(_visible_positions(words, torch.tensor(
+        kv_len, dtype=torch.int32, device=words.device), SERVE_MAX_SEQ,
+        cfg.attn_block_size).sum()) * row
+    kinds = [m for m, _ in cfg.layer_kinds]
+    nbytes = (w_bytes + kinds.count("local") * local
+              + kinds.count("global") * vis)
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def _drop_last_block(words, kv_len, bs):
+    """``words`` with each row's last visible block below ``kv_len``
+    cleared: the planted fault of a kernel that stops one block early."""
+    w = words.cpu().numpy().view(np.uint32).copy()
+    for r in range(w.shape[0]):
+        bits = [i for i in range(-(-kv_len // bs))
+                if int(w[r, i // 32]) >> (i % 32) & 1]
+        if bits:
+            j, b = divmod(bits[-1], 32)
+            w[r, j] = np.uint32(int(w[r, j]) & ~(1 << b) & 0xFFFFFFFF)
+    return torch.from_numpy(w.view(np.int32)).to(words.device)
+
+
+def _layer_ulps(calls, fault_words):
+    """For each recorded kernel call (q, k, v, words, kv_len, keywords,
+    output): the output's row-ulp ratio against the plain version, and the
+    plain version's under ``fault_words`` against the same."""
+    from repro_torch.kernels import ref
+    layer_ulps, fault_ulps = [], []
+    for q, k, v, w, kvl, kw, got in calls:
+        plain_out = ref.block_sparse_attention_decode(q, k, v, w, kvl, **kw)
+        layer_ulps.append(_bf16_ulp_ratio(got, plain_out))
+        fault_ulps.append(_bf16_ulp_ratio(ref.block_sparse_attention_decode(
+            q, k, v, fault_words, kvl, **kw), plain_out))
+    return layer_ulps, fault_ulps
+
+
+def phase_serving(dev, seed, failures):
+    """Gemma2-27B served at full width and depth (see the module
+    docstring, phase 10)."""
+    from repro_torch import configs
+    from repro_torch.kernels import block_sparse_attn as bsa
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve import BlockPolicy, Engine, lexicon_constraint
+    _reset_counts()                       # the serving path starts here
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev)
+    cfg = configs.get_config("gemma2_27b")
+    kinds = [m for m, _ in cfg.layer_kinds]
+    n_global = kinds.count("global")
+    t = time.perf_counter()
+    model = Transformer(cfg, device=dev,
+                        generator=torch.Generator(dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"  Gemma2-27B: {cfg.n_layers} layers ({kinds.count('local')} "
+        f"local, {n_global} global), d {cfg.d_model}, {n_params} "
+        f"parameters, {w_bytes} bytes, random from seed {seed} in "
+        f"{init_s:.1f} s; allocated before {mem0} bytes")
+    timed = _TimedModel(model)
+    eng = Engine(model, max_seq=SERVE_MAX_SEQ, policy=BlockPolicy(1, 8))
+    eng.model = timed
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab, (SERVE_B, SERVE_PROMPT)).astype(np.int32)
+
+    # 1. greedy generation
+    t = time.perf_counter()
+    out = eng.generate(prompts, SERVE_NEW)
+    gen_s = time.perf_counter() - t
+    launches = bsa.launches
+    want = n_global * SERVE_NEW
+    ok_shape = out.shape == (SERVE_B, SERVE_NEW) and bool(
+        ((out >= 0) & (out < cfg.vocab)).all())
+    steps = np.asarray(timed.step_ms)
+    log(f"  generate: {SERVE_B} x {SERVE_PROMPT} prompt tokens, "
+        f"{SERVE_NEW} new: prefill {timed.prefill_s[0]:.2f} s, decode "
+        f"p50 {np.percentile(steps, 50):.2f} ms p99 "
+        f"{np.percentile(steps, 99):.2f} ms a step, "
+        f"{SERVE_B * SERVE_NEW / (steps.sum() / 1e3):.1f} tokens/s "
+        f"decoding, {SERVE_B * SERVE_NEW / gen_s:.1f} end to end; "
+        f"decode_attention launches {launches} (want {want}), in prefill "
+        f"{timed.prefill_launches[0]}; tokens {out[:, :8].tolist()}")
+    if not ok_shape:
+        failures.append(f"serving: tokens {out.shape} outside the vocab")
+    if launches != want or timed.prefill_launches[0]:
+        failures.append(f"serving: decode_attention launched {launches} "
+                        f"times in generate (want {want}), "
+                        f"{timed.prefill_launches[0]} in prefill")
+
+    # 2. the kernel against the plain version, from the state after prefill
+    p_logits, state = timed.kept
+    timed.kept = None
+    tok0 = torch.argmax(p_logits, dim=-1).to(torch.int32)
+    words = eng._mask_words([SERVE_PROMPT + 1] * SERVE_B)
+    # [0]: the returned state shares the caches, and would keep them alive
+    ref_logits = model.decode_step(state, tok0, words, backend="ref")[0]
+    calls, kernel_fn = [], bsa.decode_attention
+
+    def recorded(q, k, v, w, kvl, **kw):
+        out = kernel_fn(q, k, v, w, kvl, **kw)
+        calls.append((q, k, v, w, kvl, kw, out))
+        return out
+
+    bsa.decode_attention = recorded         # ops reaches it by attribute
+    try:
+        ker_logits = model.decode_step(state, tok0, words)[0]
+    finally:
+        bsa.decode_attention = kernel_fn
+    torch.cuda.synchronize()
+    # every global layer's kernel output against the plain version on the
+    # same full-size cache (each layer's column was written by this step
+    # and nothing has written since), within phase 2g's limit; and the
+    # plain version with each row's last visible block cleared, the fault
+    # the limits must catch, per layer and through the whole model
+    fault_words = _drop_last_block(words, SERVE_PROMPT + 1,
+                                   cfg.attn_block_size)
+    layer_ulps, fault_ulps = _layer_ulps(calls, fault_words)
+    del calls
+    layer_check = dict(layers=len(layer_ulps), max_row_ulps=max(
+        layer_ulps, default=None), row_ulps=layer_ulps,
+        fault_row_ulps=fault_ulps,
+        fault_caught=sum(f > 1.0 for f in fault_ulps))
+    log(f"  kernel vs plain in each global layer at the full-size state: "
+        f"{len(layer_ulps)} layers, at most {layer_check['max_row_ulps']} "
+        f"row ulps (limit 1); a dropped last block gives "
+        f"{min(fault_ulps, default=0):.4g}-{max(fault_ulps, default=0):.4g}"
+        f", over the limit in {layer_check['fault_caught']} layers")
+    if len(layer_ulps) != n_global or layer_check["max_row_ulps"] > 1.0:
+        failures.append(f"serving: decode_attention kernel != plain in the "
+                        f"global layers {layer_ulps}")
+    fault_logits = model.decode_step(state, tok0, fault_words,
+                                     backend="ref")[0]
+    torch.cuda.synchronize()
+    diff = (ker_logits.float() - ref_logits.float()).abs()
+    top = float(ref_logits.float().abs().max())
+    tol = 8 * 2.0 ** (np.floor(np.log2(top)) - 7)      # 8 bf16 ulps at top
+    agree = float((ker_logits.argmax(-1) == ref_logits.argmax(-1))
+                  .float().mean())
+    fault_diff = float((fault_logits.float() - ref_logits.float())
+                       .abs().max())
+    logit_check = dict(max_abs_diff=float(diff.max()),
+                       mean_abs_diff=float(diff.mean()), max_abs_logit=top,
+                       tolerance=tol, argmax_agreement=agree,
+                       finite=bool(torch.isfinite(ker_logits).all()),
+                       fault_max_abs_diff=fault_diff, layers=layer_check)
+    log(f"  kernel vs plain decode logits: max |diff| "
+        f"{logit_check['max_abs_diff']:.4g} (tolerance {tol:.4g}, 8 bf16 "
+        f"ulps at max |logit| {top:.4g}), mean "
+        f"{logit_check['mean_abs_diff']:.3g}, argmax agreement {agree}; "
+        f"a dropped last block moves them {fault_diff:.4g}")
+    if not (logit_check["finite"] and logit_check["max_abs_diff"] <= tol):
+        failures.append(f"serving: kernel and plain decode logits differ "
+                        f"{logit_check}")
+
+    # 3. a profiler window over four decode steps from that state (kv_len
+    # 5,121-5,124: one block count, so the same mask words)
+    def window():
+        st, tok = state, tok0
+        for _ in range(4):
+            logits, st = model.decode_step(st, tok, words)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+
+    tr = _traced("decode window", window, dev,
+                 names=("decode_attention_kernel",))
+    # the step's weight products run cuBLASLt kernels launched with
+    # cuLaunchKernel: busy and idle come from every device event in the range
+    busy = tr["span_busy_us"]
+    share = (tr["name_us"]["decode_attention_kernel"] / busy
+             if busy else None)
+    idle = 1.0 - busy / tr["wall_us"] if tr["complete"] else None
+    bound_ms, step_bytes = _decode_bound(model, [SERVE_PROMPT + 1] * SERVE_B,
+                                         words)
+    log(f"  decode window (4 steps): busy {busy / 1e3:.2f} ms of "
+        f"{tr['wall_us'] / 1e3:.2f} ms ({tr['busy_us'] / 1e3:.2f} ms matched "
+        f"to runtime launches, {tr['cu_launches']} cuLaunchKernel-level "
+        f"calls), idle "
+        + (f"{idle:.4f}" if idle is not None else "not measured")
+        + f", decode_attention {tr['name_us']['decode_attention_kernel']:.1f}"
+        f" us ({share:.4f} of busy); step bound {bound_ms:.2f} ms "
+        f"({step_bytes} bytes); top {tr['span_top_kernels'][:6]}")
+    del state, p_logits, ref_logits, ker_logits, fault_logits
+    torch.cuda.empty_cache()
+
+    # 4. constrained generation, then every page back
+    v = cfg.vocab
+    lex = {"digits": np.arange(v // 256, v // 256 + 100),
+           "names": np.arange(v // 5, min(v, v // 5 + 2000))}
+    eng.constraint = lexicon_constraint(cfg.vocab, lex, ["digits", "names"],
+                                        device=dev)
+    allowed = np.concatenate(list(lex.values()))
+    _reset_counts()
+    cout = eng.generate(prompts, SERVE_NEW)
+    c_launches = bsa.launches
+    in_set = bool(np.isin(cout, allowed).all())
+    eng.release_all()
+    free = eng.allocator.n_free == eng.allocator.n_pages
+    log(f"  constrained generate: every token in the set {in_set}, "
+        f"launches {c_launches}, prefill {timed.prefill_s[-1]:.2f} s; "
+        f"after release_all {eng.allocator.n_free} of "
+        f"{eng.allocator.n_pages} pages free")
+    if not in_set or not free or c_launches != want:
+        failures.append(f"serving: constrained tokens in set {in_set}, "
+                        f"pages free {free}, launches {c_launches}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps = np.asarray(timed.step_ms)
+    log(f"  peak device memory {peak} bytes")
+    res = dict(
+        layers=cfg.n_layers, params=n_params, weight_bytes=w_bytes,
+        batch=SERVE_B, prompt=SERVE_PROMPT, max_seq=SERVE_MAX_SEQ,
+        new_tokens=SERVE_NEW, init_s=init_s, generate_s=gen_s,
+        prefill_s=timed.prefill_s, step_ms=timed.step_ms,
+        decode_p50_ms=float(np.percentile(steps, 50)),
+        decode_p99_ms=float(np.percentile(steps, 99)),
+        tokens_per_s=SERVE_B * len(steps) / (steps.sum() / 1e3),
+        generate_tokens_per_s=SERVE_B * SERVE_NEW / gen_s,
+        tokens=out.tolist(), constrained_tokens=cout.tolist(),
+        launches=launches + c_launches, launches_per_generate=[
+            launches, c_launches], prefill_launches=timed.prefill_launches,
+        logits=logit_check, window=dict(
+            steps=4, wall_us=tr["wall_us"], busy_us=busy,
+            runtime_matched_busy_us=tr["busy_us"],
+            cu_launches=tr["cu_launches"], idle_share=idle,
+            decode_attention_us=tr["name_us"]["decode_attention_kernel"],
+            decode_attention_share=share,
+            top_kernels=tr["span_top_kernels"]),
+        step_bound_ms=bound_ms, step_bound_bytes=step_bytes,
+        allocated_before=mem0, peak_bytes=peak, in_set=in_set,
+        pages_free=free)
+    del eng, model, timed
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 def _build_all():
     """Build every kernel source at once, one nvcc each, in parallel.
@@ -2965,7 +3496,7 @@ def _build_all():
 def _kernel_line(main_path, sim, cases, topk_cases, max_err, topk_err,
                  pair_cases, pair_err, pairwise, convert_cases, convert_err,
                  tensor, section4_cases, section4_err, surface, ids_cases,
-                 ids_err, sharded):
+                 ids_err, sharded, bsa_cases, bsa_err, serving):
     rep = next(c for c in cases if c["case"] == "main/ids/or")
     score = next(c for c in topk_cases
                  if c["case"] == "score/main/jaccard/exclude=-1")
@@ -3063,7 +3594,19 @@ def _kernel_line(main_path, sim, cases, topk_cases, max_err, topk_err,
             "src/repro/kernels/topk_ops.py:310",
             sharded["launches"]["select_ids"], ids_err,
             next(c for c in ids_cases
-                 if c["case"] == "select_ids/merge/M=40/k=10"))]}
+                 if c["case"] == "select_ids/merge/M=40/k=10")),
+        # the decode attention kernel at Gemma2-27B's decode shape (phase
+        # 2g, softcap 50, the engine's mask), device times; launches from
+        # phase 10's two generates; library_ms: one
+        # F.scaled_dot_product_attention over the expanded boolean mask at
+        # softcap 0 (it has no softcap), the same function there
+        row("decode_attention", "block_sparse_attn.cu",
+            "src/repro/kernels/block_sparse_attn.py:110",
+            serving["launches"], bsa_err,
+            dict(next(c for c in bsa_cases if c["case"] == "live"),
+                 library_ms=next(c for c in bsa_cases
+                                 if c["case"] == "live/softcap=0")[
+                                     "library_ms"]))]}
 
 
 def main() -> int:
@@ -3120,12 +3663,16 @@ def main() -> int:
         "2f (sharded similarity kernels against plain)", phase_ids_kernels,
         dev, args.seed, failures)
     log(f"  {len(ids_cases)} cases, max_abs_err {ids_err}")
+    bsa_cases, bsa_err = phase(
+        "2g (decode attention against plain)", phase_bsa_kernel, dev,
+        args.seed, failures)
     main_path, ctx = phase("3 (boolean queries at real scale)",
                            phase_main_path, dev, args.seed, failures)
     main_path["pair_launches"] = _pair_counts()
     main_path["convert_launches"] = _convert_counts()
     main_path["section4_launches"] = _section4_counts()
     main_path["ids_launches"] = _ids_counts()
+    main_path["bsa_launches"] = _bsa_count()
     sim, sim_cases = phase("4 (similarity at real scale)",
                            phase_similarity, dev, ctx["index"],
                            ctx["sets"], args.seed, failures)
@@ -3133,6 +3680,7 @@ def main() -> int:
     sim["convert_launches"] = _convert_counts()
     sim["section4_launches"] = _section4_counts()
     sim["ids_launches"] = _ids_counts()
+    sim["bsa_launches"] = _bsa_count()
     server = phase("5 (query server)", phase_server, dev, ctx["index"],
                    ctx["traffic"], ctx["answers"], sim_cases, failures)
     server["faults"] = phase("5 (query server under scripted faults)",
@@ -3142,26 +3690,31 @@ def main() -> int:
     server["convert_launches"] = _convert_counts()
     server["section4_launches"] = _section4_counts()
     server["ids_launches"] = _ids_counts()
+    server["bsa_launches"] = _bsa_count()
     pairwise = phase("6 (two-by-two algebra at real scale)",
                      phase_pairwise, dev, ctx["index"], ctx["sets"],
                      args.seed, failures)
     pairwise["convert_launches"] = _convert_counts()
     pairwise["section4_launches"] = _section4_counts()
     pairwise["ids_launches"] = _ids_counts()
+    pairwise["bsa_launches"] = _bsa_count()
     keep = {}
     tensor = phase("7 (RoaringTensor at real scale)", phase_tensor, dev,
                    ctx["postings"], ctx["sets"], args.seed, failures, keep)
     tensor["section4_launches"] = _section4_counts()
     tensor["ids_launches"] = _ids_counts()
+    tensor["bsa_launches"] = _bsa_count()
     surface = phase("8 (the kernels.ops surface at real scale)",
                     phase_ops_surface, dev, ctx["index"], ctx["sets"],
                     failures)
     surface["ids_launches"] = _ids_counts()
+    surface["bsa_launches"] = _bsa_count()
     sharded = phase("9 (the sharded paths at real scale)", phase_sharded,
                     dev, ctx, sim_cases, keep, failures)
     sharded["pair_launches"] = _pair_counts()
     sharded["convert_launches"] = _convert_counts()
     sharded["section4_launches"] = _section4_counts()
+    sharded["bsa_launches"] = _bsa_count()
     ids_per_phase = [p["ids_launches"] for p in (main_path, sim, server,
                                                  pairwise, tensor, surface)]
     ids_per_phase.append({k: sharded["launches"][k] for k in IDS_STAGES})
@@ -3181,12 +3734,27 @@ def main() -> int:
         "6 / 7 / 8 / 9: " + "  ".join(
             f"{k} " + " / ".join(str(p.get(k)) for p in per_phase)
             for k in (*CONVERT_KERNELS, *SECTION4_KERNELS)))
+    bsa_per_phase = [p["bsa_launches"] for p in (
+        main_path, sim, server, pairwise, tensor, surface, sharded)]
+
+    # phase 10 runs alone on the card: release what phases 3-9 hold
+    del ctx, keep, sim_cases
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving = phase("10 (Gemma2-27B serving at full width and depth)",
+                    phase_serving, dev, args.seed, failures)
+    bsa_per_phase.append(serving["launches"])
+    log("decode_attention launches in phases 3 / 4 / 5 / 6 / 7 / 8 / 9 / "
+        "10: " + " / ".join(map(str, bsa_per_phase)))
+    if any(bsa_per_phase[:-1]):
+        failures.append(f"decode_attention launched outside phase 10: "
+                        f"{bsa_per_phase}")
 
     kernels = _kernel_line(main_path, sim, cases, topk_cases, max_err,
                            topk_err, pair_cases, pair_err, pairwise,
                            convert_cases, convert_err, tensor,
                            section4_cases, section4_err, surface, ids_cases,
-                           ids_err, sharded)
+                           ids_err, sharded, bsa_cases, bsa_err, serving)
     REPORT.parent.mkdir(exist_ok=True)
     REPORT.write_text(json.dumps(dict(
         card=card, builds=builds, kernel_cases=cases,
@@ -3194,7 +3762,8 @@ def main() -> int:
         similarity=sim, server=server, pair_cases=pair_cases,
         pairwise=pairwise, convert_cases=convert_cases, tensor=tensor,
         section4_cases=section4_cases, ops_surface=surface,
-        ids_cases=ids_cases, sharded=sharded,
+        ids_cases=ids_cases, sharded=sharded, bsa_cases=bsa_cases,
+        serving=serving, bsa_launches_per_phase=bsa_per_phase,
         kernels=kernels["kernels"],
         phases_s=phases, failures=failures,
         total_s=time.perf_counter() - t_all), indent=1, default=str))

@@ -17,6 +17,11 @@ A ``RoaringTensor``'s parts are its five component arrays: ``keys``,
 :func:`tensor_to_parts` reads them off any object with those attributes
 (torch tensors, or arrays numpy can read), so a JAX-package tensor
 converts the same way.
+
+A model's parameters come from the JAX package's pytree, read as numpy
+arrays: :func:`params_from_jax` unstacks the scanned pattern groups into the
+port's per-layer state dict (``models.transformer``), so both packages
+compute with the same weights.
 """
 
 from __future__ import annotations
@@ -95,3 +100,38 @@ def tensor_from_parts(keys, kinds, cards, aux, slab, *,
             for x in (keys, kinds, cards, aux))
     slab = torch.from_numpy(np.array(slab, np.uint16).view(np.int16)).to(dev)
     return RoaringTensor(*ints, slab)
+
+
+def _flatten(prefix: str, tree, out: dict) -> None:
+    for name, x in tree.items():
+        key = f"{prefix}.{name}" if prefix else name
+        if isinstance(x, dict):
+            _flatten(key, x, out)
+        else:
+            out[key] = torch.from_numpy(np.array(x, np.float32))
+
+
+def params_from_jax(tree) -> dict[str, torch.Tensor]:
+    """The port's ``Transformer`` state dict (float32 CPU tensors; loading
+    casts them to the model's dtypes) from a JAX parameter tree of numpy
+    arrays.  ``prefix_<i>`` is layer ``i``; pattern position ``pi`` of
+    repeat ``r`` (the leading axis of ``tree["pattern"][pi]``) is layer
+    ``n_prefix + r * len(pattern) + pi``."""
+    if "frontend_proj" in tree:
+        raise NotImplementedError("frontends are not ported yet (ROADMAP "
+                                  "Queue 1)")
+    out: dict[str, torch.Tensor] = {}
+    _flatten("", {k: tree[k] for k in ("embed", "lm_head", "final_norm")
+                  if k in tree}, out)
+    n_prefix = sum(k.startswith("prefix_") for k in tree)
+    for i in range(n_prefix):
+        _flatten(f"layers.{i}", tree[f"prefix_{i}"], out)
+    pattern = tree.get("pattern", ())
+    for pi, group in enumerate(pattern):
+        stacked: dict = {}
+        _flatten("", group, stacked)
+        for key, x in stacked.items():
+            for r in range(x.shape[0]):
+                out[f"layers.{n_prefix + r * len(pattern) + pi}.{key}"] = \
+                    x[r].clone()
+    return out

@@ -3,8 +3,9 @@
 ``backend``:
   * None   -- the CUDA kernel for CUDA tensors, the plain version for CPU
     tensors (the wrappers in ``segment_ops``, ``topk_ops``,
-    ``bitset_ops``, ``pair_ops``, ``array_ops``, ``bitset_convert`` and
-    ``harley_seal`` decide by the tensor's device);
+    ``bitset_ops``, ``pair_ops``, ``array_ops``, ``bitset_convert``,
+    ``harley_seal`` and ``block_sparse_attn`` decide by the tensor's
+    device);
   * "cuda" -- always the CUDA kernel; a CPU tensor raises;
   * "ref"  -- always the plain PyTorch version (``kernels/ref.py``).
 
@@ -19,6 +20,7 @@ import torch
 from repro_torch.kernels import array_ops as _array_ops
 from repro_torch.kernels import bitset_convert as _convert
 from repro_torch.kernels import bitset_ops as _bitset_ops
+from repro_torch.kernels import block_sparse_attn as _bsa
 from repro_torch.kernels import harley_seal as _hs
 from repro_torch.kernels import pair_ops as _pair_ops
 from repro_torch.kernels import ref
@@ -277,3 +279,21 @@ def array_intersect_card(a_vals, a_card, b_vals, b_card, *, backend=None):
     if _route(backend, a_vals):
         return ref.array_intersect_count(a_vals, a_card, b_vals, b_card)
     return _array_ops.array_intersect_card(a_vals, a_card, b_vals, b_card)
+
+
+def decode_attention(q, k, v, block_mask_words, kv_len, *,
+                     block_size: int = _bsa.DEFAULT_BLOCK_SIZE,
+                     sm_scale: float | None = None, softcap: float = 0.0,
+                     backend=None):
+    """Single-token decode attention over a KV cache whose visible blocks
+    are the set bits of a Roaring bitset container row: q (B, H, D), k and
+    v (B, Hkv, S, D), block_mask_words (B, ceil(S/bs/32)) int32, kv_len
+    (B,) -> (B, H, D) in q's dtype.  See ``block_sparse_attn``."""
+    kv_len = torch.as_tensor(kv_len, device=q.device).to(torch.int32)
+    if _route(backend, q):
+        return ref.block_sparse_attention_decode(
+            q, k, v, block_mask_words, kv_len, block_size=block_size,
+            sm_scale=sm_scale, softcap=softcap)
+    return _bsa.decode_attention(q, k, v, block_mask_words, kv_len,
+                                 block_size=block_size, sm_scale=sm_scale,
+                                 softcap=softcap)

@@ -5,8 +5,9 @@ segmented wide aggregation, for the similarity top-k (its score and select
 stages, and their labelled twins for one shard of the sharded engine), for
 the paper's section-4 primitives (the fused bitset op and count, the
 sorted-array intersection), for the two-by-two pair classes (bitset x
-bitset, array x bitset, array x array) and for the array <-> bitset
-conversions.  The CPU tests run them against the JAX reference, and
+bitset, array x bitset, array x array), for the array <-> bitset
+conversions and for the Roaring block-sparse decode attention.  The CPU
+tests run them against the JAX reference, and
 ``chip_smoke.py`` holds the CUDA kernel against them on the card.  On the
 card's main path only what the JAX package also leaves outside its kernels
 runs here: :func:`bitset_to_array` (plain jnp on every JAX backend), the
@@ -664,3 +665,59 @@ def counters_ge(planes_arr: torch.Tensor, t) -> torch.Tensor:
         gt = gt | (eq & ci & ~tmask)
         eq = eq & ~(ci ^ tmask)
     return gt | eq
+
+
+# ---------------------------------------------------------------------------
+# Roaring block-sparse decode attention (one new token over a KV cache)
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30         # the TPU kernel's mask value (finite: exp -> 0)
+
+
+def block_mask_bits(block_mask_words: torch.Tensor,
+                    n_blocks: int) -> torch.Tensor:
+    """(B, W) int32 words (bit-reinterpreted uint32) -> (B, n_blocks) bool,
+    block ``j`` in word ``j >> 5`` at bit ``j & 31``.  The arithmetic shift
+    of int32 leaves the low bit exact, so no widening is needed."""
+    blk = torch.arange(n_blocks, device=block_mask_words.device)
+    words = block_mask_words.to(torch.int32)[:, blk >> 5]
+    return ((words >> (blk & 31).to(torch.int32)) & 1).bool()
+
+
+def block_sparse_attention_decode(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor,
+                                  block_mask_words: torch.Tensor,
+                                  kv_len: torch.Tensor, block_size: int = 128,
+                                  sm_scale: float | None = None,
+                                  softcap: float = 0.0) -> torch.Tensor:
+    """Decode attention where key/value blocks are visible only if their bit
+    is set in a Roaring bitset container row.
+
+    q (B, H, D); k, v (B, Hkv, S, D); block_mask_words (B, ceil(S/bs/32))
+    int32; kv_len (B,).  Returns (B, H, D) in q's dtype.
+
+    This computes the JAX package's Pallas kernel's function
+    (``repro/kernels/block_sparse_attn.py``): q.k in float32, then
+    ``* sm_scale``, then the softcap, then -1e30 past ``kv_len`` and on
+    invisible blocks, an exact softmax with float32 weights times float32
+    values, and zeros where no position is visible.  The JAX package's
+    ``ref.block_sparse_attention_decode`` instead rounds the weights to the
+    cache dtype before the PV product, a different function in bfloat16
+    (ROADMAP Queue 3); the port follows the kernel."""
+    b, h, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = (d ** -0.5) if sm_scale is None else sm_scale
+    qg = q.reshape(b, hkv, g, d).float()
+    sc = torch.matmul(qg, k.float().transpose(-1, -2)) * scale  # (b,hkv,g,s)
+    if softcap:
+        sc = softcap * torch.tanh(sc / softcap)
+    pos = torch.arange(s, device=q.device)
+    visible = block_mask_bits(block_mask_words, -(-s // block_size))[
+        :, pos // block_size]
+    visible &= pos[None, :] < kv_len.to(pos.device)[:, None]
+    sc = torch.where(visible[:, None, None, :], sc, NEG_INF)
+    p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    out = torch.matmul(p, v.float()) / p.sum(dim=-1, keepdim=True)
+    out = torch.where(visible.any(dim=-1)[:, None, None, None], out, 0.0)
+    return out.reshape(b, h, d).to(q.dtype)

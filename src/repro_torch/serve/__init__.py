@@ -1,15 +1,22 @@
 """repro_torch.serve -- the continuous query server over the port's
-inverted index.
+inverted index, and the model serving engine.
 
 ``query_server`` is the fault-tolerant continuous batcher (coalesced
 multi-query launches, admission control, deadlines, kernel -> host
 degradation); ``faults`` its deterministic fault-injection harness;
-``telemetry`` the per-ticket and per-server records.
+``telemetry`` the per-ticket and per-server records.  ``engine`` is the
+batched prefill -> decode loop with Roaring block-visibility sets,
+``kv_cache`` its paged KV allocator and ``constrained`` its vocabulary
+constraints.
 """
 
+from repro_torch.serve.constrained import (VocabConstraint,
+                                           lexicon_constraint)
+from repro_torch.serve.engine import BlockPolicy, Engine
 from repro_torch.serve.faults import (AllocPressure, DispatchFault,
                                       FakeClock, FaultError, FaultInjector,
                                       SlabMismatch, SystemClock)
+from repro_torch.serve.kv_cache import PagedKVAllocator
 from repro_torch.serve.query_server import (DEADLINE, ERROR, INVALID, OK,
                                             OVERLOADED, Query, QueryServer,
                                             Ticket, TicketResult)
@@ -21,4 +28,6 @@ __all__ = [
     "FaultError", "DispatchFault", "SlabMismatch", "AllocPressure",
     "FaultInjector", "FakeClock", "SystemClock",
     "QueryTelemetry", "ServerStats",
+    "BlockPolicy", "Engine", "PagedKVAllocator", "VocabConstraint",
+    "lexicon_constraint",
 ]

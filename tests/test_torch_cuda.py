@@ -29,6 +29,12 @@ sharded similarity kernels (the score over ids and the labelled select)
 against their plain versions, pad slots, exclusion and k past the entry
 count included, a bad position trapping; and ``similar(mesh=)`` and the
 sharded aggregates over shards on the card against the CPU's answers.
+The Roaring block-sparse decode attention kernel against its plain version
+(float32 within 2e-5, bfloat16 within one bf16 ulp, rows with nothing
+visible exactly 0) at the live Gemma2 head shape and edge cases, ``ops``
+routing to it, its wrapper refusing bad inputs; a decode step of the
+reduced gemma2 model with the kernel against ``backend="ref"``, and the
+serving engine on the card against the CPU's tokens.
 
 These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip.  Run
 them on a GPU machine with ``PYTHONPATH=src python -m pytest -q -m cuda
@@ -1017,3 +1023,166 @@ def test_sharded_aggregates_on_the_card(cuda):
     assert got == aggregate.andnot_many(hb[0], hb[1:], device="cpu")
     assert segment_ops.launches > 0
     assert isinstance(arena, BitmapArena)
+
+
+# ---------------------------------------------------------------------------
+# Roaring block-sparse decode attention
+# ---------------------------------------------------------------------------
+
+def _bsa_case(seed, b, h, hkv, d, s, bs, dtype, kv_len=None, words=None,
+              density=0.25):
+    rng = np.random.default_rng(seed)
+    nblk = s // bs
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    k = (rng.standard_normal((b, hkv, s, d)) * 0.3).astype(np.float32)
+    v = rng.standard_normal((b, hkv, s, d)).astype(np.float32)
+    if words is None:
+        bits = rng.random((b, nblk)) < density
+        words = np.zeros((b, max(1, -(-nblk // 32))), np.uint32)
+        for i, j in zip(*np.nonzero(bits)):
+            words[i, j >> 5] |= np.uint32(1) << np.uint32(j & 31)
+    if kv_len is None:
+        kv_len = rng.integers(1, s + 1, b)
+    tdt = getattr(torch, dtype)
+    return (torch.from_numpy(q).to(tdt), torch.from_numpy(k).to(tdt),
+            torch.from_numpy(v).to(tdt),
+            torch.from_numpy(np.asarray(words, np.uint32).view(np.int32)),
+            torch.as_tensor(np.asarray(kv_len, np.int32)))
+
+
+def _within_one_bf16_ulp(got, want):
+    """Every element within one bfloat16 ulp of ``want``'s magnitude, and
+    exact zeros where ``want`` is 0."""
+    g, w = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126)))
+                     - 7)
+    return bool(((g - w).abs() <= ulp).all() and (g[w == 0] == 0).all())
+
+
+BSA_CASES = {
+    "live": (4, 32, 16, 128, 2048, 128, "bfloat16", 50.0, {}),
+    "f32": (2, 8, 2, 64, 1024, 128, "float32", 0.0, {}),
+    "g1": (2, 4, 4, 128, 512, 128, "float32", 5.0, {}),
+    "g8": (2, 16, 2, 64, 512, 128, "bfloat16", 0.0, {}),
+    "d256": (2, 4, 2, 256, 512, 128, "bfloat16", 50.0, {}),
+    "block256": (3, 16, 8, 64, 1024, 256, "float32", 0.0, {}),
+    "b64": (64, 4, 2, 64, 512, 64, "bfloat16", 0.0, {}),
+    "empty": (2, 4, 2, 64, 512, 128, "float32", 0.0,
+              dict(words=np.zeros((2, 1), np.uint32))),
+    "full": (2, 4, 2, 64, 512, 128, "bfloat16", 0.0,
+             dict(words=np.full((2, 1), 0xFFFFFFFF, np.uint32))),
+    "kv_edges": (4, 4, 2, 64, 512, 128, "float32", 0.0,
+                 dict(kv_len=[0, 1, 200, 512],
+                      words=np.full((4, 1), 0b1011, np.uint32))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BSA_CASES))
+def test_decode_attention_kernel_matches_plain(cuda, name):
+    from repro_torch.kernels import block_sparse_attn as bsa
+    b, h, hkv, d, s, bs, dtype, softcap, kw = BSA_CASES[name]
+    args = [x.to(cuda) for x in _bsa_case(7, b, h, hkv, d, s, bs, dtype,
+                                          **kw)]
+    bsa.reset_launches()
+    got = bsa.decode_attention(*args, block_size=bs, softcap=softcap)
+    torch.cuda.synchronize()
+    assert bsa.launches == 1
+    want = ref.block_sparse_attention_decode(*args, block_size=bs,
+                                             softcap=softcap)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+        assert bool((got[want == 0] == 0).all())
+    else:
+        assert _within_one_bf16_ulp(got, want)
+
+
+def test_decode_attention_ops_route(cuda):
+    from repro_torch.kernels import block_sparse_attn as bsa
+    args = [x.to(cuda) for x in _bsa_case(3, 2, 8, 2, 64, 512, 128,
+                                          "bfloat16")]
+    bsa.reset_launches()
+    a = ops.decode_attention(*args)
+    b = ops.decode_attention(*args, backend="cuda")
+    c = ops.decode_attention(*args, backend="ref")
+    assert bsa.launches == 2
+    assert torch.equal(a, b) and _within_one_bf16_ulp(a, c)
+
+
+def test_decode_attention_wrapper_raises_on_bad_input(cuda):
+    from repro_torch.kernels import block_sparse_attn as bsa
+    q, k, v, words, kvl = [x.to(cuda) for x in _bsa_case(
+        3, 2, 8, 2, 64, 512, 128, "bfloat16")]
+    with pytest.raises(TypeError):
+        bsa.decode_attention(q, k.float(), v, words, kvl)
+    with pytest.raises(TypeError):
+        bsa.decode_attention(q, k, v, words, kvl.long())
+    with pytest.raises(ValueError, match="head dim"):
+        bsa.decode_attention(q[..., :12].contiguous(),
+                             k[..., :12].contiguous(),
+                             v[..., :12].contiguous(), words, kvl)
+    with pytest.raises(ValueError, match="block_size"):
+        bsa.decode_attention(q, k, v, words, kvl, block_size=48)
+    with pytest.raises(ValueError, match="block_mask_words"):
+        bsa.decode_attention(q, k, v, words[:, :0], kvl)
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        bsa.decode_attention(q[:, :7].contiguous(), k, v, words, kvl)
+
+
+def _reduced_gemma(dtype, device, seed=0, **kw):
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models.transformer import Transformer
+    cfg = dataclasses.replace(configs.get_config("gemma2_27b", reduced=True),
+                              compute_dtype=dtype, **kw)
+    model = Transformer(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(seed))
+    return cfg, model.to(device)
+
+
+def test_model_decode_kernel_against_plain(cuda):
+    """A decode step of the reduced gemma2 model on the card launches the
+    kernel once a global layer; from the same state the plain version
+    (``backend="ref"``) gives logits within 4 bf16 ulps at |logit| < 8."""
+    from repro_torch.kernels import block_sparse_attn as bsa
+    cfg, model = _reduced_gemma("bfloat16", cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 193),
+                         generator=torch.Generator().manual_seed(1))
+    _, st = model.prefill(toks[:, :192].to(cuda), s_max=512)
+    words = torch.full((2, 1), 0b1011, dtype=torch.int32, device=cuda)
+    bsa.reset_launches()
+    a, _ = model.decode_step(st, toks[:, 192].to(cuda), words)
+    n_global = sum(m == "global" for m, _ in cfg.layer_kinds)
+    assert bsa.launches == n_global
+    b, _ = model.decode_step(st, toks[:, 192].to(cuda), words,
+                             backend="ref")
+    assert bsa.launches == n_global
+    torch.testing.assert_close(a.float(), b.float(), atol=0.125, rtol=0)
+
+
+def test_engine_on_the_card_matches_the_cpu(cuda):
+    """Greedy tokens of the reduced gemma2 model in float32 compute on the
+    card equal the CPU's, with 32-token blocks (the mask hides four of
+    the prompt's six blocks), a constraint and a pinned block; the kernel
+    launches once a global layer a new token; every page comes back."""
+    from repro_torch.core import RoaringBitmap
+    from repro_torch.kernels import block_sparse_attn as bsa
+    from repro_torch.serve import BlockPolicy, Engine, VocabConstraint
+    prompts = np.random.default_rng(5).integers(0, 512, (2, 192)).astype(
+        np.int32)
+    outs = {}
+    for dev in ("cpu", cuda):
+        cfg, model = _reduced_gemma("float32", dev, attn_block_size=32)
+        con = VocabConstraint(cfg.vocab, RoaringBitmap.from_values(
+            np.arange(100, 300)), device=dev)
+        eng = Engine(model, max_seq=512, constraint=con,
+                     policy=BlockPolicy(1, 1,
+                                        RoaringBitmap.from_values([0, 3])))
+        bsa.reset_launches()
+        outs[str(dev)] = eng.generate(prompts, 6)
+        n_global = sum(m == "global" for m, _ in cfg.layer_kinds)
+        assert bsa.launches == (0 if dev == "cpu" else 6 * n_global)
+        assert ((outs[str(dev)] >= 100) & (outs[str(dev)] < 300)).all()
+        eng.release_all()
+        assert eng.allocator.n_free == eng.allocator.n_pages
+    assert np.array_equal(outs["cpu"], outs[str(cuda)])

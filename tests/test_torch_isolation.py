@@ -43,13 +43,19 @@ def _imports(path):
 
 def test_package_files_exist():
     for name in ("segment_reduce", "similarity_topk", "pair_ops",
-                 "array_ops", "bitset_convert", "popcount", "bitset_ops"):
+                 "array_ops", "bitset_convert", "popcount", "bitset_ops",
+                 "block_sparse_attn"):
         assert (PKG / "kernels" / "csrc" / f"{name}.cu").is_file()
     for name in ("kernels/pair_ops.py", "kernels/array_ops.py",
                  "core/pairwise.py", "kernels/bitset_convert.py",
                  "kernels/harley_seal.py", "core/tensor.py",
                  "kernels/bitset_ops.py", "dist/__init__.py",
-                 "dist/ctx.py"):
+                 "dist/ctx.py", "kernels/block_sparse_attn.py",
+                 "core/builder.py", "models/config.py", "models/layers.py",
+                 "models/mlp.py", "models/transformer.py",
+                 "configs/__init__.py", "configs/gemma2_27b.py",
+                 "serve/engine.py", "serve/kv_cache.py",
+                 "serve/constrained.py", "launch/serve.py"):
         assert PKG / name in FILES
     assert len(FILES) > 10 and all(f.is_file() for f in FILES)
 
@@ -129,6 +135,16 @@ def test_defaults_raise_without_gpu():
         aggregate.or_many(bms, mesh=WideMesh(["cpu", "cpu"]))
     with pytest.raises(RuntimeError, match="CUDA"):
         SimilarityEngine(bms, mesh=WideMesh(["cpu", "cpu"]))
+    from repro_torch import configs
+    from repro_torch.core import complement
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve import PagedKVAllocator
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Transformer(configs.get_config("gemma2_27b", reduced=True))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagedKVAllocator(64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        complement(bms[0], 10)
 
 
 def test_kernel_route_does_not_fall_back_to_cpu():
@@ -280,7 +296,11 @@ def test_similarity_kernel_route_does_not_fall_back_to_cpu():
                                   "kernels/bitset_ops.py",
                                   "kernels/_build.py", "kernels/ops.py",
                                   "core/pairwise.py", "core/tensor.py",
-                                  "core/aggregate.py", "dist/ctx.py"])
+                                  "core/aggregate.py", "dist/ctx.py",
+                                  "kernels/block_sparse_attn.py",
+                                  "models/layers.py",
+                                  "models/transformer.py",
+                                  "serve/engine.py"])
 def test_every_except_reraises(name):
     tree = ast.parse((PKG / name).read_text())
     for node in ast.walk(tree):
