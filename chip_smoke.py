@@ -55,10 +55,15 @@ toolkit (``nvcc``).  Phases, each timed:
    metric, a tie group of 11 straddling the shards at k = 10, a zero
    query cardinality, pad slots reading an all-zero row, exclusion of an
    id on each shard, k in {1, 10, 100} and past every shard's valid
-   count.  Scores, ids and intersections must be bit-equal, and the
-   merged lists equal to the single-device score and select; times of
-   the score over all 1,024 slots and of the select over one shard's list
-   and over the merged S * k = 40 and 400 entries, beside ``torch.sort``.
+   count; then the select alone on its edge cases (the rounds after
+   every group above -2.0 is taken, every entry equal, one id on every
+   entry, -1.0 and -2.0 entries, k past n) and on lists of 5,000 and
+   65,536 entries (past one block of the kernel) at k from 1 to 513.
+   Scores, ids and intersections must be bit-equal, and the merged lists
+   equal to the single-device score and select; times of the score over
+   all 1,024 slots and of the select over one shard's list, over the
+   merged S * k = 40 and 400 entries and over 5,000 and 65,536 entries,
+   beside ``torch.sort``.
 2g. The Roaring block-sparse decode attention kernel against its plain
    version at Gemma2-27B's decode shape (B = 4, H = 32, Hkv = 16, D = 128,
    S = 8,192, block 128, bfloat16, softcap 50, the serving engine's mask:
@@ -66,11 +71,18 @@ toolkit (``nvcc``).  Phases, each timed:
    5,160, different on each row) and at edge cases: an empty mask; kv_len
    0, 1, mid-block and S; bits past kv_len; every bit set; softcap 0;
    float32; g in {1, 2, 8}; D in {64, 256}; block 256; B = 1 and 64.
+   The split count P (the grid blocks a row's keys are split over) is
+   the wrapper's (8 at the live shape, one wave of the card; 1 at B =
+   64) and forced to 1, 4, 9 (a wave and a tail), 16 and S / bs = 64 at
+   the live shape, each timed, and to 16 in float32.
    float32 within atol = rtol = 2e-5, bfloat16 within one bf16 ulp of
    each (sequence, head) row's largest output (the ratio printed), rows
-   with no visible position exactly 0.  Device times of the kernel and the
-   plain version, its bytes bound, and ``F.scaled_dot_product_attention``
-   over the expanded boolean mask at softcap 0 (live and full density).
+   with no visible position exactly 0; every case twice, bit for bit;
+   where P > 1, the kernel's partials against the plain split step and
+   the plain merge of them against the kernel's output.  Device times of
+   the kernel and the plain version, its bytes bound and the ratio, and
+   ``F.scaled_dot_product_attention`` over the expanded boolean mask at
+   softcap 0 (live and full density).
 3. Boolean queries at real scale: an ``InvertedIndex`` over 2^24 documents
    and 1,024 terms on a ``BitmapArena`` on the card (64 dense bitset
    terms, 960 sparse array terms), 64 queries of each boolean class run
@@ -1220,9 +1232,57 @@ def _shard_inputs(x, perm, s_count, shard, zero_row):
 
 
 def _ids_select_bound(m, k):
-    t_bytes = (12 * m + 12 * k) / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * k * m / INT_OPS_PER_S * 1e3     # two passes a round
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """Least time of the labelled select: its 12 bytes an entry read once
+    and 12 a result written, over the HBM rate.  The work an algorithm
+    chooses (k rounds, or a sort) is not the function's, so no operations
+    count here."""
+    return (12 * m + 12 * k) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def _ids_edge_cases(dev, seed):
+    """(name, score, inter, gidx, k) on the card: the exhaustion rounds
+    (the lowest id in a group taken earlier among them), every entry
+    equal, one id on every entry, -1.0 excluded entries, only -2.0
+    padding, k past the entry count, and lists past the 1,024 entries one
+    block sorts (5,000 and 65,536: a shard of many slots) at k from 1 past
+    512, where the kernel changes plan."""
+    rng = np.random.default_rng(seed + 41)
+
+    def t(x, dt):
+        return torch.tensor(np.asarray(x), dtype=dt, device=dev)
+
+    def case(name, score, inter, gidx, k):
+        return (name, t(score, torch.float32), t(inter, torch.int32),
+                t(gidx, torch.int32), k)
+
+    out = [case("exhaustion", [.5, .9, -2, .9, -1, .5], [5, 9, 77, 3, 1, 6],
+                [40, 7, 2, 7, 9, 3], 8),
+           case("exhaustion/lowest id taken", [.9, -2, .3, -2],
+                [4, 50, 8, 60], [1, 5, 3, 1], 5)]
+    m = 40
+    base = ((rng.integers(0, 4, m) / 4).astype(np.float32),
+            rng.integers(0, 30, m), rng.integers(0, 12, m))
+    for name in ("all equal", "one id", "excluded", "all padding"):
+        sc, it, gi = (x.copy() for x in base)
+        if name == "all equal":
+            sc[:], it[:], gi[:] = 0.5, 7, 3
+        elif name == "one id":
+            gi[:] = 4
+        elif name == "excluded":
+            sc[::3] = -1.0
+        else:
+            sc[:] = -2.0
+        for k in (1, 10, m + 7):
+            out.append(case(f"{name}/k={k}", sc, it, gi, k))
+    for n in (5000, 65536):
+        sc = (rng.integers(-8, 40, n) / 32).astype(np.float32)
+        sc = np.where(sc < -0.125, np.float32(-2.0),
+                      np.where(sc < 0, np.float32(-1.0), sc))
+        it = rng.integers(0, 1 << 20, n)
+        gi = rng.integers(0, n // 2, n)
+        for k in (1, 10, 100, 512, 513) + ((n + 7,) if n < 10_000 else ()):
+            out.append(case(f"n={n}/k={k}", sc, it, gi, k))
+    return out
 
 
 def _score_ids_bound(x, n_rows, slots):
@@ -1243,9 +1303,12 @@ def phase_ids_kernels(dev, seed, failures):
     slots reading an all-zero row, exclusion of an id on each shard, and
     k in {1, 10, 100, L + 7} (L + 7 past every shard's valid count).  The
     merged lists must also equal the single-device score and select of
-    all candidates.  Times: the score over all 1,024 slots, and the
-    select over one shard's list (S = 4, L = 256) and over the merged
-    S * k = 40 and 400 entries."""
+    all candidates.  Then the select's edge cases (``_ids_edge_cases``:
+    the exhaustion rounds, degenerate lists, lists of 5,000 and 65,536
+    entries, k past n), bit-equal.  Times: the score over all 1,024
+    slots, and the select over one shard's list (S = 4, L = 256), over
+    the merged S * k = 40 and 400 entries, and over 5,000 and 65,536
+    entries at k = 10."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import topk_ops as tk
     gen = torch.Generator(device=dev)
@@ -1334,6 +1397,21 @@ def phase_ids_kernels(dev, seed, failures):
                                 got[0].tolist() != list(range(9, 19)):
                             failures.append(f"tie group not cut at the "
                                             f"lowest ids: {case}")
+    # the select's edge cases, and lists past one block of the kernel
+    for name, sc, it, gi, k in _ids_edge_cases(dev, seed):
+        case = f"select_ids/edge/{name}"
+        want = ref.topk_select_ids(sc, it, gi, k)
+        cases.append(dict(case=case, equal=check(
+            case, tk.topk_merge(sc, it, gi, k), want)))
+        if name in ("n=5000/k=10", "n=65536/k=10"):
+            ms = _device_ms(lambda: tk.topk_merge(sc, it, gi, k), 50)
+            order = torch.argsort(gi, stable=True)
+            sc_o = sc[order]
+            lib_ms = _device_ms(lambda: torch.sort(
+                sc_o, descending=True, stable=True).indices[:k], 50)
+            cases[-1].update(ms=ms, library_ms=lib_ms)
+            log(f"  {case:40s} equal={cases[-1]['equal']} device: kernel "
+                f"{ms:.4f} ms  torch.sort {lib_ms:.4f} ms")
     # times: the score over all 1,024 slots (one shard of everything)
     args, _ = _shard_inputs(x, perm, 1, 0, zero_row)
     pos, col, starts, cards, gidx = args
@@ -2990,6 +3068,7 @@ def phase_sharded(dev, ctx, sim_cases, keep, failures):
 # ---------------------------------------------------------------------------
 
 LIVE = dict(b=4, h=32, hkv=16, d=128, s=8192, bs=128)   # Gemma2-27B decode
+BSA_KERNELS = ("decode_attention_split", "decode_attention_combine")
 PINNED = (2, 17, 29)          # phase 2g's pinned blocks on row 0
 
 
@@ -3075,43 +3154,64 @@ def _sdpa(q, k, v, words, kvl, bs, scale):
         scale=scale, enable_gqa=True)[:, :, 0, :]
 
 
+def _partials_err(part, plain):
+    """The largest |kernel - plain| over the split step's (m, l, acc)
+    rows, each over its row's largest magnitude (at least 1)."""
+    scale = plain.abs().amax(dim=-1, keepdim=True).clamp_min(1.0)
+    return float(((part - plain).abs() / scale).max())
+
+
 def phase_bsa_kernel(dev, seed, failures):
     """The Roaring block-sparse decode attention kernel against its plain
     version at Gemma2-27B's decode shape and at edge cases (see the module
     docstring, phase 2g).  float32: atol = rtol = 2e-5; bfloat16: within
     one bf16 ulp of each (sequence, head) row's largest output; rows with
-    no visible position exactly 0."""
+    no visible position exactly 0.  The split count P: the wrapper's at
+    the live shape, forced to 1, 4, 9, 16 and S / bs there (each timed),
+    1 at B = 64.  The
+    live case twice, bit for bit; where P > 1 the kernel's partials
+    against ``ref.decode_attention_partials`` (within 2e-5 of each row's
+    largest magnitude) and the plain merge of them against the kernel's
+    output (phase 2g's limits)."""
     from repro_torch.kernels import block_sparse_attn as bsa
     from repro_torch.kernels import ref
     gen = torch.Generator(dev).manual_seed(seed + 17)
     L = LIVE
     full_words = torch.full((L["b"], 2), -1, dtype=torch.int32, device=dev)
+    n_live_blocks = L["s"] // L["bs"]
     cases = [
-        ("live", dict(L), 50.0, {}),
-        ("live/softcap=0", dict(L), 0.0, {}),
-        ("live/softcap=0/full", dict(L), 0.0, dict(words=full_words)),
+        ("live", dict(L), 50.0, {}, None),
+        ("live/P=1", dict(L), 50.0, {}, 1),
+        ("live/P=4", dict(L), 50.0, {}, 4),
+        ("live/P=9", dict(L), 50.0, {}, 9),
+        ("live/P=16", dict(L), 50.0, {}, 16),
+        (f"live/P={n_live_blocks}", dict(L), 50.0, {}, n_live_blocks),
+        ("live/softcap=0", dict(L), 0.0, {}, None),
+        ("live/softcap=0/full", dict(L), 0.0, dict(words=full_words), None),
         ("empty mask", dict(L, s=2048), 50.0, dict(
-            words=torch.zeros((4, 1), dtype=torch.int32, device=dev))),
+            words=torch.zeros((4, 1), dtype=torch.int32, device=dev)), None),
         ("kv_len 0/1/mid/S, bits past kv_len", dict(L, s=2048), 50.0, dict(
             kv_len=[0, 1, 1000, 2048], words=torch.full(
-                (4, 1), -1, dtype=torch.int32, device=dev))),
+                (4, 1), -1, dtype=torch.int32, device=dev)), None),
         ("every bit set", dict(L, s=2048), 50.0, dict(words=torch.full(
-            (4, 1), -1, dtype=torch.int32, device=dev))),
-        ("float32", dict(L, s=2048), 50.0, dict(dtype=torch.float32)),
+            (4, 1), -1, dtype=torch.int32, device=dev)), None),
+        ("float32", dict(L, s=2048), 50.0, dict(dtype=torch.float32), None),
         ("float32/softcap=0", dict(L, s=2048), 0.0,
-         dict(dtype=torch.float32)),
-        ("g=1", dict(L, h=16, s=2048), 50.0, {}),
-        ("g=2 (live)", dict(L, s=2048), 50.0, {}),
-        ("g=8", dict(L, h=128, s=2048), 50.0, {}),
-        ("D=64", dict(L, d=64, s=2048), 50.0, {}),
-        ("D=256", dict(L, d=256, s=2048), 50.0, {}),
-        ("block 256", dict(L, s=2048, bs=256), 50.0, {}),
-        ("B=1", dict(L, b=1, s=2048), 50.0, {}),
+         dict(dtype=torch.float32), None),
+        ("float32/P=16", dict(L, s=2048), 50.0, dict(
+            dtype=torch.float32, kv_len=[0, 70, 1000, 2048]), 16),
+        ("g=1", dict(L, h=16, s=2048), 50.0, {}, None),
+        ("g=2 (live)", dict(L, s=2048), 50.0, {}, None),
+        ("g=8", dict(L, h=128, s=2048), 50.0, {}, None),
+        ("D=64", dict(L, d=64, s=2048), 50.0, {}, None),
+        ("D=256", dict(L, d=256, s=2048), 50.0, {}, None),
+        ("block 256", dict(L, s=2048, bs=256), 50.0, {}, None),
+        ("B=1", dict(L, b=1, s=2048), 50.0, {}, None),
         ("B=64", dict(L, b=64, s=2048), 50.0, dict(
-            kv_len=[1 + 31 * i for i in range(64)])),
+            kv_len=[1 + 31 * i for i in range(64)]), None),
     ]
     rows, max_err = [], 0.0
-    for name, shape, softcap, kw in cases:
+    for name, shape, softcap, kw, splits in cases:
         bs = shape["bs"]
         dims = {k_: v_ for k_, v_ in shape.items() if k_ != "bs"}
         q, k, v, words, kvl = _bsa_inputs(dev, gen, bs=bs, **dims, **kw)
@@ -3119,14 +3219,20 @@ def phase_bsa_kernel(dev, seed, failures):
 
         def kern():
             return bsa.decode_attention(q, k, v, words, kvl, block_size=bs,
-                                        softcap=softcap)
+                                        softcap=softcap, splits=splits)
 
         def plain():
             return ref.block_sparse_attention_decode(
                 q, k, v, words, kvl, block_size=bs, softcap=softcap)
 
-        got, want = kern(), plain()
+        got, again = kern(), kern()
+        part = bsa.decode_attention_with_partials(
+            q, k, v, words, kvl, block_size=bs, softcap=softcap,
+            splits=splits)[1]
+        want = plain()
         torch.cuda.synchronize()
+        n_split = 1 if part is None else part.shape[2]
+        same_bits = torch.equal(got, again)
         err = float((got.float() - want.float()).abs().max())
         max_err = max(max_err, err)
         empty = ~_visible_positions(words, kvl, k.shape[2], bs).any(dim=-1)
@@ -3137,19 +3243,31 @@ def phase_bsa_kernel(dev, seed, failures):
         else:
             ulps = _bf16_ulp_ratio(got, want)
             ok = ulps <= 1.0
-        ok = ok and zeros_ok
+        part_err = comb_ok = None
+        if part is not None:
+            part_err = _partials_err(part, ref.decode_attention_partials(
+                q, k, v, words, kvl, n_split, block_size=bs,
+                softcap=softcap))
+            comb = ref.combine_partials(part).to(q.dtype)
+            comb_ok = (bool(torch.allclose(comb, got, atol=2e-5, rtol=2e-5))
+                       if q.dtype == torch.float32
+                       else _bf16_ulp_ratio(comb, got) <= 1.0)
+            ok = ok and part_err <= 2e-5 and comb_ok
+        ok = ok and zeros_ok and same_bits
         (bound_ms, bound_by), nbytes, n_vis = _bsa_bound(q, k, words, kvl,
                                                          bs)
         row = dict(case=name, dtype=str(q.dtype), shape=list(k.shape),
-                   block_size=bs, softcap=softcap, equal=ok,
-                   max_abs_err=err, max_row_ulps=ulps,
-                   empty_rows=int(empty.sum()),
+                   block_size=bs, softcap=softcap, splits=n_split,
+                   equal=ok, max_abs_err=err, max_row_ulps=ulps,
+                   same_bits=same_bits, partials_err=part_err,
+                   combine_ok=comb_ok, empty_rows=int(empty.sum()),
                    visible_positions=n_vis, bytes=nbytes,
                    bound_ms=bound_ms, bound_by=bound_by)
         if name.startswith("live"):
             row.update(ms=_device_ms(kern, 50), plain_ms=_device_ms(plain, 5),
                        event_ms=_time_ms(kern, 50)[1],
                        event_plain_ms=_time_ms(plain, 5)[1])
+            row["bound_ratio"] = row["ms"] / bound_ms
             if softcap == 0.0:
                 # CUDA events: the profiler window misses the attention
                 # kernels PyTorch launches with cuLaunchKernel
@@ -3158,21 +3276,25 @@ def phase_bsa_kernel(dev, seed, failures):
                 row.update(library_ms=lib_ms,
                            library_max_abs_err=float(
                                (lib.float() - want.float()).abs().max()))
-            log(f"  {name:36s} ok={ok} err {err:.3g} ({ulps} row ulps); "
-                f"device: kernel "
-                f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms"
+            log(f"  {name:36s} P={n_split} ok={ok} err {err:.3g} ({ulps} "
+                f"row ulps), partials {part_err}; device: kernel "
+                f"{row['ms']:.4f} ms ({row['bound_ratio']:.2f}x bound)  "
+                f"plain {row['plain_ms']:.4f} ms"
                 + (f"  sdpa {row['library_ms']:.4f} ms"
                    if "library_ms" in row else "")
                 + f"; bound {bound_ms:.4f} ms ({bound_by}, {nbytes} bytes,"
                 f" {n_vis} visible positions)")
         else:
-            log(f"  {name:36s} ok={ok} err {err:.3g} ({ulps} row ulps), "
-                f"{n_vis} visible positions, {int(empty.sum())} empty rows")
+            log(f"  {name:36s} P={n_split} ok={ok} err {err:.3g} ({ulps} "
+                f"row ulps), partials {part_err}, {n_vis} visible "
+                f"positions, {int(empty.sum())} empty rows")
         rows.append(row)
         if not ok:
             failures.append(f"decode_attention kernel != plain: {name} "
-                            f"(max_abs_err {err}, zero rows ok {zeros_ok})")
-        del q, k, v, got, want
+                            f"(max_abs_err {err}, zero rows ok {zeros_ok}, "
+                            f"same bits {same_bits}, partials {part_err}, "
+                            f"merge {comb_ok})")
+        del q, k, v, got, again, part, want
         torch.cuda.empty_cache()
     bf16_ulps = max(r["max_row_ulps"] for r in rows
                     if r["max_row_ulps"] is not None)
@@ -3393,13 +3515,12 @@ def phase_serving(dev, seed, failures):
             logits, st = model.decode_step(st, tok, words)
             tok = torch.argmax(logits, dim=-1).to(torch.int32)
 
-    tr = _traced("decode window", window, dev,
-                 names=("decode_attention_kernel",))
+    tr = _traced("decode window", window, dev, names=BSA_KERNELS)
     # the step's weight products run cuBLASLt kernels launched with
     # cuLaunchKernel: busy and idle come from every device event in the range
     busy = tr["span_busy_us"]
-    share = (tr["name_us"]["decode_attention_kernel"] / busy
-             if busy else None)
+    bsa_us = sum(tr["name_us"][n] for n in BSA_KERNELS)
+    share = bsa_us / busy if busy else None
     idle = 1.0 - busy / tr["wall_us"] if tr["complete"] else None
     bound_ms, step_bytes = _decode_bound(model, [SERVE_PROMPT + 1] * SERVE_B,
                                          words)
@@ -3408,7 +3529,7 @@ def phase_serving(dev, seed, failures):
         f"to runtime launches, {tr['cu_launches']} cuLaunchKernel-level "
         f"calls), idle "
         + (f"{idle:.4f}" if idle is not None else "not measured")
-        + f", decode_attention {tr['name_us']['decode_attention_kernel']:.1f}"
+        + f", decode_attention {bsa_us:.1f}"
         f" us ({share:.4f} of busy); step bound {bound_ms:.2f} ms "
         f"({step_bytes} bytes); top {tr['span_top_kernels'][:6]}")
     del state, p_logits, ref_logits, ker_logits, fault_logits
@@ -3453,7 +3574,8 @@ def phase_serving(dev, seed, failures):
             steps=4, wall_us=tr["wall_us"], busy_us=busy,
             runtime_matched_busy_us=tr["busy_us"],
             cu_launches=tr["cu_launches"], idle_share=idle,
-            decode_attention_us=tr["name_us"]["decode_attention_kernel"],
+            decode_attention_us=bsa_us, decode_attention_split_us=tr[
+                "name_us"]["decode_attention_split"],
             decode_attention_share=share,
             top_kernels=tr["span_top_kernels"]),
         step_bound_ms=bound_ms, step_bound_bytes=step_bytes,

@@ -63,15 +63,31 @@
 // rows like row_col against the query block.  Bound by bytes, as the score
 // kernel: 8192 bytes a row read once, plus 8 bytes of pos and row_col.
 //
-// Select over ids.  k rounds over M labelled entries: a block-wide max of
-// the key (score descending, global id ascending) gives the round's score m
-// and id w; then every entry with id w and score m is masked to -2.0
-// together, and the round's inter is the largest of theirs (at least 0).
-// The rounds keep going once every entry is masked, as the JAX package's
-// do, so a shard with fewer than k valid slots gives the same k-list.  One
-// block of 1024 threads, two block reductions a round; bound by their
-// latency, as the select kernel (12 bytes an entry read, 12 a result
-// written).  The same kernel merges the gathered S*k lists.
+// Select over ids.  The function: (id, score) groups of M labelled
+// entries in order of score descending, then id ascending, each group
+// once with the largest inter of its entries (at least 0), while groups
+// with score > -2.0 remain; every later round of the k repeats (lowest id
+// among entries with score >= -2.0, -2.0, the largest inter of that id's
+// entries there).  That is what k rounds of masking give (the JAX
+// package's rounds, kept going once every entry is masked, so a shard
+// with fewer than k valid slots gives the same k-list); scores are never
+// NaN.  The same kernel merges the gathered S*k lists.
+//
+// What bounds it: latency, not bytes (12 bytes an entry read, 12 a result
+// written), so the design is one pass with few barriers.  Up to 1,024
+// entries, one block sorts (key, inter) pairs in shared memory with a bitonic network
+// (log2(M)^2 / 2 barrier steps), where the 64-bit key orders score
+// descending, then id ascending, and inter descending breaks ties, so a
+// group's first entry holds its largest inter.  A ballot prefix over the
+// group starts gives each group its rank, and a group above -2.0 whose
+// rank is below k writes its slot: no k-round loop, no scratch.  One
+// block-wide minimum of (id, then largest inter) over the entries with
+// score >= -2.0 fills the remaining rounds.  Past 1,024 entries each
+// chunk of 1,024 keeps its k best groups and its minimum (a group's rank
+// within a chunk is never worse than its global rank, so the k best
+// survive with their largest inters), level after level, and one block
+// ranks the rest: exact for any M and k <= 512; above that, one block
+// sorts all M in device memory.
 //
 // Interface: plain C functions, bound from Python with ctypes
 // (repro_torch/kernels/topk_ops.py).  Each launches on the given stream,
@@ -278,102 +294,283 @@ score_ids_kernel(const uint4* __restrict__ table, int64_t n_table,
   }
 }
 
-// (score, id) key that wins: the larger score, then the lower id; `have`
-// is 0 for a thread that saw no entry, which always loses.
-__device__ __forceinline__ void better_key(float& v, int& g, int& have,
-                                           float ov, int og, int ohave) {
-  if (ohave && (!have || ov > v || (ov == v && og < g))) {
-    v = ov;
-    g = og;
-    have = 1;
+// The labelled select sorts (key, inter) pairs, where the 64-bit key is
+// the score mapped to an unsigned order, descending, above the global id,
+// ascending: one compare gives (score descending, id ascending), and inter
+// descending breaks ties, so each (id, score) group's first entry carries
+// the group's largest inter.  A sentinel key (all ones) sorts last.
+using u64 = unsigned long long;
+constexpr int kIdsChunk = 1024;        // entries a block sorts in shared
+constexpr u64 kNoKey = ~0ull;
+
+__device__ __forceinline__ u64 make_key(float score, int gid) {
+  const unsigned u = __float_as_uint(score);
+  const unsigned asc = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<u64>(~asc) << 32)
+         | (static_cast<unsigned>(gid) ^ 0x80000000u);
+}
+__device__ __forceinline__ float key_score(u64 key) {
+  const unsigned asc = ~static_cast<unsigned>(key >> 32);
+  return __uint_as_float((asc & 0x80000000u) ? (asc & 0x7fffffffu) : ~asc);
+}
+__device__ __forceinline__ int key_gid(u64 key) {
+  return static_cast<int>(static_cast<unsigned>(key) ^ 0x80000000u);
+}
+// (lowest id, then largest inter) as one minimum
+__device__ __forceinline__ u64 make_pack(int gid, int inter) {
+  return (static_cast<u64>(static_cast<unsigned>(gid) ^ 0x80000000u) << 32)
+         | ~(static_cast<unsigned>(inter) ^ 0x80000000u);
+}
+__device__ __forceinline__ int pack_gid(u64 pk) {
+  return static_cast<int>(static_cast<unsigned>(pk >> 32) ^ 0x80000000u);
+}
+__device__ __forceinline__ int pack_inter(u64 pk) {
+  return static_cast<int>(~static_cast<unsigned>(pk) ^ 0x80000000u);
+}
+__device__ __forceinline__ u64 umin64(u64 a, u64 b) { return a < b ? a : b; }
+
+__device__ u64 block_min(u64 x, u64* s_red) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x = umin64(x, __shfl_xor_sync(0xffffffffu, x, off));
+  if (lane == 0) s_red[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    x = lane < static_cast<int>(blockDim.x >> 5) ? s_red[lane] : kNoKey;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      x = umin64(x, __shfl_xor_sync(0xffffffffu, x, off));
+    if (lane == 0) s_red[32] = x;
+  }
+  __syncthreads();
+  return s_red[32];
+}
+
+struct SelectIds {
+  const float* score;                  // raw entries (first level)
+  const int32_t* inter;
+  const int32_t* gidx;
+  const u64* in_key;                   // or keyed entries (later levels)
+  const int32_t* in_inter;
+  int64_t n;                           // entries at this level
+  int chunk;                           // entries a block takes
+  int pow2;                            // sort size: a power of two >= chunk
+  u64* buf_key;                        // global sort buffer, or null for
+  int32_t* buf_inter;                  //   shared memory
+  int k;                               // groups to emit (a chunk's, or k)
+  int final_level;                     // 1: write the k-list
+  u64* out_key;                        // a chunk's k groups, in order
+  int32_t* out_inter;
+  u64* packs;                          // per first-level chunk: (min id,
+  int n_packs;                         //   max inter) over scores >= -2
+  int32_t* out_gidx;
+  float* out_score;
+  int32_t* out_top_inter;
+};
+
+// One pass of the labelled select over a chunk of entries: load, bitonic
+// sort, then the rank of each group is the count of group starts before
+// it (a ballot prefix).  A chunk of a first or middle level emits its k
+// best groups (with their largest inter) and, on the first level, its
+// (min id, max inter) pack; the final level writes the k-list: groups
+// with score > -2.0 at their rank, then the exhaustion rounds.
+template <bool kRaw>
+__global__ void __launch_bounds__(kSelectThreads)
+select_ids_kernel(SelectIds a) {
+  extern __shared__ __align__(16) unsigned char ids_smem[];
+  __shared__ u64 s_red[33];
+  __shared__ int s_cnt[32], s_cnt_a[32], s_off[32], s_tot[2];
+  u64* key = a.buf_key ? a.buf_key : reinterpret_cast<u64*>(ids_smem);
+  int32_t* itr = a.buf_inter ? a.buf_inter
+      : reinterpret_cast<int32_t*>(ids_smem + sizeof(u64) * a.pow2);
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int64_t lo = static_cast<int64_t>(blockIdx.x) * a.chunk;
+  const int64_t left = a.n - lo;
+  const int cnt = left < a.chunk ? static_cast<int>(left) : a.chunk;
+
+  u64 pack = kNoKey;
+  for (int i = tid; i < a.pow2; i += nthreads) {
+    u64 kk = kNoKey;
+    int it = INT_MIN;
+    if (i < cnt) {
+      if (kRaw) {
+        const float sc = a.score[lo + i];
+        const int g = a.gidx[lo + i];
+        it = a.inter[lo + i];
+        kk = make_key(sc, g);
+        if (sc >= -2.0f) pack = umin64(pack, make_pack(g, it));
+      } else {
+        kk = a.in_key[lo + i];
+        it = a.in_inter[lo + i];
+      }
+    }
+    key[i] = kk;
+    itr[i] = it;
+  }
+  if (a.final_level && a.n_packs > 0) {
+    for (int i = tid; i < a.n_packs; i += nthreads)
+      pack = umin64(pack, a.packs[i]);
+  }
+  if (kRaw || a.final_level) {
+    pack = block_min(pack, s_red);
+    if (!a.final_level && tid == 0) a.packs[blockIdx.x] = pack;
+  }
+  __syncthreads();
+
+  // bitonic sort, ascending by (key, then inter descending)
+  for (int size = 2; size <= a.pow2; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = tid; t < a.pow2 / 2; t += nthreads) {
+        const int i = 2 * t - (t & (stride - 1));
+        const int j = i + stride;
+        const u64 ki = key[i], kj = key[j];
+        const int ii = itr[i], ij = itr[j];
+        const bool up = (i & size) == 0;
+        const bool swap = up ? (kj < ki || (kj == ki && ij > ii))
+                             : (ki < kj || (ki == kj && ii > ij));
+        if (swap) {
+          key[i] = kj;
+          key[j] = ki;
+          itr[i] = ij;
+          itr[j] = ii;
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  // the exhaustion rounds' (id, inter): the pack over scores >= -2.0, or,
+  // when no score reaches -2.0, the top group's (the first round takes it
+  // at its score and every later round at -2.0)
+  const bool none = pack == kNoKey;
+  const int w_gid = none ? key_gid(key[0]) : pack_gid(pack);
+  const int w_inter = max(0, none ? itr[0] : pack_inter(pack));
+
+  // group starts in sorted order; rank = group starts before
+  int base = 0, n_above = 0;           // groups so far; of them score > -2
+  for (int r0 = 0; r0 < a.pow2; r0 += nthreads) {
+    const int i = r0 + tid;
+    u64 ki = kNoKey;
+    bool start = false;
+    if (i < a.pow2) {
+      ki = key[i];
+      start = ki != kNoKey && (i == 0 || key[i - 1] != ki);
+    }
+    const bool above = start && key_score(ki) > -2.0f;
+    const unsigned bal = __ballot_sync(0xffffffffu, start);
+    const unsigned bal_a = __ballot_sync(0xffffffffu, above);
+    if (lane == 0) {
+      s_cnt[warp] = __popc(bal);
+      s_cnt_a[warp] = __popc(bal_a);
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const int nw = nthreads >> 5;
+      const int c = lane < nw ? s_cnt[lane] : 0;
+      int ca = lane < nw ? s_cnt_a[lane] : 0;
+      int x = c;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, x, off);
+        if (lane >= off) x += y;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        ca += __shfl_xor_sync(0xffffffffu, ca, off);
+      s_off[lane] = x - c;
+      if (lane == 31) s_tot[0] = x;
+      if (lane == 0) s_tot[1] = ca;
+    }
+    __syncthreads();
+    const int rank = base + s_off[warp]
+                     + __popc(bal & ((1u << lane) - 1u));
+    if (start && rank < a.k) {
+      if (!a.final_level) {
+        a.out_key[static_cast<int64_t>(blockIdx.x) * a.k + rank] = ki;
+        a.out_inter[static_cast<int64_t>(blockIdx.x) * a.k + rank] = itr[i];
+      } else if (above || (none && rank == 0)) {
+        a.out_gidx[rank] = key_gid(ki);
+        a.out_score[rank] = key_score(ki);
+        a.out_top_inter[rank] = max(0, itr[i]);
+      }
+    }
+    base += s_tot[0];
+    n_above += s_tot[1];
+    if (base >= a.k) break;            // uniform: every later rank is >= k
+  }
+  if (!a.final_level) {                // a chunk with fewer than k groups
+    for (int r = base + tid; r < a.k; r += nthreads) {
+      a.out_key[static_cast<int64_t>(blockIdx.x) * a.k + r] = kNoKey;
+      a.out_inter[static_cast<int64_t>(blockIdx.x) * a.k + r] = INT_MIN;
+    }
+    return;
+  }
+  // the rounds after every group above -2.0 is taken (n_above is exact
+  // when it is below k: those groups sort first)
+  for (int r = (none ? 1 : n_above) + tid; r < a.k; r += nthreads) {
+    a.out_gidx[r] = w_gid;
+    a.out_score[r] = -2.0f;
+    a.out_top_inter[r] = w_inter;
   }
 }
 
-__global__ void __launch_bounds__(kSelectThreads)
-select_ids_kernel(const float* __restrict__ score,
-                  const int32_t* __restrict__ inter,
-                  const int32_t* __restrict__ gidx, int n, int k,
-                  float* work, int32_t* __restrict__ out_gidx,
-                  float* __restrict__ out_score,
-                  int32_t* __restrict__ out_inter) {
-  __shared__ float s_val[kSelectThreads / 32];
-  __shared__ int s_gid[kSelectThreads / 32];
-  __shared__ int s_have[kSelectThreads / 32];
-  __shared__ int s_max[kSelectThreads / 32];
-  __shared__ float win_val;
-  __shared__ int win_gid;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int i = threadIdx.x; i < n; i += kSelectThreads) work[i] = score[i];
-  __syncthreads();
-  for (int round = 0; round < k; ++round) {
-    float v = 0.0f;
-    int g = 0;
-    int have = 0;
-    for (int i = threadIdx.x; i < n; i += kSelectThreads) {
-      better_key(v, g, have, work[i], gidx[i], 1);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, v, off);
-      const int og = __shfl_down_sync(0xffffffffu, g, off);
-      const int oh = __shfl_down_sync(0xffffffffu, have, off);
-      better_key(v, g, have, ov, og, oh);
-    }
-    if (lane == 0) {
-      s_val[warp] = v;
-      s_gid[warp] = g;
-      s_have[warp] = have;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      v = s_val[lane];
-      g = s_gid[lane];
-      have = s_have[lane];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, v, off);
-        const int og = __shfl_down_sync(0xffffffffu, g, off);
-        const int oh = __shfl_down_sync(0xffffffffu, have, off);
-        better_key(v, g, have, ov, og, oh);
-      }
-      if (lane == 0) {
-        win_val = v;
-        win_gid = g;
-      }
-    }
-    __syncthreads();
-    const float m = win_val;
-    const int w = win_gid;
-    // every entry of the winning (id, score) masks in this round; each
-    // entry belongs to one thread, so the read and the write do not race
-    int best = 0;
-    for (int i = threadIdx.x; i < n; i += kSelectThreads) {
-      if (gidx[i] == w && work[i] == m) {
-        best = max(best, inter[i]);
-        work[i] = -2.0f;
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      best = max(best, __shfl_down_sync(0xffffffffu, best, off));
-    }
-    if (lane == 0) s_max[warp] = best;
-    __syncthreads();
-    if (warp == 0) {
-      best = s_max[lane];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        best = max(best, __shfl_down_sync(0xffffffffu, best, off));
-      }
-      if (lane == 0) {
-        out_gidx[round] = w;
-        out_score[round] = m;
-        out_inter[round] = best;
-      }
-    }
-    __syncthreads();
+int pow2_at_least(int64_t n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+int select_threads(int pow2) {
+  const int t = pow2 / 2;
+  return t < 32 ? 32 : (t > kSelectThreads ? kSelectThreads : t);
+}
+
+// How the labelled select runs: one block sorting in shared memory up to
+// kIdsChunk entries; past that, levels of kIdsChunk-entry chunks when k <=
+// kIdsChunk / 2 (each level keeps every chunk's k best groups, so the
+// entries at least halve) and a final block over what remains; else one
+// block sorting all entries in `work`.  The scratch is the first level's
+// packs and two levels of chunk lists, or the global sort buffer.
+struct IdsPlan {
+  int64_t n_chunks;        // first-level chunks (0: one block)
+  int64_t list;            // entries of a level's chunk lists
+  int64_t global_sort;     // entries of the global sort buffer, or 0
+};
+
+IdsPlan ids_plan(int64_t n, int k) {
+  IdsPlan plan{0, 0, 0};
+  if (n <= kIdsChunk) return plan;
+  if (k <= kIdsChunk / 2) {
+    plan.n_chunks = (n + kIdsChunk - 1) / kIdsChunk;
+    plan.list = plan.n_chunks * k;
+  } else {
+    plan.global_sort = pow2_at_least(n);
   }
+  return plan;
+}
+
+size_t ids_workspace(const IdsPlan& plan) {
+  return sizeof(u64) * plan.n_chunks
+         + (sizeof(u64) + sizeof(int32_t)) * (2 * plan.list
+                                              + plan.global_sort);
+}
+
+cudaError_t launch_ids(bool raw, const SelectIds& a, int blocks,
+                       cudaStream_t stream) {
+  const bool shared = a.buf_key == nullptr;       // at most 12 KB
+  const size_t smem = shared ? (sizeof(u64) + sizeof(int32_t)) * a.pow2 : 0;
+  const int threads = shared ? select_threads(a.pow2) : kSelectThreads;
+  if (raw) {
+    select_ids_kernel<true><<<blocks, threads, smem, stream>>>(a);
+  } else {
+    select_ids_kernel<false><<<blocks, threads, smem, stream>>>(a);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -453,22 +650,85 @@ extern "C" int similarity_score_ids_cuda(
   return static_cast<int>(cudaGetLastError());
 }
 
-// score (n,) float32, inter and gidx (n,) int32 in; work (n,) float32
-// scratch; out_gidx (k,) int32, out_score (k,) float32, out_inter (k,)
-// int32 out.  n >= 1, k >= 1 (k may exceed n).  Returns the cudaError_t of
-// the launch.
+// Bytes of scratch `similarity_select_ids_cuda` needs for n entries and k.
+extern "C" size_t similarity_select_ids_workspace(int64_t n, int k) {
+  return n < 1 || k < 1 ? 0 : ids_workspace(ids_plan(n, k));
+}
+
+// score (n,) float32, inter and gidx (n,) int32 in; work: the scratch
+// `similarity_select_ids_workspace` sizes (null when it is 0); out_gidx
+// (k,) int32, out_score (k,) float32, out_inter (k,) int32 out.  n >= 1,
+// k >= 1 (k may exceed n).  One launch up to 1,024 entries; past that, a
+// launch a level for k <= 512, else one block sorting in `work` (see
+// IdsPlan).  Returns the cudaError_t of the launches.
 extern "C" int similarity_select_ids_cuda(const void* score,
                                           const void* inter,
-                                          const void* gidx, int n, int k,
+                                          const void* gidx, int64_t n, int k,
                                           void* work, void* out_gidx,
                                           void* out_score, void* out_inter,
                                           void* stream) {
   if (n < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
-  select_ids_kernel<<<1, kSelectThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(score), static_cast<const int32_t*>(inter),
-      static_cast<const int32_t*>(gidx), n, k, static_cast<float*>(work),
-      static_cast<int32_t*>(out_gidx), static_cast<float*>(out_score),
-      static_cast<int32_t*>(out_inter));
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const IdsPlan plan = ids_plan(n, k);
+  if (ids_workspace(plan) > 0 && work == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  SelectIds a{};
+  a.score = static_cast<const float*>(score);
+  a.inter = static_cast<const int32_t*>(inter);
+  a.gidx = static_cast<const int32_t*>(gidx);
+  a.n = n;
+  a.k = k;
+  a.out_gidx = static_cast<int32_t*>(out_gidx);
+  a.out_score = static_cast<float*>(out_score);
+  a.out_top_inter = static_cast<int32_t*>(out_inter);
+  a.final_level = 1;
+  if (plan.n_chunks == 0) {            // one block: shared, or global sort
+    a.chunk = static_cast<int>(n);
+    a.pow2 = pow2_at_least(n);
+    if (plan.global_sort > 0) {
+      a.buf_key = static_cast<u64*>(work);
+      a.buf_inter = reinterpret_cast<int32_t*>(a.buf_key + a.pow2);
+    }
+    return static_cast<int>(launch_ids(true, a, 1, st));
+  }
+  u64* packs = static_cast<u64*>(work);
+  u64* keys[2] = {packs + plan.n_chunks, packs + plan.n_chunks + plan.list};
+  int32_t* inters[2] = {reinterpret_cast<int32_t*>(keys[1] + plan.list),
+                        nullptr};
+  inters[1] = inters[0] + plan.list;
+  // first level: raw entries -> every chunk's k best groups and its pack
+  SelectIds lvl = a;
+  lvl.final_level = 0;
+  lvl.chunk = kIdsChunk;
+  lvl.pow2 = kIdsChunk;
+  lvl.packs = packs;
+  lvl.out_key = keys[0];
+  lvl.out_inter = inters[0];
+  cudaError_t err = launch_ids(true, lvl, static_cast<int>(plan.n_chunks),
+                               st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int64_t m = plan.list;
+  int cur = 0;
+  while (m > kIdsChunk) {              // k <= kIdsChunk / 2: m halves
+    const int64_t blocks = (m + kIdsChunk - 1) / kIdsChunk;
+    SelectIds mid = lvl;
+    mid.score = nullptr;
+    mid.in_key = keys[cur];
+    mid.in_inter = inters[cur];
+    mid.n = m;
+    mid.out_key = keys[1 - cur];
+    mid.out_inter = inters[1 - cur];
+    err = launch_ids(false, mid, static_cast<int>(blocks), st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    m = blocks * k;
+    cur = 1 - cur;
+  }
+  a.in_key = keys[cur];
+  a.in_inter = inters[cur];
+  a.n = m;
+  a.chunk = static_cast<int>(m);
+  a.pow2 = pow2_at_least(m);
+  a.packs = packs;
+  a.n_packs = static_cast<int>(plan.n_chunks);
+  return static_cast<int>(launch_ids(false, a, 1, st));
 }

@@ -721,3 +721,70 @@ def block_sparse_attention_decode(q: torch.Tensor, k: torch.Tensor,
     out = torch.matmul(p, v.float()) / p.sum(dim=-1, keepdim=True)
     out = torch.where(visible.any(dim=-1)[:, None, None, None], out, 0.0)
     return out.reshape(b, h, d).to(q.dtype)
+
+
+SPLIT_CHUNK = 8         # keys a unit of the decode kernel's split
+
+
+def decode_attention_partials(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor,
+                              block_mask_words: torch.Tensor,
+                              kv_len: torch.Tensor, splits: int, *,
+                              block_size: int = 128,
+                              sm_scale: float | None = None,
+                              softcap: float = 0.0) -> torch.Tensor:
+    """The split step of the decode kernel (flash-decoding), plainly: each
+    (sequence, KV head) row's visible keys below kv_len, in ascending
+    order, are cut into chunks of ``SPLIT_CHUNK`` keys per visible block
+    (the last visible block's chunks only up to kv_len), and the N chunks
+    into ``splits`` = P ranges [p N / P, (p + 1) N / P).  Range p's
+    partial over its keys is m = the largest score (-1e30 if it has
+    none), l = sum e^(s - m) and acc = sum e^(s - m) v, with the scores of
+    :func:`block_sparse_attention_decode`.  Returns (B, H, P, D + 2)
+    float32, each row (m, l, acc).  Used by no main path: it is what the
+    kernel's partials are checked against."""
+    b, h, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = (d ** -0.5) if sm_scale is None else sm_scale
+    nblk = s // block_size
+    qg = q.reshape(b, hkv, g, d).float()
+    sc = torch.matmul(qg, k.float().transpose(-1, -2)) * scale  # (b,hkv,g,s)
+    if softcap:
+        sc = softcap * torch.tanh(sc / softcap)
+    kvl = kv_len.to(device=q.device, dtype=torch.int64)
+    blk = torch.arange(nblk, device=q.device)
+    vis_blk = block_mask_bits(block_mask_words, nblk) \
+        & (blk[None, :] * block_size < kvl[:, None])
+    pos = torch.arange(s, device=q.device)
+    valid = vis_blk[:, pos // block_size] & (pos[None, :] < kvl[:, None])
+    rank = torch.cumsum(vis_blk.to(torch.int64), dim=1) - 1
+    unit = (rank[:, pos // block_size] * (block_size // SPLIT_CHUNK)
+            + (pos % block_size)[None, :] // SPLIT_CHUNK)         # (b, s)
+    n_units = torch.where(valid, unit + 1, 0).amax(dim=1)          # (b,)
+    lo = n_units[:, None] * torch.arange(1, splits + 1,
+                                         device=q.device) // splits
+    owner = torch.searchsorted(lo, unit.contiguous(), right=True)  # (b, s)
+    vf = v.float()
+    parts = []
+    for p in range(splits):
+        sel = (valid & (owner == p))[:, None, None, :]
+        sp = torch.where(sel, sc, NEG_INF)
+        m = sp.amax(dim=-1, keepdim=True)
+        e = torch.exp(sp - m) * sel
+        acc = torch.matmul(e, vf)                                # (b,hkv,g,d)
+        parts.append(torch.cat([m, e.sum(dim=-1, keepdim=True), acc], -1))
+    return torch.stack(parts, dim=3).reshape(b, h, splits, d + 2)
+
+
+def combine_partials(partials: torch.Tensor) -> torch.Tensor:
+    """The merge step, plainly: (B, H, P, D + 2) float32 partials (m, l,
+    acc) -> (B, H, D) float32, m = max_p m_p, l = sum_p l_p e^(m_p - m),
+    out = sum_p acc_p e^(m_p - m) / l, or 0 where l = 0."""
+    m = partials[..., 0]
+    w = torch.exp(m - m.amax(dim=-1, keepdim=True))              # (b, h, p)
+    lsum = (partials[..., 1] * w).sum(dim=-1)
+    acc = (partials[..., 2:] * w[..., None]).sum(dim=-2)
+    return torch.where(lsum[..., None] > 0,
+                       acc / torch.where(lsum > 0, lsum, 1.0)[..., None],
+                       0.0)

@@ -23,8 +23,9 @@ The sharded engine (``SimilarityEngine(mesh=)``) gives each shard a subset
 of the candidates, each slot labelled with its global candidate id:
 :func:`similarity_score_ids` scores a shard's slots, reading their rows from
 the shard's own slab through local positions, and :func:`topk_merge`
-selects over labelled entries with ties to the lowest global id -- once
-per shard, and once over the gathered S*k lists.  :func:`similarity_topk_ids`
+selects over labelled entries with ties to the lowest global id (one
+sort-and-rank pass, not k rounds) -- once per shard, and once over the
+gathered S*k lists.  :func:`similarity_topk_ids`
 runs the first two in turn.  The JAX package's ``similarity_topk_ids``
 selects inside its score call; here the two are separate launches.
 
@@ -60,8 +61,8 @@ def reset_launches() -> None:
 
 @functools.cache
 def _kernels():
-    """The four C entry points (score, select, score_ids, select_ids),
-    built and bound on first use."""
+    """The C entry points (score, select, score_ids, select_ids and the
+    labelled select's scratch size), built and bound on first use."""
     lib = _build.library("similarity_topk")
     p, i, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     score = lib.similarity_score_cuda
@@ -75,9 +76,12 @@ def _kernels():
                           p]
     score_ids.restype = ctypes.c_int
     select_ids = lib.similarity_select_ids_cuda
-    select_ids.argtypes = [p, p, p, i, i, p, p, p, p, p]
+    select_ids.argtypes = [p, p, p, n, i, p, p, p, p, p]
     select_ids.restype = ctypes.c_int
-    return score, select, score_ids, select_ids
+    lib.similarity_select_ids_workspace.argtypes = [n, i]
+    lib.similarity_select_ids_workspace.restype = ctypes.c_size_t
+    return (score, select, score_ids, select_ids,
+            lib.similarity_select_ids_workspace)
 
 
 def _check(name: str, t: torch.Tensor, device: torch.device,
@@ -255,13 +259,15 @@ def similarity_score_ids(table: torch.Tensor, pos: torch.Tensor,
 def topk_merge(score: torch.Tensor, inter: torch.Tensor, gidx: torch.Tensor,
                k: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The labelled select: (gidx (k,) int32, score (k,) float32, inter
-    (k,) int32) over M >= 1 entries labelled with global ids, k rounds of
-    (max score, lowest id among the maxes), entries of the winning id and
-    score masked together; any k >= 1 (see ``ref.topk_select_ids``)."""
+    (k,) int32) over 1 <= M <= 2^30 entries labelled with global ids:
+    the (id, score) groups by score descending, then id ascending, each
+    with its largest inter, then the exhaustion rounds; any k >= 1 (see
+    ``ref.topk_select_ids``).  On CUDA one pass (one launch up to 1,024
+    entries, a launch a level past that), with scratch only past 1,024."""
     n = score.shape[0]
-    if k < 1 or n < 1:
-        raise ValueError(f"need k >= 1 and >= 1 entry, got k={k}, {n} "
-                         f"entries")
+    if k < 1 or not 1 <= n <= 2**30:
+        raise ValueError(f"need k >= 1 and 1 to 2^30 entries, got k={k}, "
+                         f"{n} entries")
     if score.device.type == "cpu":
         return ref.topk_select_ids(score, inter, gidx, k)
     dev = score.device
@@ -272,16 +278,19 @@ def topk_merge(score: torch.Tensor, inter: torch.Tensor, gidx: torch.Tensor,
     _check("gidx", gidx, dev, torch.int32, 1)
     if inter.shape[0] != n or gidx.shape[0] != n:
         raise ValueError("score, inter and gidx differ in length")
-    work = torch.empty(n, dtype=torch.float32, device=dev)
+    kernels = _kernels()
+    fn, scratch = kernels[3], kernels[4](n, k)
+    work = (torch.empty(scratch, dtype=torch.uint8, device=dev)
+            if scratch else None)
     out_gidx = torch.empty(k, dtype=torch.int32, device=dev)
     top = torch.empty(k, dtype=torch.float32, device=dev)
     top_inter = torch.empty(k, dtype=torch.int32, device=dev)
-    fn = _kernels()[3]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(score.data_ptr(), inter.data_ptr(), gidx.data_ptr(), n, k,
-                 work.data_ptr(), out_gidx.data_ptr(), top.data_ptr(),
-                 top_inter.data_ptr(), stream)
+                 None if work is None else work.data_ptr(),
+                 out_gidx.data_ptr(), top.data_ptr(), top_inter.data_ptr(),
+                 stream)
     if err != 0:
         raise RuntimeError(f"similarity_select_ids_cuda failed: cudaError "
                            f"{err}")

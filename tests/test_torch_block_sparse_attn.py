@@ -10,6 +10,10 @@ and at most one bf16 ulp of an output below 2 (0.0078).  bfloat16 3e-2
 against ``ref`` (the JAX test's): ``ref`` rounds the softmax weights to
 bf16 before the PV product, a different function (ROADMAP Queue 3), which
 ``test_bf16_split_follows_the_kernel`` pins.
+
+The kernel's two steps, plainly (``ref.decode_attention_partials`` then
+``ref.combine_partials``), against the Pallas kernel at the same
+tolerances, for P in {1, 2, 3, the block count}.
 """
 
 import jax.numpy as jnp
@@ -190,3 +194,62 @@ def test_kernel_route_does_not_fall_back_to_cpu():
     kvl = torch.zeros(2, dtype=torch.int32, **meta)
     with pytest.raises(ValueError, match="CUDA"):
         bsa.decode_attention(q, k, k, words, kvl)
+
+
+def _split_case(rng, dtype):
+    """Three rows over 8 blocks of 64: kv_len mid-block under a random
+    mask, nothing visible (mask 0), and one visible block cut at kv_len =
+    80 (two chunks of 8 keys, so P = 3 and 8 have empty ranges) with a bit
+    set past kv_len."""
+    case = make_case(rng, 3, 8, 2, 32, 512, 64, 0.5)
+    case[3][1] = 0
+    case[3][2] = 0b1000_0010
+    case[4][:] = [300, 512, 80]
+    return case
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_then_combine_matches_pallas(rng, splits, dtype):
+    """The plain split step (``ref.decode_attention_partials``) then the
+    plain merge (``ref.combine_partials``) against the Pallas kernel in
+    interpret mode, for P in {1, 2, 3, the block count}: float32 within
+    2e-5, bfloat16 within 1e-2 (the module's tolerances); empty ranges
+    hold (m, l) = (-1e30, 0) and the row with nothing visible is 0."""
+    case = _split_case(rng, dtype)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    args = _torch(case, tdt)
+    part = ref.decode_attention_partials(*args, splits, block_size=64,
+                                         softcap=20.0)
+    assert part.shape == (3, 8, splits, 34) and part.dtype == torch.float32
+    got = ref.combine_partials(part).to(tdt)
+    want = pallas_decode(*_jax(case, jdt), block_size=64, softcap=20.0,
+                         interpret=True)
+    tol = 2e-5 if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+    assert not _np(got)[1].any()
+    empty = part[..., 1] == 0
+    assert bool((part[..., 0][empty] == ref.NEG_INF).all())
+    assert bool(empty[1].all())
+    if splits >= 3:
+        assert bool(empty[2].any()) and not bool(empty[2].all())
+    out, kept = bsa.decode_attention_with_partials(
+        *args, block_size=64, softcap=20.0, splits=splits)
+    assert torch.equal(out, got)
+    assert (kept is None) == (splits == 1)
+
+
+def test_split_ranges_cover_each_visible_key_once(rng):
+    """Every visible key below kv_len lands in exactly one range: the P
+    partials' weights, rescaled to the row's max, sum to the one-range
+    sum whatever P."""
+    case = _split_case(rng, "float32")
+    args = _torch(case, torch.float32)
+    sums = []
+    for splits in (1, 2, 3, 5, 8, 13):
+        part = ref.decode_attention_partials(*args, splits, block_size=64)
+        m = part[..., 0]
+        w = torch.exp(m - m.amax(dim=-1, keepdim=True))
+        sums.append((part[..., 1] * w).sum(dim=-1))
+    for s_ in sums[1:]:
+        torch.testing.assert_close(s_, sums[0], atol=1e-6, rtol=1e-6)

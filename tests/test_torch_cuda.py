@@ -29,10 +29,14 @@ sharded similarity kernels (the score over ids and the labelled select)
 against their plain versions, pad slots, exclusion and k past the entry
 count included, a bad position trapping; and ``similar(mesh=)`` and the
 sharded aggregates over shards on the card against the CPU's answers.
+The labelled select past the 1,024 entries one block sorts (levels of
+chunks, one block in device memory) and its exhaustion rounds.
 The Roaring block-sparse decode attention kernel against its plain version
 (float32 within 2e-5, bfloat16 within one bf16 ulp, rows with nothing
 visible exactly 0) at the live Gemma2 head shape and edge cases, ``ops``
-routing to it, its wrapper refusing bad inputs; a decode step of the
+routing to it, its wrapper refusing bad inputs (misaligned k or v rows
+among them), the split count forced to 1, 2, 3 and the block count with
+the kernel's partials against the plain split step; a decode step of the
 reduced gemma2 model with the kernel against ``backend="ref"``, and the
 serving engine on the card against the CPU's tokens.
 
@@ -947,6 +951,39 @@ def test_select_ids_kernel_matches_plain(cuda, n, k):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
+@pytest.mark.parametrize("n,k", [(1025, 10), (5000, 1), (5000, 600),
+                                 (5000, 5007), (65536, 10), (65536, 513)])
+def test_select_ids_kernel_past_one_block(cuda, n, k):
+    """Past the 1,024 entries one block sorts: levels of chunks (k <=
+    512), one block sorting in device memory (k > 512); ties,
+    repeated ids, -1.0 and -2.0 entries, k past n; bit-equal."""
+    rng = np.random.default_rng(n + k)
+    score = (rng.integers(-8, 40, n) / 32).astype(np.float32)
+    score = np.where(score < -0.125, np.float32(-2.0),
+                     np.where(score < 0, np.float32(-1.0), score))
+    gidx = rng.integers(0, max(2, n // 2), n).astype(np.int32)
+    inter = rng.integers(0, 1 << 20, n).astype(np.int32)
+    s, i, g = _dev(score, cuda), _dev(inter, cuda), _dev(gidx, cuda)
+    want = ref.topk_select_ids(s, i, g, k)
+    got = topk_ops.topk_merge(s, i, g, k)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_select_ids_kernel_exhaustion_rounds(cuda):
+    """The rounds after every group above -2.0 is taken repeat the lowest
+    id at -2.0 with the largest inter of its entries."""
+    args = [torch.tensor(x, device=cuda) for x in (
+        [.5, .9, -2, .9, -1, .5], [5, 9, 77, 3, 1, 6], [40, 7, 2, 7, 9, 3])]
+    args[1:] = [a.to(torch.int32) for a in args[1:]]
+    idx, sco, itr = topk_ops.topk_merge(*args, 8)
+    assert idx.tolist() == [7, 3, 40, 9, 2, 2, 2, 2]
+    assert itr.tolist() == [9, 6, 5, 1, 77, 77, 77, 77]
+    assert sco.cpu().tolist() == [np.float32(x) for x in
+                                  (.9, .5, .5, -1, -2, -2, -2, -2)]
+
+
 def test_ids_kernels_fault_on_a_bad_position(cuda):
     """A position past the table traps in the score-over-ids kernel (child
     process: a trap leaves the CUDA context unusable)."""
@@ -1127,6 +1164,55 @@ def test_decode_attention_wrapper_raises_on_bad_input(cuda):
         bsa.decode_attention(q, k, v, words[:, :0], kvl)
     with pytest.raises(ValueError, match="multiple of Hkv"):
         bsa.decode_attention(q[:, :7].contiguous(), k, v, words, kvl)
+
+
+def test_decode_attention_rejects_misaligned_rows(cuda):
+    """k and v are read with 16-byte cp.async: a contiguous view that
+    starts 2 bytes into its storage raises."""
+    from repro_torch.kernels import block_sparse_attn as bsa
+    q, k, v, words, kvl = [x.to(cuda) for x in _bsa_case(
+        3, 2, 8, 2, 64, 512, 128, "bfloat16")]
+    for name in ("k", "v"):
+        flat = torch.empty(v.numel() + 1, dtype=v.dtype, device=cuda)
+        bad = flat[1:].view(v.shape)
+        bad.copy_(v)
+        assert bad.is_contiguous() and bad.data_ptr() % 16
+        kv = (bad, v) if name == "k" else (k, bad)
+        with pytest.raises(ValueError, match=f"{name} must be 16-byte"):
+            bsa.decode_attention(q, *kv, words, kvl)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 16])
+def test_decode_attention_splits_and_partials(cuda, splits):
+    """P forced to 1, 2, 3 and the block count: the output against the
+    plain version, the kernel's partials against
+    ``ref.decode_attention_partials`` (each (m, l, acc) row within 2e-5 of
+    its largest magnitude, at least 1), the plain merge of the kernel's
+    partials against its own merge, and the same bits on a second run."""
+    from repro_torch.kernels import block_sparse_attn as bsa
+    args = [x.to(cuda) for x in _bsa_case(
+        5, 4, 8, 2, 128, 2048, 128, "float32",
+        kv_len=[0, 70, 1000, 2048])]
+    out, part = bsa.decode_attention_with_partials(*args, block_size=128,
+                                                   softcap=30.0,
+                                                   splits=splits)
+    again = bsa.decode_attention(*args, block_size=128, softcap=30.0,
+                                 splits=splits)
+    torch.cuda.synchronize()
+    want = ref.block_sparse_attention_decode(*args, block_size=128,
+                                             softcap=30.0)
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+    assert torch.equal(out, again)
+    assert bool((out[0] == 0).all())
+    if splits == 1:
+        assert part is None
+        return
+    plain = ref.decode_attention_partials(*args, splits, block_size=128,
+                                          softcap=30.0)
+    scale = plain.abs().amax(dim=-1, keepdim=True).clamp_min(1.0)
+    assert float(((part - plain).abs() / scale).max()) <= 2e-5
+    torch.testing.assert_close(ref.combine_partials(part), out, atol=2e-5,
+                               rtol=2e-5)
 
 
 def _reduced_gemma(dtype, device, seed=0, **kw):

@@ -10,8 +10,11 @@ Inputs: ragged slots (empty ones among them) whose rows the port reads
 through positions into a larger table (the JAX side gets the gathered
 rows), exact ties between slots, every metric, ``n_valid`` below the slot
 count with all-zero pad rows, an excluded global id inside and outside the
-slots, k from 1 past the slot count.  The tolerance is 0: ids and
-intersections equal, float32 scores bit-identical.
+slots, k from 1 past the slot count.  The labelled select alone: its
+exhaustion rounds (the lowest id in a group taken earlier among them),
+degenerate lists, and 5,000 entries, past the 1,024 one block of the
+CUDA kernel sorts.  The tolerance is 0: ids and intersections equal,
+float32 scores bit-identical.
 """
 
 import jax.numpy as jnp
@@ -200,6 +203,86 @@ def test_topk_merge_tie_rule():
         assert np.array_equal(sco.numpy(),
                               np.array([.9, .9, .9, .5], np.float32))
         assert itr.tolist() == [9, 9, 9, 5]
+
+
+def _merge_both(score, inter, gidx, k):
+    """The JAX oracle and Pallas (interpret) answers, required equal, and
+    the port's plain version and ``ops.topk_merge`` held to them."""
+    score = np.asarray(score, np.float32)
+    inter = np.asarray(inter, np.int32)
+    gidx = np.asarray(gidx, np.int32)
+    want = {be: jops.topk_merge(jnp.asarray(score), jnp.asarray(inter),
+                                jnp.asarray(gidx), k, backend=be)
+            for be in ("ref", "pallas")}
+    _same(want["ref"], want["pallas"])
+    _same(_np(tref.topk_select_ids(_t(score), _t(inter), _t(gidx), k)),
+          want["ref"])
+    _same(_np(tops.topk_merge(_t(score), _t(inter), _t(gidx), k)),
+          want["ref"])
+    return tuple(np.asarray(w) for w in want["ref"])
+
+
+def test_topk_merge_exhaustion_rounds():
+    """Once every group above -2.0 is taken, each later round repeats the
+    lowest id over every entry at or above -2.0, at -2.0, with the largest
+    inter of that id's entries, taken ones included."""
+    idx, sco, itr = _merge_both([.5, .9, -2, .9, -1, .5],
+                                [5, 9, 77, 3, 1, 6], [40, 7, 2, 7, 9, 3], 8)
+    assert idx.tolist() == [7, 3, 40, 9, 2, 2, 2, 2]
+    assert itr.tolist() == [9, 6, 5, 1, 77, 77, 77, 77]
+    assert np.array_equal(sco, np.array([.9, .5, .5, -1, -2, -2, -2, -2],
+                                        np.float32))
+    # the lowest id belongs to a group taken in the first round
+    idx, sco, itr = _merge_both([.9, -2, .3, -2], [4, 50, 8, 60],
+                                [1, 5, 3, 1], 5)
+    assert idx.tolist() == [1, 3, 1, 1, 1]
+    assert itr.tolist() == [4, 8, 60, 60, 60]
+    assert sco.tolist() == [np.float32(.9), np.float32(.3), -2, -2, -2]
+
+
+@pytest.mark.parametrize("case", ["all equal", "one id", "excluded",
+                                  "all padding"])
+def test_topk_merge_degenerate_lists(case):
+    """Every entry equal (one group), one id on every entry (a group per
+    score), -1.0 excluded entries among valid ones, and only -2.0
+    padding; k past the entry count."""
+    rng = np.random.default_rng(11)
+    m = 12
+    score = (rng.integers(0, 4, m) / 4).astype(np.float32)
+    gidx = rng.integers(0, 6, m).astype(np.int32)
+    inter = rng.integers(0, 30, m).astype(np.int32)
+    if case == "all equal":
+        score[:], gidx[:], inter[:] = 0.5, 3, 7
+    elif case == "one id":
+        gidx[:] = 4
+    elif case == "excluded":
+        score[::3] = -1.0
+    else:
+        score[:] = -2.0
+    for k in (1, 5, m + 3):
+        _merge_both(score, inter, gidx, k)
+
+
+@pytest.mark.parametrize("k", [1, 10, 40])
+def test_topk_merge_past_the_kernel_chunk(k):
+    """5,000 entries, past the 1,024 entries one block of the kernel sorts
+    in shared memory: ties on a coarse score grid, repeated ids, -1.0 and
+    -2.0 entries."""
+    rng = np.random.default_rng(12 + k)
+    m = 5000
+    score = (rng.integers(-8, 40, m) / 32).astype(np.float32)
+    score = np.where(score < -0.125, np.float32(-2.0),
+                     np.where(score < 0, np.float32(-1.0), score))
+    gidx = rng.integers(0, 3000, m).astype(np.int32)
+    inter = rng.integers(0, 1000, m).astype(np.int32)
+    score_j, inter_j, gidx_j = (jnp.asarray(score), jnp.asarray(inter),
+                                jnp.asarray(gidx))
+    want = jops.topk_merge(score_j, inter_j, gidx_j, k, backend="ref")
+    if k <= 10:                  # Pallas interpret unrolls k rounds
+        _same(jops.topk_merge(score_j, inter_j, gidx_j, k,
+                              backend="pallas"), want)
+    _same(_np(tref.topk_select_ids(_t(score), _t(inter), _t(gidx), k)),
+          want)
 
 
 def test_cpu_wrappers_take_plain_versions_and_count_nothing():
