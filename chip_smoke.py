@@ -19,18 +19,24 @@ toolkit (``nvcc``).  Phases, each timed:
    at the maximum of 256 rows, duplicates that tie), every metric,
    ``exclude`` in {-1, 0, T-1}, a zero query cardinality and cards near
    2^31-1 for the score; k in {1, 10, 100, T} for the select, also on
-   scores with many ties.  Indices, intersections and float32 score bits
-   must be equal; the select must also equal ``torch.sort`` (stable),
-   whose time is printed beside the kernel's.
+   scores with many ties and on T = 5,000, and the select's off-contract
+   cases (the repeat rounds after every entry above -2.0 is taken, every
+   score below -2.0, -0.0 beside +0.0, a third of 1,024 at or below -2.0).
+   Indices, intersections and float32 score bits must be equal, with one
+   launch a call; in contract the select must also equal ``torch.sort``
+   (stable), whose time is printed beside the kernel's and beside row 8's
+   bitonic select fed the indices as ids (the design not taken).
 2c. The pair kernels against their plain versions: the bitset pair op
    and count, the array x bitset probe, the array pair masks and count,
    at the path's shapes (M = 256, one merge of two terms; M = 8,192, a
-   count batch) and at edge cases (M = 0 and 1; cards 0, 1 and 4,096;
-   identical, disjoint and half-overlapping arrays; the values 0 and
-   65535; op ids -1 and 7; all-zero and all-ones words).  Words, masks
-   and counts must be bit-equal; device times of kernel, plain version
-   and library yardstick (``torch.searchsorted`` for the array kernels)
-   and the bound are printed.
+   count batch; M = 1,027 with cards 0, 1, 64 and 4,096 mixed on each
+   side, not a multiple of the count kernel's 4 rows a block) and at edge
+   cases (M = 0 and 1; cards 0, 1 and 4,096; identical, disjoint and
+   half-overlapping arrays; the values 0 and 65535; op ids -1 and 7;
+   all-zero and all-ones words).  Words, masks and counts must be
+   bit-equal; device times of kernel, plain version and library yardstick
+   (``torch.searchsorted`` for the array kernels) and the bound are
+   printed.
 2d. The conversion kernels (array_to_bitset, bitset_set_many) and the
    popcount against their plain versions: at the path's shapes (M =
    245,760 array rows of about 64 values each, one ``to_words`` of the
@@ -43,8 +49,9 @@ toolkit (``nvcc``).  Phases, each timed:
 2e. The section-4 kernels (the fused bitset op and count for each of and,
    or, xor and andnot; the A-side sorted-array intersection) against
    their plain versions on phase 2c's inputs (M = 256 and 8,192) and edge
-   cases (M = 0, 1 and 8: cards 0 and 4,096, one side empty, a card above
-   4,096, a negative card, an A value of 65537 beside B's padding).
+   cases (M = 1,027 with mixed cards, as in 2c; M = 0, 1 and 8: cards 0
+   and 4,096, one side empty, a card above 4,096, a negative card, an A
+   value of 65537 beside B's padding).
    Words, masks and counts must be bit-equal; device times of kernel,
    plain version and library yardstick (``torch.searchsorted`` for the
    intersection) and the bound are printed.
@@ -57,8 +64,9 @@ toolkit (``nvcc``).  Phases, each timed:
    id on each shard, k in {1, 10, 100} and past every shard's valid
    count; then the select alone on its edge cases (the rounds after
    every group above -2.0 is taken, every entry equal, one id on every
-   entry, -1.0 and -2.0 entries, k past n) and on lists of 5,000 and
-   65,536 entries (past one block of the kernel) at k from 1 to 513.
+   entry, -1.0 and -2.0 entries, k past n, -0.0 beside +0.0) and on
+   lists of 5,000 and 65,536 entries (past one block of the kernel) at k
+   from 1 to 513.
    Scores, ids and intersections must be bit-equal, and the merged lists
    equal to the single-device score and select; times of the score over
    all 1,024 slots and of the select over one shard's list, over the
@@ -338,7 +346,8 @@ _CU_LAUNCHES = ("cuLaunchKernel", "cuMemcpy", "cuMemset")   # below them
 # "reduce_kernel" would also match
 SEGMENT_KERNELS = (r"\(anonymous namespace\)::reduce_kernel<",
                    r"\(anonymous namespace\)::threshold_kernel<")
-_PAIR_KERNEL_NAMES = ("pair_kernel", "probe_kernel")
+_PAIR_KERNEL_NAMES = ("pair_kernel", "probe_kernel",
+                      "intersect_card_kernel")
 
 
 def _trace_window(fn, dev, names=(), lead=64):
@@ -602,9 +611,37 @@ def _score_bound(x):
 
 
 def _select_bound(t, k):
-    t_bytes = (8 * t + 12 * k) / HBM_BYTES_PER_S * 1e3
-    t_ops = k * t / INT_OPS_PER_S * 1e3        # k rounds of T compares
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """Least time of the select: its 8 bytes a candidate read once and 12
+    a result written, over the HBM rate.  The work an algorithm chooses (k
+    rounds, a sort, a rank by counting) is not the function's, so no
+    operations count here, as for the labelled select."""
+    return (8 * t + 12 * k) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def _select_edges(dev, rng, t):
+    """(name, score, inter, k, in contract) for the select: the repeat
+    rounds after every entry above -2.0 is taken ([0.5, -3.0, 0.25] and
+    [0.5, -2.0, 0.1] at k = 3), every score below -2.0, -0.0 beside +0.0,
+    k = T on these, and T entries of which a third lie at or below -2.0 at
+    k = T (the rounds past them at scale).  In contract (every score above
+    -2.0) the select must also give torch.sort's stable order."""
+    def case(name, score, k, ok=False):
+        sc = torch.tensor(np.asarray(score, np.float32), device=dev)
+        it = torch.from_numpy(rng.integers(0, 1 << 20, sc.numel()).astype(
+            np.int32)).to(dev)
+        return (name, sc, it, k, ok)
+
+    big = (rng.integers(-8, 40, t) / 32).astype(np.float32)
+    big = np.where(big < -0.125, np.float32(-2.0),
+                   np.where(big < 0, np.float32(-2.5), big))
+    return [case("repeat/[.5,-3,.25]", [.5, -3, .25], 3),
+            case("repeat/[.5,-2,.1]", [.5, -2, .1], 3),
+            case("all below -2", [-3, -5, -2.5, -7], 4),
+            case("all below -2/k=1", [-3, -5, -2.5, -7], 1),
+            case("-2.0 and below", [-3, -2, -5, -2], 4),
+            case("signed zeros", [0.0, -0.0, 0.0, 0.5, -0.0], 5, True),
+            case(f"a third <= -2/T={t}/k=T", big, t),
+            case(f"a third <= -2/T={t}/k=10", big, 10)]
 
 
 def _bits_equal(got, want):
@@ -661,44 +698,68 @@ def phase_topk_kernels(dev, seed, failures):
     ties = torch.from_numpy((rng.integers(0, 6, t) / 5).astype(
         np.float32)).to(dev)
     scores["ties"] = (ties, x["cards"])
-    for name, (score, inter) in scores.items():
-        for k in sorted({k for k in (1, 10, 100, t) if k <= t}):
-            timed = name == "jaccard" and k in (10, 100)
-            want, plain_ms = _time_ms(lambda: ref.topk_select(
-                score, inter, k), 3 if timed else 1)
-            got, ms = _time_ms(lambda: tk.topk_select(score, inter, k),
-                               50 if timed else 1)
-            lib, lib_ms = _time_ms(lambda: torch.sort(
-                score, descending=True, stable=True).indices[:k],
-                50 if timed else 1)
-            same = _bits_equal(got, want) and torch.equal(got[0].long(),
-                                                          lib)
-            device = {}
-            if timed:                   # launch-bound: time on the device
-                device = dict(
-                    device_ms=_device_ms(lambda: tk.topk_select(
-                        score, inter, k), 50),
-                    device_plain_ms=_device_ms(lambda: ref.topk_select(
-                        score, inter, k), 3),
-                    device_library_ms=_device_ms(lambda: torch.sort(
-                        score, descending=True, stable=True).indices[:k],
-                        50))
-            max_err = max(max_err, _err(got, want))
-            case = f"select/{name}/k={k}"
-            if not same:
-                failures.append(f"kernel != plain: {case}")
-            bound_ms, bound_by = _select_bound(t, k)
-            cases.append(dict(case=case, equal=same, ms=ms,
-                              plain_ms=plain_ms, bound_ms=bound_ms,
-                              bound_by=bound_by, library_ms=lib_ms,
-                              **device))
-            if timed:
-                log(f"  {case:40s} equal={same} events: kernel {ms:.4f} ms"
-                    f"  plain {plain_ms:.3f} ms  torch.sort {lib_ms:.4f} ms"
-                    f"; device: kernel {device['device_ms']:.4f} ms  plain "
-                    f"{device['device_plain_ms']:.3f} ms  torch.sort "
-                    f"{device['device_library_ms']:.4f} ms; bound "
-                    f"{bound_ms:.6f} ms ({bound_by})")
+    wide = 5000                         # past one tile of the rank select
+    scores[f"T={wide}"] = tuple(torch.from_numpy(a).to(dev) for a in (
+        (rng.integers(0, 41, wide) / 40).astype(np.float32),
+        rng.integers(0, 1 << 20, wide).astype(np.int32)))
+    runs = [(f"{name}/k={k}", score, inter, k, True)
+            for name, (score, inter) in scores.items()
+            for k in sorted({k for k in (1, 10, 100, score.numel())
+                             if k <= score.numel()})]
+    runs += _select_edges(dev, rng, t)
+    for label, score, inter, k, in_contract in runs:
+        n = score.numel()
+        timed = label in ("jaccard/k=10", "jaccard/k=100",
+                          f"T={wide}/k=10", f"T={wide}/k=100")
+        want, plain_ms = _time_ms(lambda: ref.topk_select(
+            score, inter, k), 3 if timed else 1)
+        n0 = tk.launches_by_stage["select"]
+        got = tk.topk_select(score, inter, k)
+        torch.cuda.synchronize()
+        one_launch = tk.launches_by_stage["select"] == n0 + 1
+        _, ms = _time_ms(lambda: tk.topk_select(score, inter, k),
+                         50 if timed else 1)
+        lib, lib_ms = _time_ms(lambda: torch.sort(
+            score, descending=True, stable=True).indices[:k],
+            50 if timed else 1)
+        same = (_bits_equal(got, want) and one_launch
+                and (not in_contract or torch.equal(got[0].long(), lib)))
+        device = {}
+        if timed:                       # launch-bound: time on the device
+            ids = torch.arange(n, dtype=torch.int32, device=dev)
+            device = dict(
+                device_ms=_device_ms(lambda: tk.topk_select(
+                    score, inter, k), 50),
+                device_plain_ms=_device_ms(lambda: ref.topk_select(
+                    score, inter, k), 3),
+                device_library_ms=_device_ms(lambda: torch.sort(
+                    score, descending=True, stable=True).indices[:k], 50),
+                # the other design the rank select was measured against:
+                # row 8's one-pass bitonic select, fed the indices as ids
+                device_bitonic_ms=_device_ms(lambda: tk.topk_merge(
+                    score, inter, ids, k), 50))
+        max_err = max(max_err, _err(got, want))
+        case = f"select/{label}"
+        if not same:
+            failures.append(f"kernel != plain: {case} (one launch: "
+                            f"{one_launch})")
+        bound_ms, bound_by = _select_bound(n, k)
+        cases.append(dict(case=case, equal=same, one_launch=one_launch,
+                          in_contract=in_contract, ms=ms,
+                          plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=lib_ms, **device))
+        if timed:
+            log(f"  {case:40s} equal={same} events: kernel {ms:.4f} ms"
+                f"  plain {plain_ms:.3f} ms  torch.sort {lib_ms:.4f} ms"
+                f"; device: kernel {device['device_ms']:.4f} ms  plain "
+                f"{device['device_plain_ms']:.3f} ms  torch.sort "
+                f"{device['device_library_ms']:.4f} ms  bitonic "
+                f"{device['device_bitonic_ms']:.4f} ms; bound "
+                f"{bound_ms:.6f} ms ({bound_by})")
+    edges = [c for c in cases if c["case"].startswith("select/")
+             and not c["in_contract"]]
+    log(f"  select off contract: {sum(c['equal'] for c in edges)} of "
+        f"{len(edges)} equal to plain, one launch each")
     info = dict(candidates=t, rows=int(x["rows"].shape[0]),
                 empty=int((x["lens"] == 0).sum()),
                 longest=int(x["lens"].max()))
@@ -789,6 +850,26 @@ def _pair_edges(m):
             bv[r, :3] = [0, 7, 65535]
     return dict(a=a, b=b, ids=ids, av=av, ac=ac.astype(np.int32), bv=bv,
                 bc=bc.astype(np.int32))
+
+
+def _mixed_cards(m, seed):
+    """Phase 2c's mixed-card shape: :func:`_pair_inputs` rows whose array
+    cards cycle through 0, 1, 64 and 4,096 on each side, out of step, so
+    one launch meets every pairing of an empty, a one-value, a path-sized
+    and a full row (B above the count kernel's 512 staged values among
+    them); B holds every other value of A plus its own."""
+    x = _pair_inputs(m, seed)
+    rng = np.random.default_rng(seed + 1)
+    ac = np.resize(np.array([0, 1, 64, 4096], np.int32), m)
+    bc = np.resize(np.array([4096, 64, 1, 0, 64, 4096, 1], np.int32), m)
+    av = _sorted_rows(rng, ac)
+    bv = np.zeros_like(av)
+    for r in range(m):
+        own = rng.choice(1 << 16, bc[r], replace=False)
+        v = np.union1d(av[r, :ac[r]:2], own)[:bc[r]]
+        bv[r, :v.size] = v
+        bc[r] = v.size
+    return dict(x, av=av, ac=ac, bv=bv, bc=bc)
 
 
 def _to_card(x, dev):
@@ -894,10 +975,11 @@ def phase_pair_kernels(dev, seed, failures, calls=_pair_calls,
     with CUDA-event times beside them.  Phase 2e runs the same loop over
     the section-4 kernels (``calls``, ``names``, ``edges``, ``counts``)."""
     cases, max_err = [], {name: 0 for name in names}
-    shapes = [("main", 256), ("main", 8192), ("edge", 0), ("edge", 1),
-              ("edge", 8)]
+    shapes = [("main", 256), ("main", 8192), ("mixed", 1027), ("edge", 0),
+              ("edge", 1), ("edge", 8)]
     for kind, m in shapes:
-        x = _pair_inputs(m, seed + m) if kind == "main" else edges(m)
+        x = (_pair_inputs(m, seed + m) if kind == "main" else
+             _mixed_cards(m, seed + m) if kind == "mixed" else edges(m))
         t = _to_card(x, dev)
         for name, label, plain, kern, lib in calls(t):
             want = plain()
@@ -914,7 +996,7 @@ def phase_pair_kernels(dev, seed, failures, calls=_pair_calls,
             if not same:
                 failures.append(f"kernel != plain: {case}")
             row = dict(case=case, kernel=name, rows=m, equal=same)
-            if kind == "main":
+            if kind != "edge":
                 bound_ms, bound_by = _pair_bound(name, x)
                 row.update(
                     ms=_device_ms(kern, 20),
@@ -1125,7 +1207,7 @@ def phase_convert_kernels(dev, seed, failures):
             if not same:
                 failures.append(f"kernel != plain: {case}")
             row = dict(case=case, kernel=name, rows=m, equal=same)
-            if kind == "main":
+            if kind != "edge":
                 if lib is not None:
                     lib_words = (lib() & 0xFFFFFFFF).to(torch.int32)
                     if not torch.equal(lib_words.view(m, 2048), got[0]):
@@ -1258,7 +1340,14 @@ def _ids_edge_cases(dev, seed):
     out = [case("exhaustion", [.5, .9, -2, .9, -1, .5], [5, 9, 77, 3, 1, 6],
                 [40, 7, 2, 7, 9, 3], 8),
            case("exhaustion/lowest id taken", [.9, -2, .3, -2],
-                [4, 50, 8, 60], [1, 5, 3, 1], 5)]
+                [4, 50, 8, 60], [1, 5, 3, 1], 5),
+           # -0.0 and +0.0 tie, the lower id first; a round at zero is
+           # +0.0 while an entry of +0.0 remains, as jnp.max gives it
+           case("signed zeros", [-0.0, 0.0, 0.5], [10, 11, 12], [0, 1, 2], 3),
+           case("signed zeros/+0 first", [0.0, -0.0], [1, 2], [5, 7], 2),
+           case("signed zeros/-0 first", [0.0, -0.0], [1, 2], [7, 5], 2),
+           case("signed zeros/all -0", [-0.0, -0.0, -0.0], [1, 2, 3],
+                [4, 2, 4], 4)]
     m = 40
     base = ((rng.integers(0, 4, m) / 4).astype(np.float32),
             rng.integers(0, 30, m), rng.integers(0, 12, m))
@@ -1896,9 +1985,9 @@ def phase_similarity(dev, index, sets, seed, failures):
         qs = [(t, k) for t, k, m in traffic if m == metric and k == 10][:16]
         tr = _traced(metric, lambda: [index.similar(term, k, metric)
                                       for term, k in qs], dev,
-                     ("score_kernel", "select_kernel"))
+                     ("score_kernel", "rank_select_kernel"))
         busy, kern, wall_us = tr["busy_us"], tr["kernel_us"], tr["wall_us"]
-        sel = tr["name_us"]["select_kernel"]
+        sel = tr["name_us"]["rank_select_kernel"]
         for k in (10, 100):
             ls = lat.get((metric, k), [])
             classes[f"{metric}/k={k}"] = dict(

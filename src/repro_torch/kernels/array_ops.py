@@ -47,7 +47,8 @@ def reset_launches() -> None:
 
 @functools.cache
 def _kernels():
-    """The two C entry points, built and bound on first use."""
+    """The three C entry points (pair masks, A-side intersection, count),
+    built and bound on first use."""
     lib = _build.library("array_ops")
     p, n = ctypes.c_void_p, ctypes.c_int64
     pair = lib.array_pair_cuda
@@ -56,7 +57,10 @@ def _kernels():
     inter = lib.array_intersect_cuda
     inter.argtypes = [p, p, p, p, n, p, p, p]
     inter.restype = ctypes.c_int
-    return pair, inter
+    card = lib.array_intersect_card_cuda
+    card.argtypes = [p, p, p, p, n, p, p]
+    card.restype = ctypes.c_int
+    return pair, inter, card
 
 
 def _count(name: str) -> None:
@@ -70,30 +74,6 @@ def _check_arrays(a_vals, a_card, b_vals, b_card) -> torch.device:
                        ("a_card", a_card, None),
                        ("b_vals", b_vals, ARRAY_CAP),
                        ("b_card", b_card, None)], a_vals.shape[0])
-
-
-def _launch(a_vals, a_card, b_vals, b_card, masks: bool):
-    m = a_vals.shape[0]
-    dev = _check_arrays(a_vals, a_card, b_vals, b_card)
-    shape = (m, ARRAY_CAP)
-    mask_a = torch.empty(shape, dtype=torch.int32, device=dev) \
-        if masks else None
-    mask_b = torch.empty(shape, dtype=torch.int32, device=dev) \
-        if masks else None
-    count = torch.empty(m, dtype=torch.int32, device=dev)
-    if m == 0:
-        return mask_a, mask_b, count
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernels()[0](a_vals.data_ptr(), a_card.data_ptr(),
-                            b_vals.data_ptr(), b_card.data_ptr(), m,
-                            None if mask_a is None else mask_a.data_ptr(),
-                            None if mask_b is None else mask_b.data_ptr(),
-                            count.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"array_pair_cuda failed: cudaError {err}")
-    _count("array_pair_masks" if masks else "array_intersect_card")
-    return mask_a, mask_b, count
 
 
 def array_intersect(a_vals: torch.Tensor, a_card: torch.Tensor,
@@ -147,13 +127,46 @@ def array_pair_masks(a_vals: torch.Tensor, a_card: torch.Tensor,
     a_vals, b_vals: (M, ARRAY_CAP) int32; a_card, b_card: (M,) int32."""
     if a_vals.device.type == "cpu":
         return ref.array_pair_masks(a_vals, a_card, b_vals, b_card)
-    return _launch(a_vals, a_card, b_vals, b_card, True)
+    m = a_vals.shape[0]
+    dev = _check_arrays(a_vals, a_card, b_vals, b_card)
+    mask_a = torch.empty((m, ARRAY_CAP), dtype=torch.int32, device=dev)
+    mask_b = torch.empty((m, ARRAY_CAP), dtype=torch.int32, device=dev)
+    count = torch.empty(m, dtype=torch.int32, device=dev)
+    if m == 0:
+        return mask_a, mask_b, count
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _kernels()[0](a_vals.data_ptr(), a_card.data_ptr(),
+                            b_vals.data_ptr(), b_card.data_ptr(), m,
+                            mask_a.data_ptr(), mask_b.data_ptr(),
+                            count.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"array_pair_cuda failed: cudaError {err}")
+    _count("array_pair_masks")
+    return mask_a, mask_b, count
 
 
 def array_intersect_card(a_vals: torch.Tensor, a_card: torch.Tensor,
                          b_vals: torch.Tensor, b_card: torch.Tensor
                          ) -> torch.Tensor:
-    """(M,) int32 |A ∩ B| per row, no masks written."""
+    """(M,) int32 |A ∩ B| per row, no masks written: on CUDA one launch
+    of a warp a row (``intersect_card_kernel``).
+
+    a_vals, b_vals: (M, ARRAY_CAP) int32; a_card, b_card: (M,) int32."""
     if a_vals.device.type == "cpu":
         return ref.array_intersect_count(a_vals, a_card, b_vals, b_card)
-    return _launch(a_vals, a_card, b_vals, b_card, False)[2]
+    m = a_vals.shape[0]
+    dev = _check_arrays(a_vals, a_card, b_vals, b_card)
+    count = torch.empty(m, dtype=torch.int32, device=dev)
+    if m == 0:
+        return count
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _kernels()[2](a_vals.data_ptr(), a_card.data_ptr(),
+                            b_vals.data_ptr(), b_card.data_ptr(), m,
+                            count.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"array_intersect_card_cuda failed: cudaError "
+                           f"{err}")
+    _count("array_intersect_card")
+    return count

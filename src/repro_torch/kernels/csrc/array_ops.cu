@@ -20,14 +20,16 @@
 // 8 bytes of cards and 4 a valid value of either side and writes 16,384
 // bytes of mask and 4 of count a row; the pair kernel reads 32,768 bytes of
 // values and 8 of cards and writes 32,768 of masks and 4 of count (about
-// 65,548 bytes; 32,780 in the count-only form).  The search does about 12
-// shared-memory probes per valid slot and side, which at full arrays is of
-// the same order as the bytes; below a few hundred values a row, as at 0.1%
-// density, the bytes dominate.
+// 65,548 bytes).  The count alone needs only the valid values and 12
+// bytes a row.  The search does about 12 probes per valid slot and side,
+// which at full arrays is of the same order as the bytes; below a few
+// hundred values a row, as at 0.1% density, the bytes dominate, and at
+// the count's few bytes a row, latency does.
 //
-// Design: one block of 256 threads per row, every mask slot written by
-// exactly one thread from its own search, so the masks are deterministic
-// with no atomics, and the count is a block reduction of A's hits.
+// Design of the mask kernels: one block of 256 threads per row, every mask
+// slot written by exactly one thread from its own search, so the masks are
+// deterministic with no atomics, and the count is a block reduction of A's
+// hits.
 //  * array_intersect_kernel stages only B's valid prefix in shared memory
 //    (at most 16 KiB, with 16-byte loads).  A thread owns four 16-byte
 //    groups of four A slots (a warp reads 512 contiguous bytes), loads a
@@ -35,8 +37,18 @@
 //    values in B's prefix and writes all four mask slots with one 16-byte
 //    store, zeros included.
 //  * array_pair_kernel stages both rows' valid prefixes (2 x 16 KiB); each
-//    thread binary-searches each of its A slots in B's prefix, and (with
-//    MASKS) each of its B slots in A's prefix.
+//    thread binary-searches each of its A slots in B's prefix, and each of
+//    its B slots in A's prefix.
+// Design of the count (intersect_card_kernel): a warp a row, four rows a
+// block.  At the path's mean card of about 64, a block a row left 192 of
+// 256 threads idle and paid two barriers and a block reduction for half a
+// KiB of data.  A warp's 2 KiB shared slice holds B's valid prefix (up to
+// 512 values) or the top of the search tree over B; a lane searches one A
+// slot a step (16 slots a batch above 256 values), with branch-free steps
+// so the loads of a lane's searches overlap, and __reduce_add_sync sums
+// the warp.  No block-wide barrier.  Each search is `found`'s own, probe
+// for probe, so the count is the masks' count on every input, off
+// contract too (no merge path, whose count differs there).
 // The TPU compares 512 x 512 tiles all against all and skips tile pairs
 // whose ranges cannot overlap (the paper's Algorithm 1 block stepping); the
 // search does the same work in O(n log n) compares instead of O(n^2 / tile
@@ -131,7 +143,6 @@ array_intersect_kernel(const int4* __restrict__ a,
   if (threadIdx.x == 0) count[row] = static_cast<int32_t>(total);
 }
 
-template <bool MASKS>
 __global__ void __launch_bounds__(kThreads)
 array_pair_kernel(const int32_t* __restrict__ a,
                   const int32_t* __restrict__ a_card,
@@ -155,47 +166,219 @@ array_pair_kernel(const int32_t* __restrict__ a,
     const int i = j * kThreads + threadIdx.x;
     const int hit = i < na ? found(s_b, nb, s_a[i]) : 0;
     acc += hit;
-    if (MASKS) mask_a[row * kArrayCap + i] = hit;
+    mask_a[row * kArrayCap + i] = hit;
   }
-  if (MASKS) {
 #pragma unroll 4
-    for (int j = 0; j < kSlotsPerThread; ++j) {
-      const int i = j * kThreads + threadIdx.x;
-      mask_b[row * kArrayCap + i] = i < nb ? found(s_a, na, s_b[i]) : 0;
-    }
+  for (int j = 0; j < kSlotsPerThread; ++j) {
+    const int i = j * kThreads + threadIdx.x;
+    mask_b[row * kArrayCap + i] = i < nb ? found(s_a, na, s_b[i]) : 0;
   }
   const unsigned total = block_sum(acc);
   if (threadIdx.x == 0) count[row] = static_cast<int32_t>(total);
 }
 
+// |A ∩ B| alone (intersect_card_kernel): a warp a row, kCardRows rows a
+// block, no block-wide barrier.  Each search is `found`'s, probe for
+// probe.  A warp's own shared slice of kCardStage ints holds B's valid
+// prefix when it fits; else the top nine levels of found's search tree
+// over B (the value at each node's mid: the tree depends only on B's
+// card), so a search takes its first nine probes from shared memory and
+// its last four at most from B in place through __ldg, inside a window of
+// eight values.  A lane takes one A slot a step, so the path's rows of
+// about 64 values keep all 32 lanes busy; above kWideCard values, four
+// groups of four slots (16-byte loads, all in flight together) a batch,
+// each group's four searches in lock step.
+constexpr int kCardRows = 4;                 // rows a block, a warp each
+constexpr int kCardStage = 512;              // ints of a warp's slice
+constexpr int kTreeLevels = 9;               // tree nodes 1 .. 511
+constexpr int kWideCard = 256;               // A cards taken 4 x 4 a lane
+
+// The mid of found's search-tree node `node` over n values (root 1;
+// children 2i, the lower half, and 2i + 1, the upper), or -1 where its
+// interval is empty: the node's path replayed from the root.
+__device__ __forceinline__ int tree_mid(int node, int n) {
+  int lo = 0;
+  int hi = n;
+  for (int bit = 30 - __clz(node); bit >= 0; --bit) {
+    const int mid = (lo + hi) >> 1;
+    if ((node >> bit) & 1) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo < hi ? (lo + hi) >> 1 : -1;
+}
+
+// A lane's batch of A values: kGroups groups of kSlots slots (kSlots 1 or
+// 4), group j from slot i + 32 * kSlots * j, one load each; zeros at and
+// past na.
+template <int kSlots, int kGroups>
+__device__ __forceinline__ void load_batch(const int32_t* ar, int i, int na,
+                                           int (&v)[kGroups][kSlots]) {
+#pragma unroll
+  for (int j = 0; j < kGroups; ++j) {
+    const int at = i + 32 * kSlots * j;
+    if constexpr (kSlots == 4) {
+      const int4 x = at < na ? __ldg(reinterpret_cast<const int4*>(ar + at))
+                             : make_int4(0, 0, 0, 0);
+      v[j][0] = x.x;
+      v[j][1] = x.y;
+      v[j][2] = x.z;
+      v[j][3] = x.w;
+    } else {
+      v[j][0] = at < na ? __ldg(ar + at) : 0;
+    }
+  }
+}
+
+// Hits of A's valid slots in B, a batch a step.  `sb` is the warp's
+// slice: B itself, or (kTree) the top of the tree over `bg`, B in device
+// memory.  `v` holds the lane's first batch, loaded before the slice was
+// filled.  The steps have no branches: every search loads each step (a
+// finished one at a clamped index, keeping its bounds), so a group's loads
+// issue back to back.
+template <bool kTree, int kSlots, int kGroups>
+__device__ __forceinline__ unsigned count_row(const int32_t* ar, int na,
+                                              const int32_t* sb,
+                                              const int32_t* bg, int nb,
+                                              int (&v)[kGroups][kSlots],
+                                              int lane) {
+  constexpr int kSpan = 32 * kSlots;       // slots a group covers
+  const int steps = 32 - __clz(nb);        // found's most steps over nb
+  const int cached = kTree ? min(steps, kTreeLevels) : steps;
+  unsigned acc = 0u;
+  for (int i = kSlots * lane; i < na; i += kSpan * kGroups) {
+    if (i != kSlots * lane) load_batch<kSlots, kGroups>(ar, i, na, v);
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j) {
+      const int at = i + kSpan * j;
+      int lo[kSlots], hi[kSlots], node[kSlots];
+#pragma unroll
+      for (int q = 0; q < kSlots; ++q) {
+        lo[q] = 0;
+        hi[q] = at + q < na ? nb : 0;
+        node[q] = 1;
+      }
+      for (int d = 0; d < cached; ++d) {
+#pragma unroll
+        for (int q = 0; q < kSlots; ++q) {
+          const int mid = (lo[q] + hi[q]) >> 1;
+          const int x = kTree ? sb[node[q]] : sb[min(mid, kCardStage - 1)];
+          const bool on = lo[q] < hi[q];
+          const bool up = x < v[j][q];
+          lo[q] = on && up ? mid + 1 : lo[q];
+          hi[q] = on && !up ? mid : hi[q];
+          node[q] = on ? 2 * node[q] + up : node[q];
+        }
+      }
+      if (kTree) {
+        for (int d = cached; d < steps; ++d) {
+#pragma unroll
+          for (int q = 0; q < kSlots; ++q) {
+            const int mid = (lo[q] + hi[q]) >> 1;
+            const int x = __ldg(bg + min(mid, nb - 1));
+            const bool on = lo[q] < hi[q];
+            const bool up = x < v[j][q];
+            lo[q] = on && up ? mid + 1 : lo[q];
+            hi[q] = on && !up ? mid : hi[q];
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kSlots; ++q) {
+        const int x = kTree ? __ldg(bg + min(lo[q], nb - 1))
+                            : sb[min(lo[q], kCardStage - 1)];
+        acc += at + q < na && lo[q] < nb && x == v[j][q];
+      }
+    }
+  }
+  return acc;
+}
+
+// One row: its first batch of A loads issued, B's prefix (or the top of
+// its search tree) staged in the warp's slice, then the count.
+template <int kSlots, int kGroups>
+__device__ __forceinline__ unsigned count_one_row(const int32_t* ar, int na,
+                                                  const int4* br, int nb,
+                                                  int32_t* sb, int lane) {
+  int v[kGroups][kSlots];
+  load_batch<kSlots, kGroups>(ar, kSlots * lane, na, v);
+  const int32_t* bg = reinterpret_cast<const int32_t*>(br);
+  if (nb <= kCardStage) {
+    for (int g = lane; 4 * g < nb; g += 32)
+      reinterpret_cast<int4*>(sb)[g] = __ldg(br + g);
+    __syncwarp();
+    return count_row<false, kSlots, kGroups>(ar, na, sb, bg, nb, v, lane);
+  }
+  for (int i = 1 + lane; i < kCardStage; i += 32) {
+    const int mid = tree_mid(i, nb);
+    if (mid >= 0) sb[i] = __ldg(bg + mid);
+  }
+  __syncwarp();
+  return count_row<true, kSlots, kGroups>(ar, na, sb, bg, nb, v, lane);
+}
+
+__global__ void __launch_bounds__(32 * kCardRows)
+intersect_card_kernel(const int32_t* __restrict__ a,
+                      const int32_t* __restrict__ a_card,
+                      const int4* __restrict__ b,
+                      const int32_t* __restrict__ b_card, int64_t m,
+                      int32_t* __restrict__ count) {
+  __shared__ __align__(16) int32_t s_b[kCardRows][kCardStage];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kCardRows + warp;
+  if (row >= m) return;                    // whole warps: no barrier below
+  const int na = min(max(__ldg(a_card + row), 0), kArrayCap);
+  const int nb = min(max(__ldg(b_card + row), 0), kArrayCap);
+  const int32_t* ar = a + row * kArrayCap;
+  const int4* br = b + row * kSlotVecs;
+  unsigned acc = na > kWideCard
+      ? count_one_row<4, 4>(ar, na, br, nb, s_b[warp], lane)
+      : count_one_row<1, 1>(ar, na, br, nb, s_b[warp], lane);
+  acc = __reduce_add_sync(0xffffffffu, acc);
+  if (lane == 0) count[row] = static_cast<int32_t>(acc);
+}
+
 }  // namespace
 
 // a, b (m, 4096) int32 values, a_card, b_card (m,) int32; outputs mask_a,
-// mask_b (m, 4096) int32 -- both nullptr for the count-only kernel -- and
-// count (m,) int32.  m = 0 launches nothing.  Returns the cudaError_t of the
-// launch.
+// mask_b (m, 4096) int32 and count (m,) int32.  m = 0 launches nothing.
+// Returns the cudaError_t of the launch.
 extern "C" int array_pair_cuda(const void* a, const void* a_card,
                                const void* b, const void* b_card, int64_t m,
                                void* mask_a, void* mask_b, void* count,
                                void* stream) {
   if (m == 0) return 0;
-  if (m < 0 || m > INT_MAX || (mask_a == nullptr) != (mask_b == nullptr)) {
+  if (m < 0 || m > INT_MAX || mask_a == nullptr || mask_b == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* pa = static_cast<const int32_t*>(a);
-  const auto* pac = static_cast<const int32_t*>(a_card);
-  const auto* pb = static_cast<const int32_t*>(b);
-  const auto* pbc = static_cast<const int32_t*>(b_card);
-  auto* pc = static_cast<int32_t*>(count);
-  if (mask_a != nullptr) {
-    array_pair_kernel<true><<<static_cast<unsigned>(m), kThreads, 0, s>>>(
-        pa, pac, pb, pbc, static_cast<int32_t*>(mask_a),
-        static_cast<int32_t*>(mask_b), pc);
-  } else {
-    array_pair_kernel<false><<<static_cast<unsigned>(m), kThreads, 0, s>>>(
-        pa, pac, pb, pbc, nullptr, nullptr, pc);
-  }
+  array_pair_kernel<<<static_cast<unsigned>(m), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(a), static_cast<const int32_t*>(a_card),
+      static_cast<const int32_t*>(b), static_cast<const int32_t*>(b_card),
+      static_cast<int32_t*>(mask_a), static_cast<int32_t*>(mask_b),
+      static_cast<int32_t*>(count));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a, b (m, 4096) int32 values, a_card, b_card (m,) int32; output count
+// (m,) int32.  Row pointers must be 16-byte aligned.  m = 0 launches
+// nothing.  Returns the cudaError_t of the launch.
+extern "C" int array_intersect_card_cuda(const void* a, const void* a_card,
+                                         const void* b, const void* b_card,
+                                         int64_t m, void* count,
+                                         void* stream) {
+  if (m == 0) return 0;
+  if (m < 0 || m > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = static_cast<unsigned>((m + kCardRows - 1)
+                                                / kCardRows);
+  intersect_card_kernel<<<blocks, 32 * kCardRows, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(a), static_cast<const int32_t*>(a_card),
+      static_cast<const int4*>(b), static_cast<const int32_t*>(b_card), m,
+      static_cast<int32_t*>(count));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -43,14 +43,22 @@
 //     remembered, and the thread traps after its loop, so the loads can run
 //     ahead of the checks.
 //
-// Select.  k rounds of a block-wide (max, lowest index of the max) over the
-// T scores; each round records idx, score and inter of the winner and
-// masks it with -2.0.  That is the order of a stable descending sort: ties
-// go to the lowest index.  It is bound by the latency of k block-wide
-// reductions, not by bytes (8 bytes a candidate read, 12 a result written):
-// one block of 1024 threads, each scanning a strided share of a scratch
-// copy of the scores (L1-resident at this slice's T = 1,024), warp shuffles
-// and one shared-memory step per round.  Scores are never NaN.
+// Select.  The function is k rounds of (max, lowest index of the max),
+// each recording idx, the round's value and inter of the winner and then
+// masking it with -2.0.  For scores that are not NaN: the entries above
+// -2.0 come first in the order of a stable descending sort (-0.0 and
+// +0.0 tie, so the lower index goes first), each with its own score bits;
+// every later round gives the lowest index whose score is at least -2.0
+// (taken entries hold -2.0), at -2.0, with its inter; when no score
+// reaches -2.0, round 0 gives the stable argmax at its own score and every
+// later round that index at -2.0.
+//
+// What bounds it: latency, not bytes (8 bytes a candidate read, 12 a
+// result written).  The design is a rank by counting (rank_select_kernel
+// below): one launch of a warp per entry, each counting the keys that sort
+// before its own, with no k-round loop and no block-wide reduction per
+// round, so its time does not grow with k.  At this slice's T = 1,024
+// that is 128 blocks (one wave) and 32 shared-memory compares a lane.
 //
 // Score over ids (one shard).  The same block per slot and the same
 // float32 metric code, with three differences.  The slot's rows are read
@@ -71,7 +79,10 @@
 // entries there).  That is what k rounds of masking give (the JAX
 // package's rounds, kept going once every entry is masked, so a shard
 // with fewer than k valid slots gives the same k-list); scores are never
-// NaN.  The same kernel merges the gathered S*k lists.
+// NaN.  -0.0 and +0.0 are one score; a group at zero is written +0.0
+// while an entry of +0.0 bits with an id at or past its own remains, else
+// -0.0, as the JAX rounds' max gives it.  The same kernel merges the
+// gathered S*k lists.
 //
 // What bounds it: latency, not bytes (12 bytes an entry read, 12 a result
 // written), so the design is one pass with few barriers.  Up to 1,024
@@ -176,69 +187,6 @@ score_kernel(const uint4* __restrict__ rows, int64_t n_rows,
   }
 }
 
-// (value, index) pair that wins: the larger value, then the lower index;
-// index INT_MAX marks a thread that saw no candidate and always loses.
-__device__ __forceinline__ void better(float& v, int& i, float ov, int oi) {
-  if (oi != INT_MAX && (i == INT_MAX || ov > v || (ov == v && oi < i))) {
-    v = ov;
-    i = oi;
-  }
-}
-
-__global__ void __launch_bounds__(kSelectThreads)
-select_kernel(const float* __restrict__ score,
-              const int32_t* __restrict__ inter, int n, int k,
-              float* work, int32_t* __restrict__ out_idx,
-              float* __restrict__ out_score,
-              int32_t* __restrict__ out_inter) {
-  __shared__ float s_val[kSelectThreads / 32];
-  __shared__ int s_idx[kSelectThreads / 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int i = threadIdx.x; i < n; i += kSelectThreads) work[i] = score[i];
-  __syncthreads();
-  for (int round = 0; round < k; ++round) {
-    float v = 0.0f;
-    int bi = INT_MAX;
-    // indices rise along a thread's stride, so a strict > keeps the lowest
-    for (int i = threadIdx.x; i < n; i += kSelectThreads) {
-      const float x = work[i];
-      if (bi == INT_MAX || x > v) {
-        v = x;
-        bi = i;
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, v, off);
-      const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-      better(v, bi, ov, oi);
-    }
-    if (lane == 0) {
-      s_val[warp] = v;
-      s_idx[warp] = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      v = s_val[lane];
-      bi = s_idx[lane];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, v, off);
-        const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-        better(v, bi, ov, oi);
-      }
-      if (lane == 0) {
-        out_idx[round] = bi;
-        out_score[round] = score[bi];
-        out_inter[round] = inter[bi];
-        work[bi] = -2.0f;
-      }
-    }
-    __syncthreads();
-  }
-}
-
 __global__ void __launch_bounds__(kScoreThreads)
 score_ids_kernel(const uint4* __restrict__ table, int64_t n_table,
                  const int32_t* __restrict__ pos,
@@ -294,17 +242,20 @@ score_ids_kernel(const uint4* __restrict__ table, int64_t n_table,
   }
 }
 
-// The labelled select sorts (key, inter) pairs, where the 64-bit key is
-// the score mapped to an unsigned order, descending, above the global id,
-// ascending: one compare gives (score descending, id ascending), and inter
-// descending breaks ties, so each (id, score) group's first entry carries
-// the group's largest inter.  A sentinel key (all ones) sorts last.
+// Both selects order entries by one 64-bit key: the score mapped to an
+// unsigned order, descending, above the index or global id, ascending, so
+// one compare gives (score descending, id ascending).  -0.0 maps as +0.0:
+// the two compare equal, so the lower id goes first, as in the JAX
+// package's rounds.  The labelled select sorts (key, inter) pairs, and
+// inter descending breaks ties, so each (id, score) group's first entry
+// carries the group's largest inter.  A sentinel key (all ones) sorts last.
 using u64 = unsigned long long;
 constexpr int kIdsChunk = 1024;        // entries a block sorts in shared
 constexpr u64 kNoKey = ~0ull;
 
 __device__ __forceinline__ u64 make_key(float score, int gid) {
-  const unsigned u = __float_as_uint(score);
+  const unsigned bits = __float_as_uint(score);
+  const unsigned u = bits == 0x80000000u ? 0u : bits;       // -0.0 -> +0.0
   const unsigned asc = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
   return (static_cast<u64>(~asc) << 32)
          | (static_cast<unsigned>(gid) ^ 0x80000000u);
@@ -328,6 +279,13 @@ __device__ __forceinline__ int pack_inter(u64 pk) {
   return static_cast<int>(~static_cast<unsigned>(pk) ^ 0x80000000u);
 }
 __device__ __forceinline__ u64 umin64(u64 a, u64 b) { return a < b ? a : b; }
+// (largest id) as one minimum, over the entries whose score is +0.0 bits
+__device__ __forceinline__ u64 make_zero_pack(int gid) {
+  return ~(static_cast<unsigned>(gid) ^ 0x80000000u);
+}
+__device__ __forceinline__ int zero_pack_gid(u64 zp) {
+  return static_cast<int>(~static_cast<unsigned>(zp) ^ 0x80000000u);
+}
 
 __device__ u64 block_min(u64 x, u64* s_red) {
   const int lane = threadIdx.x & 31;
@@ -348,6 +306,97 @@ __device__ u64 block_min(u64 x, u64* s_red) {
   return s_red[32];
 }
 
+// The single-device select: a rank by counting.  Warp w of block b owns
+// entry i = 8b + w; its lanes compare i's key with every key of the T
+// entries, staged in shared memory a tile at a time, and add up the ones
+// that sort before it.  Keys are unique (the index is in them), so the
+// entries of rank r < k are exactly one each, and that entry writes slot
+// r: itself when its score is above -2.0; else the round that the JAX
+// rounds give once every entry above -2.0 is taken (see the header).  One
+// launch of ceil(T / 8) blocks, no k-round loop and no scratch; a warp
+// stops counting once k keys sort before its entry, and the block stops
+// staging tiles once all its warps have.  Tiles start at the block's own,
+// so inputs sorted either way stop after a tile or two.
+constexpr int kRankWarps = 8;                // entries a block ranks
+constexpr int kRankThreads = 32 * kRankWarps;
+constexpr int kRankTile = 2048;              // keys a block stages at once
+
+__global__ void __launch_bounds__(kRankThreads)
+rank_select_kernel(const float* __restrict__ score,
+                   const int32_t* __restrict__ inter, int n, int k,
+                   int32_t* __restrict__ out_idx,
+                   float* __restrict__ out_score,
+                   int32_t* __restrict__ out_inter) {
+  __shared__ u64 s_key[kRankTile];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int i = blockIdx.x * kRankWarps + warp;
+  const u64 mine = i < n ? make_key(__ldg(score + i), i) : 0;
+  const int n_tiles = (n + kRankTile - 1) / kRankTile;
+  const int own = blockIdx.x * kRankWarps / kRankTile;
+  unsigned rank = 0;
+  bool done = i >= n;
+  for (int step = 0; step < n_tiles; ++step) {
+    int tile = own + step;
+    tile -= tile >= n_tiles ? n_tiles : 0;
+    const int lo = tile * kRankTile;
+    const int len = min(kRankTile, n - lo);
+    for (int j = threadIdx.x; j < len; j += kRankThreads)
+      s_key[j] = make_key(__ldg(score + lo + j), lo + j);
+    __syncthreads();
+    if (!done) {
+      unsigned cnt = 0;
+#pragma unroll 8
+      for (int j = lane; j < len; j += 32) cnt += s_key[j] < mine;
+      rank += __reduce_add_sync(0xffffffffu, cnt);
+      done = rank >= static_cast<unsigned>(k);
+    }
+    if (__syncthreads_and(done)) break;      // also frees s_key
+  }
+  if (done) return;                          // past the k-list, or no entry
+  const float s = score[i];
+  if (s > -2.0f) {
+    if (lane == 0) {
+      out_idx[rank] = i;
+      out_score[rank] = s;
+      out_inter[rank] = inter[i];
+    }
+    return;
+  }
+  // every entry above -2.0 is taken by now: the round takes the lowest
+  // index with a score of at least -2.0 (taken entries hold -2.0), at -2.0
+  int w = -1;
+  for (int base = 0; base < n; base += 32) {
+    const int j = base + lane;
+    const unsigned hit = __ballot_sync(0xffffffffu,
+                                       j < n && score[j] >= -2.0f);
+    if (hit) {
+      w = base + __ffs(hit) - 1;
+      break;
+    }
+  }
+  float out = -2.0f;
+  if (w < 0) {                               // no score reaches -2.0
+    if (rank == 0) {                         // round 0 takes the argmax
+      w = i;
+      out = s;
+    } else {                                 // later rounds repeat it
+      u64 best = kNoKey;
+      for (int j = lane; j < n; j += 32)
+        best = umin64(best, make_key(score[j], j));
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        best = umin64(best, __shfl_xor_sync(0xffffffffu, best, off));
+      w = key_gid(best);
+    }
+  }
+  if (lane == 0) {
+    out_idx[rank] = w;
+    out_score[rank] = out;
+    out_inter[rank] = inter[w];
+  }
+}
+
 struct SelectIds {
   const float* score;                  // raw entries (first level)
   const int32_t* inter;
@@ -365,6 +414,7 @@ struct SelectIds {
   int32_t* out_inter;
   u64* packs;                          // per first-level chunk: (min id,
   int n_packs;                         //   max inter) over scores >= -2
+  u64* zero_packs;                     //   and its largest id of +0.0
   int32_t* out_gidx;
   float* out_score;
   int32_t* out_top_inter;
@@ -374,8 +424,11 @@ struct SelectIds {
 // sort, then the rank of each group is the count of group starts before
 // it (a ballot prefix).  A chunk of a first or middle level emits its k
 // best groups (with their largest inter) and, on the first level, its
-// (min id, max inter) pack; the final level writes the k-list: groups
-// with score > -2.0 at their rank, then the exhaustion rounds.
+// (min id, max inter) pack and its zero pack; the final level writes the
+// k-list: groups with score > -2.0 at their rank, then the exhaustion
+// rounds.  A group of score zero is written as the JAX package's round
+// max gives it: +0.0 while an entry of +0.0 bits remains, that is, while
+// the largest id of such an entry is at least the group's; else -0.0.
 template <bool kRaw>
 __global__ void __launch_bounds__(kSelectThreads)
 select_ids_kernel(SelectIds a) {
@@ -393,7 +446,7 @@ select_ids_kernel(SelectIds a) {
   const int64_t left = a.n - lo;
   const int cnt = left < a.chunk ? static_cast<int>(left) : a.chunk;
 
-  u64 pack = kNoKey;
+  u64 pack = kNoKey, zero = kNoKey;
   for (int i = tid; i < a.pow2; i += nthreads) {
     u64 kk = kNoKey;
     int it = INT_MIN;
@@ -404,6 +457,7 @@ select_ids_kernel(SelectIds a) {
         it = a.inter[lo + i];
         kk = make_key(sc, g);
         if (sc >= -2.0f) pack = umin64(pack, make_pack(g, it));
+        if (__float_as_uint(sc) == 0u) zero = umin64(zero, make_zero_pack(g));
       } else {
         kk = a.in_key[lo + i];
         it = a.in_inter[lo + i];
@@ -413,12 +467,18 @@ select_ids_kernel(SelectIds a) {
     itr[i] = it;
   }
   if (a.final_level && a.n_packs > 0) {
-    for (int i = tid; i < a.n_packs; i += nthreads)
+    for (int i = tid; i < a.n_packs; i += nthreads) {
       pack = umin64(pack, a.packs[i]);
+      zero = umin64(zero, a.zero_packs[i]);
+    }
   }
   if (kRaw || a.final_level) {
     pack = block_min(pack, s_red);
-    if (!a.final_level && tid == 0) a.packs[blockIdx.x] = pack;
+    zero = block_min(zero, s_red);
+    if (!a.final_level && tid == 0) {
+      a.packs[blockIdx.x] = pack;
+      a.zero_packs[blockIdx.x] = zero;
+    }
   }
   __syncthreads();
 
@@ -494,8 +554,12 @@ select_ids_kernel(SelectIds a) {
         a.out_key[static_cast<int64_t>(blockIdx.x) * a.k + rank] = ki;
         a.out_inter[static_cast<int64_t>(blockIdx.x) * a.k + rank] = itr[i];
       } else if (above || (none && rank == 0)) {
-        a.out_gidx[rank] = key_gid(ki);
-        a.out_score[rank] = key_score(ki);
+        const int g = key_gid(ki);
+        const float sc = key_score(ki);
+        a.out_gidx[rank] = g;
+        a.out_score[rank] = sc == 0.0f && (zero == kNoKey
+                                           || g > zero_pack_gid(zero))
+                            ? -0.0f : sc;
         a.out_top_inter[rank] = max(0, itr[i]);
       }
     }
@@ -535,7 +599,8 @@ int select_threads(int pow2) {
 // kIdsChunk / 2 (each level keeps every chunk's k best groups, so the
 // entries at least halve) and a final block over what remains; else one
 // block sorting all entries in `work`.  The scratch is the first level's
-// packs and two levels of chunk lists, or the global sort buffer.
+// packs and zero packs and two levels of chunk lists, or the global sort
+// buffer.
 struct IdsPlan {
   int64_t n_chunks;        // first-level chunks (0: one block)
   int64_t list;            // entries of a level's chunk lists
@@ -555,7 +620,7 @@ IdsPlan ids_plan(int64_t n, int k) {
 }
 
 size_t ids_workspace(const IdsPlan& plan) {
-  return sizeof(u64) * plan.n_chunks
+  return 2 * sizeof(u64) * plan.n_chunks
          + (sizeof(u64) + sizeof(int32_t)) * (2 * plan.list
                                               + plan.global_sort);
 }
@@ -603,21 +668,25 @@ extern "C" int similarity_score_cuda(const void* rows, int64_t n_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// score (n,) float32 and inter (n,) int32 in; work (n,) float32 scratch;
+// score (n,) float32 and inter (n,) int32 in; work: kept for the
+// interface, unused (the rank select needs no scratch; may be null);
 // out_idx (k,) int32, out_score (k,) float32, out_inter (k,) int32 out.
-// 1 <= k <= n.  Returns the cudaError_t of the launch.
+// 1 <= k <= n.  One launch.  Returns the cudaError_t of the launch.
 extern "C" int similarity_select_cuda(const void* score, const void* inter,
                                       int n, int k, void* work,
                                       void* out_idx, void* out_score,
                                       void* out_inter, void* stream) {
+  (void)work;
   if (n < 1 || k < 1 || k > n) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  select_kernel<<<1, kSelectThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
+  const unsigned blocks = static_cast<unsigned>((n + kRankWarps - 1)
+                                                / kRankWarps);
+  rank_select_kernel<<<blocks, kRankThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(score), static_cast<const int32_t*>(inter),
-      n, k, static_cast<float*>(work), static_cast<int32_t*>(out_idx),
-      static_cast<float*>(out_score), static_cast<int32_t*>(out_inter));
+      n, k, static_cast<int32_t*>(out_idx), static_cast<float*>(out_score),
+      static_cast<int32_t*>(out_inter));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -692,7 +761,9 @@ extern "C" int similarity_select_ids_cuda(const void* score,
     return static_cast<int>(launch_ids(true, a, 1, st));
   }
   u64* packs = static_cast<u64*>(work);
-  u64* keys[2] = {packs + plan.n_chunks, packs + plan.n_chunks + plan.list};
+  u64* zero_packs = packs + plan.n_chunks;
+  u64* keys[2] = {zero_packs + plan.n_chunks,
+                  zero_packs + plan.n_chunks + plan.list};
   int32_t* inters[2] = {reinterpret_cast<int32_t*>(keys[1] + plan.list),
                         nullptr};
   inters[1] = inters[0] + plan.list;
@@ -702,6 +773,7 @@ extern "C" int similarity_select_ids_cuda(const void* score,
   lvl.chunk = kIdsChunk;
   lvl.pow2 = kIdsChunk;
   lvl.packs = packs;
+  lvl.zero_packs = zero_packs;
   lvl.out_key = keys[0];
   lvl.out_inter = inters[0];
   cudaError_t err = launch_ids(true, lvl, static_cast<int>(plan.n_chunks),
@@ -729,6 +801,7 @@ extern "C" int similarity_select_ids_cuda(const void* score,
   a.chunk = static_cast<int>(m);
   a.pow2 = pow2_at_least(m);
   a.packs = packs;
+  a.zero_packs = zero_packs;
   a.n_packs = static_cast<int>(plan.n_chunks);
   return static_cast<int>(launch_ids(false, a, 1, st));
 }

@@ -265,20 +265,24 @@ def similarity_score(rows: torch.Tensor, row_col: torch.Tensor,
 
 def topk_select(score: torch.Tensor, inter: torch.Tensor, k: int
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The select stage: k rounds of (max, lowest index of the max), the
-    winner masked with -2.0 -- the order of a stable descending sort.
+    """The select stage: k rounds of (max, lowest index of the max), each
+    recording the winner's value at that round, then masking it with -2.0
+    -- the order of a stable descending sort (-0.0 and +0.0 tie).  A
+    round's value is the entry's own score, or -2.0 once every entry above
+    -2.0 is taken and the rounds repeat the lowest index at or above -2.0.
     score: (T,) float32, never NaN; inter: (T,) int32; 1 <= k <= T.
     Returns (idx (k,) int32, score (k,) float32, inter (k,) int32)."""
     if not 1 <= k <= score.shape[0]:
         raise ValueError(f"k={k} outside [1, {score.shape[0]}]")
     work = score.clone()
-    picks = []
+    picks, tops = [], []
     for _ in range(k):
         j = torch.argmax(work)              # the first maximum wins
         picks.append(j)
+        tops.append(work[j].clone())
         work[j] = -2.0
     idx = torch.stack(picks)
-    return idx.to(torch.int32), score[idx], inter[idx].to(torch.int32)
+    return idx.to(torch.int32), torch.stack(tops), inter[idx].to(torch.int32)
 
 
 def similarity_topk(rows: torch.Tensor, row_col: torch.Tensor,
@@ -327,6 +331,8 @@ def topk_select_ids(score: torch.Tensor, inter: torch.Tensor,
     the order of :func:`topk_select` over all candidates, ties to the
     lowest global index.  Any k >= 1: once every entry is masked, rounds
     repeat the lowest id among the -2.0 entries, as the JAX package's do.
+    A round's max is jnp.max's: +0.0 if any entry holds +0.0 bits among
+    maxima of zero, -0.0 only when every one of them is -0.0.
     Returns (gidx (k,) int32, score (k,) float32, inter (k,) int32)."""
     if k < 1 or score.shape[0] < 1:
         raise ValueError(f"need k >= 1 and >= 1 entry, got k={k}, "
@@ -336,8 +342,12 @@ def topk_select_ids(score: torch.Tensor, inter: torch.Tensor,
     inter = inter.to(torch.int32)
     work = score.to(torch.float32).clone()
     ids, tops, inters = [], [], []
+    pos_zero = torch.zeros((), dtype=torch.float32, device=score.device)
     for _ in range(k):
         m = work.max()
+        # jnp.max's zero: +0.0 while any entry holds +0.0 bits
+        m = torch.where((m == 0) & (work.view(torch.int32) == 0).any(),
+                        pos_zero, m)
         w = torch.where(work == m, gidx, big).min()
         hit = (gidx == w) & (work == m)
         ids.append(w)

@@ -15,7 +15,8 @@ device, in the form the JAX package's ``kernels/topk_ops.py`` consumes:
 
 :func:`similarity_score` launches the score kernel (intersection
 cardinality and float32 metric per candidate) and :func:`topk_select` the
-select kernel (k rounds of max with ties to the lowest index), both from
+select kernel (the k rounds of max with ties to the lowest index, as one
+rank by counting: one launch whatever k), both from
 ``csrc/similarity_topk.cu``; :func:`similarity_topk` runs the two in turn,
 and only the k results leave the card.
 
@@ -155,7 +156,10 @@ def similarity_score(rows: torch.Tensor, row_col: torch.Tensor,
 def topk_select(score: torch.Tensor, inter: torch.Tensor, k: int
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The select stage: (idx (k,) int32, score (k,) float32, inter (k,)
-    int32), best first, ties to the lowest index; 1 <= k <= T."""
+    int32), best first, ties to the lowest index; 1 <= k <= T.  Each
+    round's score is its value after the earlier rounds' masking: the
+    entry's own, or -2.0 once every entry above -2.0 is taken (see
+    ``ref.topk_select``).  On CUDA, one launch and no scratch."""
     n = score.shape[0]
     if not 1 <= k <= n:
         raise ValueError(f"k={k} outside [1, {n}]")
@@ -168,14 +172,13 @@ def topk_select(score: torch.Tensor, inter: torch.Tensor, k: int
     _check("inter", inter, dev, torch.int32, 1)
     if inter.shape[0] != n:
         raise ValueError("score and inter differ in length")
-    work = torch.empty(n, dtype=torch.float32, device=dev)
     idx = torch.empty(k, dtype=torch.int32, device=dev)
     top = torch.empty(k, dtype=torch.float32, device=dev)
     top_inter = torch.empty(k, dtype=torch.int32, device=dev)
     fn = _kernels()[1]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(score.data_ptr(), inter.data_ptr(), n, k, work.data_ptr(),
+        err = fn(score.data_ptr(), inter.data_ptr(), n, k, None,
                  idx.data_ptr(), top.data_ptr(), top_inter.data_ptr(),
                  stream)
     if err != 0:

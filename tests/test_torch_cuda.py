@@ -30,7 +30,11 @@ against their plain versions, pad slots, exclusion and k past the entry
 count included, a bad position trapping; and ``similar(mesh=)`` and the
 sharded aggregates over shards on the card against the CPU's answers.
 The labelled select past the 1,024 entries one block sorts (levels of
-chunks, one block in device memory) and its exhaustion rounds.
+chunks, one block in device memory), its exhaustion rounds and -0.0
+beside +0.0.  The single-device select's rounds past every entry above
+-2.0, scores all below -2.0, signed zeros and sorted inputs past one tile
+of its rank by counting; the count-only array kernel at row counts around
+its four rows a block and on mixed cards.
 The Roaring block-sparse decode attention kernel against its plain version
 (float32 within 2e-5, bfloat16 within one bf16 ulp, rows with nothing
 visible exactly 0) at the live Gemma2 head shape and edge cases, ``ops``
@@ -291,6 +295,62 @@ def test_select_kernel_matches_plain_and_sort(cuda, n, kfrac):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
     order = torch.sort(s, descending=True, stable=True).indices[:k]
     assert torch.equal(got[0].long(), order)
+
+
+SELECT_EDGES = {
+    "repeat after -3.0": ([0.5, -3.0, 0.25], 3),
+    "repeat after -2.0": ([0.5, -2.0, 0.1], 3),
+    "all below -2.0": ([-3.0, -5.0, -2.5, -7.0], 4),
+    "all below -2.0, k=1": ([-3.0, -5.0, -2.5, -7.0], 1),
+    "-2.0 and below": ([-3.0, -2.0, -5.0, -2.0], 4),
+    "signed zeros": ([0.0, -0.0, 0.0, 0.5, -0.0], 5),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SELECT_EDGES) + ["a third low"])
+def test_select_kernel_off_contract_rounds(cuda, case):
+    """The rounds after every entry above -2.0 is taken (the lowest index
+    at or above -2.0, at -2.0), every score below -2.0 (the argmax, then
+    it again at -2.0), -0.0 beside +0.0 (own bits, lower index first), and
+    3,000 entries of which a third lie at or below -2.0 at k = 10 and k =
+    T: bit-equal to the plain version, one launch a call."""
+    if case == "a third low":
+        rng = np.random.default_rng(21)
+        score = (rng.integers(-8, 16, 3000) / 8).astype(np.float32)
+        score = np.where(score < -0.5, np.float32(-2.5),
+                         np.where(score < 0, np.float32(-2.0), score))
+        ks = (10, 3000)
+    else:
+        score, k = SELECT_EDGES[case]
+        score, ks = np.asarray(score, np.float32), (k,)
+    inter = np.arange(10, 10 + score.size, dtype=np.int32)
+    s, i = _dev(score, cuda), _dev(inter, cuda)
+    for k in ks:
+        want = ref.topk_select(s, i, k)
+        n0 = topk_ops.launches_by_stage["select"]
+        got = topk_ops.topk_select(s, i, k)
+        torch.cuda.synchronize()
+        assert topk_ops.launches_by_stage["select"] == n0 + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.parametrize("order", ["ascending", "descending"])
+@pytest.mark.parametrize("k", [1, 10, 4999])
+def test_select_kernel_sorted_inputs_across_tiles(cuda, order, k):
+    """5,000 distinct scores sorted either way: the rank select stages its
+    keys a tile at a time, starting at its own, and stops once k keys sort
+    before its entry; the answer must not depend on where that happens."""
+    score = np.linspace(-1.0, 1.0, 5000, dtype=np.float32)
+    if order == "descending":
+        score = score[::-1].copy()
+    inter = np.arange(5000, dtype=np.int32)
+    s, i = _dev(score, cuda), _dev(inter, cuda)
+    want = ref.topk_select(s, i, k)
+    got = topk_ops.topk_select(s, i, k)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
 
 
 @pytest.mark.parametrize("bad", ["row_col", "starts"])
@@ -606,6 +666,45 @@ def test_array_pair_kernel_off_contract_stays_in_bounds(cuda):
         assert not m[pos[None, :] >= lim[:, None]].any()
     assert torch.equal(cnt, ma.sum(dim=1, dtype=torch.int32))
     assert torch.equal(c2, cnt)
+
+
+def _mixed_card_case(rng, m):
+    """Cards cycling through 0, 1, 64 and 4,096 on each side, out of step
+    (B above the 512 values a warp stages, and below), B holding every
+    other value of A plus its own."""
+    ac = np.resize(np.array([0, 1, 64, 4096], np.int32), m)
+    bc = np.resize(np.array([4096, 64, 1, 0, 64, 4096, 1], np.int32), m)
+    a = np.zeros((m, ARRAY_CAP), np.int32)
+    b = np.zeros((m, ARRAY_CAP), np.int32)
+    for r in range(m):
+        x = np.sort(rng.choice(1 << 16, ac[r], replace=False))
+        own = rng.choice(1 << 16, bc[r], replace=False)
+        y = np.union1d(x[::2], own)[:bc[r]]
+        a[r, :x.size], b[r, :y.size] = x, y
+        bc[r] = y.size
+    return a, ac, b, bc
+
+
+@pytest.mark.parametrize("m", [1, 7, 8, 9, 8193, "mixed"])
+def test_array_intersect_card_kernel_rows(cuda, m):
+    """The count kernel takes a warp a row and four rows a block: M = 1,
+    7, 8, 9 and 8,193 (path-sized rows of about 64 values), and 1,027 rows
+    of mixed cards; equal to the plain count and to the mask kernel's
+    count, one launch a call."""
+    rng = np.random.default_rng(31)
+    if m == "mixed":
+        a, ac, b, bc = _mixed_card_case(rng, 1027)
+    else:
+        a, ac, b, bc = _sparse_case(rng, m)
+    args = [_i32(x, cuda) for x in (a, ac, b, bc)]
+    want = ref.array_intersect_count(*args)
+    n0 = array_ops.launches_by_kernel["array_intersect_card"]
+    got = array_ops.array_intersect_card(*args)
+    masks = array_ops.array_pair_masks(*args)
+    torch.cuda.synchronize()
+    assert array_ops.launches_by_kernel["array_intersect_card"] == n0 + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got, masks[2])
 
 
 def test_pair_wrappers_raise_on_bad_input(cuda):
@@ -982,6 +1081,29 @@ def test_select_ids_kernel_exhaustion_rounds(cuda):
     assert itr.tolist() == [9, 6, 5, 1, 77, 77, 77, 77]
     assert sco.cpu().tolist() == [np.float32(x) for x in
                                   (.9, .5, .5, -1, -2, -2, -2, -2)]
+
+
+@pytest.mark.parametrize("score,gidx", [
+    ([-0.0, 0.0, 0.5], [0, 1, 2]),
+    ([0.0, -0.0], [5, 7]),
+    ([0.0, -0.0], [7, 5]),
+    ([-0.0, -0.0, 0.0, -0.0], [4, 2, 1, 3]),
+    ([-0.0, -0.0, -0.0], [4, 2, 4]),
+])
+def test_select_ids_kernel_signed_zeros(cuda, score, gidx):
+    """-0.0 and +0.0 tie in the key, so the lower id goes first; a group
+    at zero is +0.0 while an entry of +0.0 with an id at or past its own
+    remains, else -0.0: bit-equal to the plain version."""
+    score = np.asarray(score, np.float32)
+    args = [_dev(score, cuda),
+            _dev(np.arange(10, 10 + score.size, dtype=np.int32), cuda),
+            _dev(np.asarray(gidx, np.int32), cuda)]
+    for k in (1, score.size, score.size + 2):
+        want = ref.topk_select_ids(*args, k)
+        got = topk_ops.topk_merge(*args, k)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def test_ids_kernels_fault_on_a_bad_position(cuda):

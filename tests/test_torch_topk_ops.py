@@ -6,16 +6,28 @@ same seeded numpy inputs.
 Inputs: ragged candidates, empty ones among them, duplicate candidates
 that tie exactly, every metric, ``exclude`` in {-1, 0, T-1, out of range},
 k from 1 to T, a zero query cardinality and cardinalities near 2^31-1.
+The select alone, against the jnp oracle and the Pallas select kernel in
+interpret mode: the repeat rounds once every entry above -2.0 is taken
+(each round's value is the masked -2.0), every score below -2.0, k = T;
+-0.0 beside +0.0, where the JAX package's two versions split (the port
+follows the oracle); and the labelled select's signed zeros against the
+JAX ``topk_merge``.
 The tolerance is 0: indices and intersections must be equal and the
 float32 scores bit-identical, since the top-k tie order rides on them.
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from jax.experimental import pallas as pl
+
 from repro.core.pairwise import _scores_host as j_scores_host
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels import topk_ops as jtopk
 from repro_torch.core.pairwise import _scores_host as t_scores_host
@@ -179,6 +191,102 @@ def test_select_matches_jax_with_many_ties(k):
     got = tref.topk_select(torch.from_numpy(score), torch.from_numpy(inter),
                            k)
     _same(got, want)
+
+
+def _pallas_select(score, inter, k):
+    """The JAX package's Pallas select stage (``_select_kernel``) alone, in
+    interpret mode, on the given scores: as ``similarity_topk`` calls it
+    after its score stage."""
+    t = score.shape[0]
+    block = pl.BlockSpec((1, t), lambda i: (0, 0))
+    out = pl.BlockSpec((1, k), lambda i: (0, 0))
+    idx, sco, itr = pl.pallas_call(
+        functools.partial(jtopk._select_kernel, k=k), grid=(1,),
+        in_specs=[block, block], out_specs=[out, out, out],
+        out_shape=[jax.ShapeDtypeStruct((1, k), jnp.int32),
+                   jax.ShapeDtypeStruct((1, k), jnp.float32),
+                   jax.ShapeDtypeStruct((1, k), jnp.int32)],
+        interpret=True)(jnp.asarray(score).reshape(1, t),
+                        jnp.asarray(inter).reshape(1, t))
+    return idx[0], sco[0], itr[0]
+
+
+def _big_with_low_scores(t=64, seed=13):
+    """T scores on a coarse grid, a third of them at -2.0 or -2.5."""
+    rng = np.random.default_rng(seed)
+    score = (rng.integers(-8, 16, t) / 8).astype(np.float32)
+    return np.where(score < -0.5, np.float32(-2.5),
+                    np.where(score < 0, np.float32(-2.0), score))
+
+
+SELECT_EDGES = {
+    "repeat after -3.0": ([0.5, -3.0, 0.25], 3),
+    "repeat after -2.0": ([0.5, -2.0, 0.1], 3),
+    "all below -2.0": ([-3.0, -5.0, -2.5, -7.0], 4),
+    "all below -2.0, k=1": ([-3.0, -5.0, -2.5, -7.0], 1),
+    "-2.0 and below": ([-3.0, -2.0, -5.0, -2.0], 4),
+    "k=T, a third at or below -2.0": (_big_with_low_scores(), 64),
+    "k=10, a third at or below -2.0": (_big_with_low_scores(), 10),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SELECT_EDGES))
+def test_select_repeat_rounds_match_jax(case):
+    """Once every entry above -2.0 is taken, each round repeats the lowest
+    index at or above -2.0 with the masked value -2.0 as its score, not the
+    entry's original score; with no score at -2.0 or above, round 0 takes
+    the argmax at its own score and the rest repeat it at -2.0."""
+    score, k = SELECT_EDGES[case]
+    score = np.asarray(score, np.float32)
+    inter = np.arange(10, 10 + score.size, dtype=np.int32)
+    want = jref.topk_select(jnp.asarray(score), jnp.asarray(inter), k)
+    _same(_pallas_select(score, inter, k), want)
+    got = tref.topk_select(torch.from_numpy(score), torch.from_numpy(inter),
+                           k)
+    _same(got, want)
+    _same(ttopk.topk_select(torch.from_numpy(score),
+                            torch.from_numpy(inter), k), want)
+
+
+def test_select_signed_zero_split_follows_the_ref():
+    """-0.0 and +0.0 tie, so the lower index goes first in both JAX
+    versions; the oracle then records the entry's own -0.0 and the Pallas
+    kernel the round's max, +0.0.  The port follows the oracle."""
+    score = np.array([0.0, -0.0, 0.0], np.float32)
+    inter = np.array([4, 5, 6], np.int32)
+    want = jref.topk_select(jnp.asarray(score), jnp.asarray(inter), 3)
+    pallas = _pallas_select(score, inter, 3)
+    assert np.asarray(want[0]).tolist() == [0, 1, 2]
+    assert np.asarray(pallas[0]).tolist() == [0, 1, 2]
+    assert np.signbit(np.asarray(want[1])).tolist() == [False, True, False]
+    assert not np.signbit(np.asarray(pallas[1])).any()
+    _same(tref.topk_select(torch.from_numpy(score), torch.from_numpy(inter),
+                           3), want)
+
+
+@pytest.mark.parametrize("score,gidx", [
+    ([-0.0, 0.0, 0.5], [0, 1, 2]),
+    ([0.0, -0.0], [5, 7]),
+    ([0.0, -0.0], [7, 5]),
+    ([-0.0, -0.0, 0.0, -0.0], [4, 2, 1, 3]),
+    ([-0.0, -0.0, -0.0], [4, 2, 4]),
+])
+def test_topk_merge_signed_zeros_match_jax(score, gidx):
+    """The labelled select: -0.0 and +0.0 tie, the lower id goes first,
+    and a round at zero records jnp.max's zero, +0.0 while any remaining
+    entry holds +0.0, -0.0 once none does."""
+    score = np.asarray(score, np.float32)
+    gidx = np.asarray(gidx, np.int32)
+    inter = np.arange(10, 10 + score.size, dtype=np.int32)
+    for k in (1, score.size, score.size + 2):
+        want = {be: jops.topk_merge(jnp.asarray(score), jnp.asarray(inter),
+                                    jnp.asarray(gidx), k, backend=be)
+                for be in ("ref", "pallas")}
+        _same(want["pallas"], want["ref"])
+        got = tref.topk_select_ids(torch.from_numpy(score),
+                                   torch.from_numpy(inter),
+                                   torch.from_numpy(gidx), k)
+        _same(got, want["ref"])
 
 
 def test_cpu_wrapper_takes_plain_version_and_counts_nothing():
