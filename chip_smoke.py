@@ -51,10 +51,15 @@ toolkit (``nvcc``).  Phases, each timed:
    their plain versions on phase 2c's inputs (M = 256 and 8,192) and edge
    cases (M = 1,027 with mixed cards, as in 2c; M = 0, 1 and 8: cards 0
    and 4,096, one side empty, a card above 4,096, a negative card, an A
-   value of 65537 beside B's padding).
+   value of 65537 beside B's padding; M = 16, the intersection's own
+   rows: A at 4,096 values against B past 512 values and against B at
+   4,096, B of one value, A of one value, 65537 at A's last valid slot
+   beside B padded with 65537, a negative card and a card above 4,096 on
+   each side, cards of 127 to 129, A unsorted with repeats).
    Words, masks and counts must be bit-equal; device times of kernel,
    plain version and library yardstick (``torch.searchsorted`` for the
-   intersection) and the bound are printed.
+   intersection) and the bound are printed at M = 256, 8,192 and the
+   mixed 1,027.
 2f. The sharded similarity kernels (the score over ids and the labelled
    select) against their plain versions: phase 2b's 1,024 candidates
    (227,240 rows, read through positions of an arena-like table) split
@@ -173,8 +178,35 @@ toolkit (``nvcc``).  Phases, each timed:
    the kernel's share of device time), the step's bytes bound and the
    peak device memory.
 
-Launch counts are set to 0 just before each of phases 3 to 10 and
-read just after it; a kernel that a phase's path runs and that launched no time
+11. Cold start and ingest on phase 3's index, at its full size, before
+   phase 10 and with every temporary file in a directory removed at the
+   end: ``serde.write_snapshot`` of all 1,024 postings, then
+   ``load_index`` of the archive onto a fresh ``BitmapArena`` on the card
+   (seconds to open and to the first answer), phase 3's boolean classes
+   (64 queries a class) and phase 4's k = 10 ``similar`` queries on it,
+   each equal to the oracle's answer (and a sample to the in-memory
+   index's), a warm re-query that uploads no row, and the archive's bytes
+   unchanged after the queries; every posting through RJ02, portable and
+   frozen (the same set back, ``serialized_size_bytes`` equal to the
+   length); the 960 sparse terms' postings and two dense terms' streamed
+   through ``StreamingIndexBuilder`` in eight batches of documents in id
+   order, each boundary half way through a chunk, with a
+   ``segment_bytes`` that spills at least four segments, ``finalize``
+   onto a fresh arena (the dense terms' split chunks merge in
+   segment_reduce), every posting equal to the in-memory one and sparse
+   boolean queries (8 a class, and the union of every sparse term) equal
+   to the in-memory index's answers and, for 4 a class and the union, the
+   oracle's; and
+   ``RoaringDataPipeline`` over 2^24 documents with a quality and a dedup
+   filter, 8 batches of 256 x 4,096 tokens with a ``state_dict`` round
+   trip after the 4th (the resumed pipeline draws the same batches), no
+   id drawn twice, every id in the filters' intersection and
+   ``remaining()`` equal to the oracle's.  Launches per kernel are printed
+   for each part; segment_reduce must launch in the reload, in the
+   ingest's ``finalize`` and in its queries.
+
+Launch counts are set to 0 just before each of phases 3 to 11 (and each
+part of 11) and read just after it; a kernel that a phase's path runs and that launched no time
 there fails the script.  Then one JSON line with every kernel's numbers,
 and the last line ``{"ok": true, "device": {...}}``.
 
@@ -188,6 +220,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -966,17 +999,18 @@ def _pair_bound(name, x):
 
 def phase_pair_kernels(dev, seed, failures, calls=_pair_calls,
                        names=PAIR_KERNELS, edges=_pair_edges,
-                       counts=_pair_counts):
+                       counts=_pair_counts, edge_rows=(0, 1, 8)):
     """The five pair kernels against their plain versions: at the path's
     shapes (M = 256, one merge of two terms at 2^24 documents; M = 8,192,
-    a count batch) and at edge cases (M = 0, 1 and 8).  Words, masks and
-    counts must be bit-equal.  Kernel, plain and library times are device
-    times from the profiler (a launch at M = 256 takes microseconds),
-    with CUDA-event times beside them.  Phase 2e runs the same loop over
-    the section-4 kernels (``calls``, ``names``, ``edges``, ``counts``)."""
+    a count batch) and at edge cases (M in ``edge_rows``).  Words, masks
+    and counts must be bit-equal.  Kernel, plain and library times are
+    device times from the profiler (a launch at M = 256 takes
+    microseconds), with CUDA-event times beside them.  Phase 2e runs the
+    same loop over the section-4 kernels (``calls``, ``names``,
+    ``edges``, ``counts``, ``edge_rows``)."""
     cases, max_err = [], {name: 0 for name in names}
-    shapes = [("main", 256), ("main", 8192), ("mixed", 1027), ("edge", 0),
-              ("edge", 1), ("edge", 8)]
+    shapes = [("main", 256), ("main", 8192), ("mixed", 1027)]
+    shapes += [("edge", m) for m in edge_rows]
     for kind, m in shapes:
         x = (_pair_inputs(m, seed + m) if kind == "main" else
              _mixed_cards(m, seed + m) if kind == "mixed" else edges(m))
@@ -1034,13 +1068,55 @@ def _section4_edges(m):
     for M = 8: B empty (row 1), a negative card (row 4), a card above 4,096
     (row 6), and in row 7 A = [0, 65535, 65537] against B = [0, 7, 65535]
     whose slots past its card hold 65537 (a slot at or above a card never
-    matches)."""
+    matches).  M = 16 holds the A-side intersection's own edge rows
+    (:func:`_intersect_edges`)."""
     x = _pair_edges(m)
-    if m >= 8:
+    if m == 16:
+        av, ac, bv, bc = _intersect_edges(np.random.default_rng(m + 7))
+        x.update(av=av, ac=ac, bv=bv, bc=bc)
+    elif m >= 8:
         x["bc"][1], x["bc"][4], x["ac"][6] = 0, -3, 5000
         x["av"][7, :3], x["ac"][7] = [0, 65535, 65537], 3
         x["bv"][7, 3:] = 65537
     return x
+
+
+def _intersect_edges(rng):
+    """Sixteen rows for the A-side intersection: A at 4,096 values
+    against B past 512 (1,000 values, an eighth of A's among them; 513),
+    against B at 4,096 (identical; random), against B of one value, and
+    A of one value against B at 4,096; the value 65537 at A's last valid
+    slot beside B's slots past its card holding 65537; a negative card on
+    each side; cards above 4,096 on each side; cards of 127 to 129 around
+    the 128 values the kernel asks for early at small M; and A unsorted
+    with repeats (off contract: the rows must still equal the plain
+    version's)."""
+    ac = np.array([4096, 4096, 4096, 4096, 4096, 1, 4000, -1, 5000, 100,
+                   64, 129, 128, 127, 40, 4095], np.int32)
+    bc = np.array([1000, 513, 4096, 4096, 1, 4096, 2000, 4096, 4096, 5000,
+                   -7, 129, 128, 600, 40, 4097], np.int32)
+    av = _sorted_rows(rng, np.clip(ac, 0, 4096))
+    bv = _sorted_rows(rng, np.clip(bc, 0, 4096))
+
+    def share(r, n):                 # B's valid prefix takes n of A's
+        keep = bv[r, :np.clip(bc[r], 0, 4096)]
+        take = av[r, :np.clip(ac[r], 0, 4096)][::max(1, ac[r] // n)][:n]
+        mixed = np.union1d(take, keep)[:keep.size]
+        bv[r, :mixed.size] = mixed
+
+    share(0, 125)
+    share(1, 64)
+    bv[2] = av[2]                                  # identical full rows
+    share(5, 1)
+    share(9, 50)
+    share(11, 64)
+    share(13, 60)
+    av[6, 3999] = 65537                            # off contract
+    bv[6, 2000:] = 65537
+    av[14, :40] = rng.integers(0, 1 << 16, 40)    # unsorted, repeats
+    av[14, 20:30] = av[14, 0]
+    bv[14, :40] = np.sort(av[14, :40])
+    return av, ac, bv, bc
 
 
 def _section4_calls(t):
@@ -1074,7 +1150,8 @@ def phase_section4_kernels(dev, seed, failures):
     = 256 and 8,192 and at :func:`_section4_edges`."""
     return phase_pair_kernels(dev, seed, failures, calls=_section4_calls,
                               names=SECTION4_KERNELS, edges=_section4_edges,
-                              counts=_section4_counts)
+                              counts=_section4_counts,
+                              edge_rows=(0, 1, 8, 16))
 
 
 # ---------------------------------------------------------------------------
@@ -3138,6 +3215,7 @@ def phase_sharded(dev, ctx, sim_cases, keep, failures):
     if sum(patched) != 1 or max(patched) != 1 or mut_wrong:
         failures.append(f"sharded refresh: patched {patched}, wrong "
                         f"{mut_wrong}")
+    bm.remove(doc)                  # later phases hold phase 3's oracle
 
     launches = {**dict(tk.launches_by_stage), "segment_reduce":
                 so.launches}                # the sharded path ends here
@@ -3150,6 +3228,359 @@ def phase_sharded(dev, ctx, sim_cases, keep, failures):
                 boolean=boolean, server=server, reduce_or=reduce_or,
                 edit=dict(term=term, patched=patched, wrong=mut_wrong),
                 launches=launches, allocated_delta=mem)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: cold start and ingest
+# ---------------------------------------------------------------------------
+
+FORMATS = ("rj02", "portable", "frozen")
+PIPE = dict(n_docs=N_DOCS, seq_len=4096, batch_size=256, vocab=256_000)
+PIPE_BATCHES = 8
+
+
+def _all_counts() -> dict:
+    """Launches of every kernel since the last reset, by kernel."""
+    from repro_torch.kernels import (
+        array_ops, bitset_convert, bitset_ops, block_sparse_attn, harley_seal,
+        pair_ops, segment_ops, topk_ops,
+    )
+    out = {"segment_reduce": segment_ops.launches, **topk_ops.launches_by_stage}
+    for mod in (pair_ops, array_ops, bitset_convert, harley_seal, bitset_ops):
+        out.update(mod.launches_by_kernel)
+    out["decode_attention"] = block_sparse_attn.launches
+    return {k: v for k, v in out.items() if v}
+
+
+def _file_digest(path) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def _boolean_wrong(index, traffic, answers, per_class=QUERIES):
+    """Answers of the first ``per_class`` queries of each class that differ
+    from ``answers``, by class."""
+    return {cls: sum(not np.array_equal(_to_packed(_run_query(index, cls, q)),
+                                        want)
+                     for q, want in zip(traffic[cls][:per_class],
+                                        answers[cls][:per_class]))
+            for cls in CLASSES}
+
+
+def _reload(dev, path, ctx, sim_cases, failures):
+    """Item 1: the whole index mapped back from its snapshot archive onto
+    a fresh arena, then phase 3's boolean classes and phase 4's k = 10
+    similarity queries on it."""
+    from repro_torch.core import BitmapArena
+    from repro_torch.data.index import load_index
+    _reset_counts()
+    digest = _file_digest(path)
+    t = time.perf_counter()
+    arena = BitmapArena(device=dev)
+    index = load_index(path, arena=arena)
+    arena.sync()
+    torch.cuda.synchronize(dev)
+    open_s = time.perf_counter() - t
+    q0 = ctx["traffic"]["and"][0]
+    first = index.query_and(*q0["terms"])
+    torch.cuda.synchronize(dev)
+    first_s = time.perf_counter() - t
+    wrong = {"first": int(not np.array_equal(_to_packed(first),
+                                             ctx["answers"]["and"][0]))}
+    t = time.perf_counter()
+    wrong.update(_boolean_wrong(index, ctx["traffic"], ctx["answers"]))
+    boolean_s = time.perf_counter() - t
+    # the in-memory index's own answers on the first queries of a class
+    mem = ctx["index"]
+    wrong["vs_in_memory"] = sum(
+        _run_query(index, cls, q) != _run_query(mem, cls, q)
+        for cls in CLASSES for q in ctx["traffic"][cls][:4])
+    sims = [c for c in sim_cases if c["k"] == 10]
+    t = time.perf_counter()
+    wrong["similar"] = sum(not _same_sim(index.similar(c["term"], 10,
+                                                       c["metric"]),
+                                         c["answer"]) for c in sims)
+    similar_s = time.perf_counter() - t
+    wrong["similar_vs_in_memory"] = sum(
+        index.similar(c["term"], 10, c["metric"]) !=
+        mem.similar(c["term"], 10, c["metric"]) for c in sims[::16])
+    up0 = arena.stats.rows_uploaded
+    warm = _boolean_wrong(index, ctx["traffic"], ctx["answers"], 8)
+    warm_uploads = arena.stats.rows_uploaded - up0
+    wrong["warm"] = sum(warm.values())
+    unchanged = _file_digest(path) == digest
+    launches = _all_counts()
+    out = dict(open_s=open_s, first_answer_s=first_s, boolean_s=boolean_s,
+               similar_s=similar_s, similar_queries=len(sims),
+               arena_rows=arena.n_rows, warm_uploads=warm_uploads,
+               file_unchanged=unchanged, wrong=wrong, launches=launches)
+    log(f"  reload: open {open_s:.2f} s (load_index + arena upload of "
+        f"{arena.n_rows} rows), first answer {first_s:.2f} s; "
+        f"{QUERIES} queries a class {boolean_s:.1f} s, {len(sims)} similar "
+        f"{similar_s:.1f} s; wrong {wrong}; warm re-query uploads "
+        f"{warm_uploads} rows; file unchanged {unchanged}; launches "
+        f"{launches}")
+    if any(wrong.values()):
+        failures.append(f"reload: answers differ {wrong}")
+    if warm_uploads or not unchanged:
+        failures.append(f"reload: warm uploads {warm_uploads}, file "
+                        f"unchanged {unchanged}")
+    if not launches.get("segment_reduce") or not launches.get("select"):
+        failures.append(f"reload: a kernel never launched {launches}")
+    del index, arena, mem
+    return out
+
+
+def _same_set(a, b) -> bool:
+    """Whether two bitmaps hold the same set: the same keys, and each pair
+    of containers the same payload where their kinds match (words, sorted
+    values or maximal runs), else the same values."""
+    if a.keys != b.keys:
+        return False
+    for x, y in zip(a.containers, b.containers):
+        if x.kind != y.kind:
+            same = np.array_equal(x.to_array_values(), y.to_array_values())
+        else:
+            same = np.array_equal(*(c.words if c.kind == "bitset" else
+                                    c.values if c.kind == "array" else
+                                    c.runs for c in (x, y)))
+        if not same:
+            return False
+    return True
+
+
+def _round_trips(postings, failures):
+    """Item 2: every posting through the three formats."""
+    from repro_torch.core import RoaringBitmap, serde
+    t = time.perf_counter()
+    bad, nbytes = {f: 0 for f in FORMATS}, {f: 0 for f in FORMATS}
+    for bm in postings.values():
+        for fmt in FORMATS:
+            buf = bm.serialize(fmt)
+            nbytes[fmt] += len(buf)
+            back = RoaringBitmap.deserialize(buf, format=fmt)
+            bad[fmt] += (not _same_set(back, bm)
+                         or serde.serialized_size_bytes(bm, fmt) != len(buf))
+    secs = time.perf_counter() - t
+    log(f"  round trips of {len(postings)} postings: {secs:.1f} s; bytes "
+        f"{nbytes}; wrong {bad}")
+    if any(bad.values()):
+        failures.append(f"round trips: {bad}")
+    return dict(seconds=secs, bytes=nbytes, wrong=bad)
+
+
+def _sparse_traffic(seed, terms, per_class=8):
+    """Boolean queries over the sparse terms alone (K in [2, 8]), and one
+    union of every sparse term."""
+    rng = np.random.default_rng(seed + 11)
+    traffic = {c: [] for c in CLASSES}
+    for _ in range(per_class):
+        for cls in CLASSES:
+            k = int(rng.integers(2, 9))
+            q = dict(terms=[str(t) for t in rng.choice(terms, k,
+                                                       replace=False)])
+            if cls == "threshold":
+                q["t"] = int(rng.integers(1, k + 1))
+            elif cls == "threshold_w":
+                q["weights"] = [int(x) for x in rng.integers(1, 5, k)]
+                q["t"] = int(rng.integers(2, sum(q["weights"]) + 1))
+            traffic[cls].append(q)
+    traffic["or"].append(dict(terms=list(terms)))
+    return traffic
+
+
+def _ingest(dev, tmp, ctx, seed, failures):
+    """Item 3: the 960 sparse terms' postings, and the two dense terms of
+    lowest document frequency at or above 20%, streamed through
+    StreamingIndexBuilder in eight batches of documents in id order, each
+    batch boundary half way through a chunk, with a segment_bytes that
+    spills at least four segments; then finalize onto a fresh arena.  A
+    chunk cut by a batch boundary that is also a segment boundary reaches
+    the merge in two parts: the sparse terms' parts union on the host (the
+    planner's rule for arrays), the dense terms' (a bitset of more than
+    4,096 values each) on the card, in segment_reduce.  Every posting must
+    equal the in-memory index's, sparse queries its answers, and a sample
+    of them and the union of every sparse term the oracle's."""
+    from repro_torch.core import BitmapArena
+    from repro_torch.data.pipeline import StreamingIndexBuilder
+    sets, postings = ctx["sets"], ctx["postings"]
+    terms = [t for t in postings if t[0] == "s"]
+    dense = sorted((t for t in postings if t[0] == "d"
+                    and postings[t].cardinality >= N_DOCS // 5),
+                   key=lambda t: postings[t].cardinality)[:2]
+    ids = {t: sets[t] for t in terms}
+    for t in dense:
+        ids[t] = np.flatnonzero(np.unpackbits(
+            sets[t].view(np.uint8), bitorder="little")).astype(np.uint32)
+    total = sum(v.size for v in ids.values()) * 4
+    edges = [0] + [b * (N_DOCS // 8) + (1 << 15) for b in range(1, 8)]
+    edges.append(N_DOCS)
+    _reset_counts()
+    t = time.perf_counter()
+    builder = StreamingIndexBuilder(tmp / "stream.snap",
+                                    segment_bytes=total // 6)
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        for term, v in ids.items():
+            builder.append_postings(term, v[np.searchsorted(v, lo):
+                                            np.searchsorted(v, hi)])
+    segments = len(builder._segments) + bool(builder._pend)
+    append_s = time.perf_counter() - t
+    arena = BitmapArena(device=dev)
+    t = time.perf_counter()
+    index = builder.finalize(arena=arena)
+    arena.sync()
+    torch.cuda.synchronize(dev)
+    finalize_s = time.perf_counter() - t
+    finalize_launches = _all_counts()
+    wrong = {"postings": sum(not _same_set(index.postings[t], postings[t])
+                             for t in ids),
+             "n_docs": int(index.n_docs != int(max(v.max()
+                                                   for v in ids.values()))
+                           + 1)}
+    traffic = _sparse_traffic(seed, terms)
+    union = traffic["or"].pop()
+    oracle = Oracle(sets, N_DOCS // 64)
+    t = time.perf_counter()
+    for cls in CLASSES:
+        wrong[cls] = 0
+        for i, q in enumerate(traffic[cls]):
+            got = _run_query(index, cls, q)
+            wrong[cls] += got != _run_query(ctx["index"], cls, q)
+            if i < 4:
+                wrong[cls] += not np.array_equal(_to_packed(got),
+                                                 oracle.answer(cls, q))
+    got = _run_query(index, "or", union)
+    wrong["union"] = int(not np.array_equal(
+        got.to_array(), np.unique(np.concatenate([sets[t] for t in terms]))))
+    query_s = time.perf_counter() - t
+    launches = _all_counts()
+    out = dict(ids=total // 4, dense_terms=dense,
+               segment_bytes=total // 6, segments=segments,
+               append_s=append_s, finalize_s=finalize_s, query_s=query_s,
+               queries={c: len(q) for c, q in traffic.items()},
+               union_terms=len(union["terms"]),
+               archive_bytes=os.path.getsize(tmp / "stream.snap"),
+               finalize_launches=finalize_launches, launches=launches,
+               wrong=wrong)
+    log(f"  ingest: {total // 4} ids of {len(terms)} sparse and "
+        f"{len(dense)} dense terms in {segments} segments, appends {append_s:.1f} s, finalize "
+        f"(merge, archive, load_index, arena upload) {finalize_s:.1f} s, "
+        f"queries {query_s:.1f} s; wrong {wrong}; launches in finalize "
+        f"{finalize_launches}, with the queries {launches}")
+    if any(wrong.values()):
+        failures.append(f"ingest: answers differ {wrong}")
+    if segments < 4:
+        failures.append(f"ingest: only {segments} segments")
+    if not finalize_launches.get("segment_reduce") or \
+            launches["segment_reduce"] <= finalize_launches["segment_reduce"]:
+        failures.append(f"ingest: segment_reduce did not launch in both "
+                        f"finalize {finalize_launches} and the queries "
+                        f"{launches}")
+    del index, arena
+    return out
+
+
+def _pipeline(dev, seed, failures):
+    """Item 4: the training data pipeline over 2^24 documents with a
+    quality and a dedup filter, 8 batches, a state_dict round trip after
+    the 4th."""
+    from repro_torch.data.pipeline import (
+        RoaringDataPipeline, dedup_filter, quality_filter,
+    )
+    rng = np.random.default_rng(seed + 12)
+    scores = rng.random(N_DOCS)
+    hashes = rng.integers(0, N_DOCS, N_DOCS)
+    _reset_counts()
+    t = time.perf_counter()
+    filters = {"quality": quality_filter(scores, 0.5),
+               "dedup": dedup_filter(hashes)}
+    pipe = RoaringDataPipeline(**PIPE, seed=seed, filters=filters,
+                               device=dev)
+    torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t
+    lowest = np.full(N_DOCS, N_DOCS)        # each hash's first document
+    np.minimum.at(lowest, hashes, np.arange(N_DOCS))
+    first = np.zeros(N_DOCS, bool)
+    first[lowest[lowest < N_DOCS]] = True
+    keep = (scores >= 0.5) & first
+    n_keep = int(keep.sum())
+    wrong = {"keep": int(pipe.keep.cardinality != n_keep or not
+                         np.array_equal(pipe.keep.to_array(),
+                                        np.flatnonzero(keep)))}
+    drawn, lat = [], []
+    for i in range(PIPE_BATCHES):
+        if i == 4:
+            state = pipe.state_dict()
+            twin = RoaringDataPipeline(**PIPE, seed=seed, filters=filters,
+                                       device=dev)
+            twin.load_state_dict(state)
+        t = time.perf_counter()
+        batch = pipe.next_batch()
+        lat.append((time.perf_counter() - t) * 1e3)
+        if i >= 4:
+            other = twin.next_batch()
+            wrong.setdefault("resumed", 0)
+            wrong["resumed"] += not all(np.array_equal(other[k], batch[k])
+                                        for k in batch)
+        ids = batch["doc_ids"]
+        drawn.extend(ids.tolist())
+        wrong.setdefault("shape", 0)
+        wrong["shape"] += (batch["tokens"].shape != (256, 4096)
+                           or not np.array_equal(batch["tokens"][:, 1:],
+                                                 batch["labels"][:, :-1]))
+        wrong.setdefault("outside_keep", 0)
+        wrong["outside_keep"] += int((~keep[ids]).sum())
+    wrong["repeats"] = len(drawn) - len(set(drawn))
+    remaining = pipe.remaining()
+    wrong["remaining"] = int(remaining != n_keep - len(drawn)
+                             or twin.remaining() != remaining)
+    launches = _all_counts()
+    out = dict(build_s=build_s, keep=n_keep, drawn=len(drawn),
+               remaining=remaining, batch_p50_ms=float(np.median(lat)),
+               batch_ms=lat, wrong=wrong, launches=launches)
+    log(f"  pipeline: filters and keep {build_s:.1f} s ({n_keep} of "
+        f"{N_DOCS} kept); {PIPE_BATCHES} batches of 256 x 4,096 tokens, p50 "
+        f"{out['batch_p50_ms']:.1f} ms; remaining {remaining}; wrong "
+        f"{wrong}; launches {launches}")
+    if any(wrong.values()):
+        failures.append(f"pipeline: {wrong}")
+    if not launches:
+        failures.append("pipeline: no kernel launched")
+    return out
+
+
+def phase_cold_start(dev, ctx, sim_cases, seed, failures):
+    """Phase 11: the whole index through a snapshot archive and back, every
+    posting through the three formats, the sparse terms streamed into a
+    second archive, and the data pipeline; temporary files in a directory
+    removed at the end."""
+    import shutil
+    import tempfile
+    from repro_torch.core import serde
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        path = tmp / "index.snap"
+        t = time.perf_counter()
+        nbytes = serde.write_snapshot(path, ctx["postings"], meta=N_DOCS)
+        write_s = time.perf_counter() - t
+        log(f"  write_snapshot of {len(ctx['postings'])} postings: "
+            f"{nbytes} bytes, {write_s:.2f} s")
+        out = dict(archive_bytes=nbytes, write_s=write_s)
+        out["reload"] = _reload(dev, path, ctx, sim_cases, failures)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["round_trips"] = _round_trips(ctx["postings"], failures)
+        out["ingest"] = _ingest(dev, tmp, ctx, seed, failures)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["pipeline"] = _pipeline(dev, seed, failures)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3945,10 +4376,19 @@ def main() -> int:
         "6 / 7 / 8 / 9: " + "  ".join(
             f"{k} " + " / ".join(str(p.get(k)) for p in per_phase)
             for k in (*CONVERT_KERNELS, *SECTION4_KERNELS)))
+    cold = phase("11 (cold start and ingest at real scale)",
+                 phase_cold_start, dev, ctx, sim_cases, args.seed, failures)
+    cold_launches = {k: sum(cold[i]["launches"].get(k, 0) for i in
+                            ("reload", "ingest", "pipeline"))
+                     for k in (*IDS_STAGES, "decode_attention")}
+    if any(cold_launches[k] for k in IDS_STAGES):
+        failures.append(f"a sharded similarity kernel launched in phase "
+                        f"11: {cold_launches}")
     bsa_per_phase = [p["bsa_launches"] for p in (
         main_path, sim, server, pairwise, tensor, surface, sharded)]
+    bsa_per_phase.append(cold_launches["decode_attention"])
 
-    # phase 10 runs alone on the card: release what phases 3-9 hold
+    # phase 10 runs alone on the card: release what phases 3-9 and 11 hold
     del ctx, keep, sim_cases
     gc.collect()
     torch.cuda.empty_cache()
@@ -3956,7 +4396,7 @@ def main() -> int:
                     phase_serving, dev, args.seed, failures)
     bsa_per_phase.append(serving["launches"])
     log("decode_attention launches in phases 3 / 4 / 5 / 6 / 7 / 8 / 9 / "
-        "10: " + " / ".join(map(str, bsa_per_phase)))
+        "11 / 10: " + " / ".join(map(str, bsa_per_phase)))
     if any(bsa_per_phase[:-1]):
         failures.append(f"decode_attention launched outside phase 10: "
                         f"{bsa_per_phase}")
@@ -3973,8 +4413,8 @@ def main() -> int:
         similarity=sim, server=server, pair_cases=pair_cases,
         pairwise=pairwise, convert_cases=convert_cases, tensor=tensor,
         section4_cases=section4_cases, ops_surface=surface,
-        ids_cases=ids_cases, sharded=sharded, bsa_cases=bsa_cases,
-        serving=serving, bsa_launches_per_phase=bsa_per_phase,
+        ids_cases=ids_cases, sharded=sharded, cold_start=cold,
+        bsa_cases=bsa_cases, serving=serving, bsa_launches_per_phase=bsa_per_phase,
         kernels=kernels["kernels"],
         phases_s=phases, failures=failures,
         total_s=time.perf_counter() - t_all), indent=1, default=str))

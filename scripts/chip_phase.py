@@ -1,0 +1,79 @@
+#!/usr/bin/env python3
+"""Run one kernel phase of a tree's ``chip_smoke.py`` on the card, alone.
+
+    python3 scripts/chip_phase.py --root TREE --phase 2e [--seed 0]
+        [--out FILE]
+
+``TREE`` is the root of a checkout of this repository (this one by
+default); its ``chip_smoke.py`` and ``src/repro_torch`` are the ones run.
+The phase's kernels build at first use, the phase runs once, and its cases
+(kernel, plain version, library and bound times, equality) print as one
+JSON line, with the card's name and power limit; ``--out`` also writes
+them to a file.  Phases: 2, 2b, 2c, 2d, 2e, 2f, 2g (see ``chip_smoke.py``).
+
+Timing two trees on one card, in turns (parent, change, change, parent),
+takes one process per run, since each tree has its own ``repro_torch``:
+
+    for r in PARENT . . PARENT; do python3 scripts/chip_phase.py --root $r
+        --phase 2e; done
+
+Exits 1 when the phase records a failure, 2 without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+PHASES = {"2": "phase_kernels", "2b": "phase_topk_kernels",
+          "2c": "phase_pair_kernels", "2d": "phase_convert_kernels",
+          "2e": "phase_section4_kernels", "2f": "phase_ids_kernels",
+          "2g": "phase_bsa_kernel"}
+KEYS = ("case", "kernel", "rows", "equal", "ms", "plain_ms", "library_ms",
+        "bound_ms", "bound_by", "event_ms")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--phase", required=True, choices=sorted(PHASES))
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_phase: no CUDA device", file=sys.stderr)
+        return 2
+    root = Path(args.root).resolve()
+    sys.path[:0] = [str(root / "src"), str(root)]
+    smoke = importlib.import_module("chip_smoke")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60, check=True).stdout.strip()
+    failures: list[str] = []
+    t = time.perf_counter()
+    out = getattr(smoke, PHASES[args.phase])(torch.device("cuda"), args.seed,
+                                             failures)
+    cases = out[0] if isinstance(out, tuple) else out
+    from repro_torch.kernels import _build
+    ptxas = {name: [ln.strip() for ln in log.splitlines() if "Used" in ln]
+             for name, log in _build.build_logs.items()}
+    rep = dict(root=str(root), phase=args.phase, card=card,
+               seconds=time.perf_counter() - t, failures=failures,
+               ptxas=ptxas,
+               cases=[{k: c.get(k) for k in KEYS if k in c} for c in cases])
+    line = json.dumps(rep)
+    print(line)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(line + "\n")
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

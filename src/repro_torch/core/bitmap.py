@@ -7,7 +7,8 @@ present 32-bit value) paired with containers holding the low halves
 algebra with its fast counts and similarity joins (through
 ``repro_torch.core.pairwise``), the wide aggregates (through
 ``repro_torch.core.aggregate``), run optimization, memory accounting and
-rank/select.  Serialization is not ported yet.
+rank/select and the three serialization formats (through
+``repro_torch.core.serde``, byte for byte the JAX package's).
 
 The top level is scalar python (as in CRoaring the top level is scalar C);
 all heavy lifting happens inside the vectorized container layer.
@@ -388,6 +389,51 @@ class RoaringBitmap:
         return aggregate.threshold_many(bitmaps, t, weights=weights,
                                         arena=arena, device=device,
                                         mesh=mesh)
+
+    # ------------------------------------------------------------------
+    # serialization (paper section 5.1; docs/FORMAT.md)
+    # ------------------------------------------------------------------
+
+    def serialize(self, format: str = "rj02") -> bytes:
+        """Serialize to one of the three wire formats (docs/FORMAT.md):
+        ``"rj02"`` (private, CRC-checksummed), ``"portable"`` (the
+        CRoaring/RoaringFormatSpec interchange layout, paper section
+        5.1) or ``"frozen"`` (zero-copy mmap layout whose deserialize
+        is pure views).  Returns ``bytes``, identical to the JAX
+        package's; complexity O(payload bytes).  Module-level twins live
+        in ``repro_torch.core.serde``."""
+        from repro_torch.core import serde
+        try:
+            fn = {"rj02": serde.serialize,
+                  "portable": serde.serialize_portable,
+                  "frozen": serde.serialize_frozen}[format]
+        except KeyError:
+            raise ValueError(
+                f"unknown serialization format {format!r}") from None
+        return fn(self)
+
+    @classmethod
+    def deserialize(cls, buf, format: str = "auto") -> "RoaringBitmap":
+        """Parse any of the three wire formats (docs/FORMAT.md).
+
+        Args: ``buf`` bytes-like (or ``np.memmap`` for the frozen
+        zero-copy path); ``format`` one of ``"auto"`` (sniff the
+        magic/cookie), ``"rj02"``, ``"portable"``, ``"frozen"``.
+
+        Returns a RoaringBitmap (frozen buffers yield view-backed
+        containers -- zero payload copies).  Raises ``ValueError``
+        with byte offset + container index on corruption."""
+        from repro_torch.core import serde
+        if format == "auto":
+            format = serde.sniff_format(buf)
+        try:
+            fn = {"rj02": serde.deserialize,
+                  "portable": serde.deserialize_portable,
+                  "frozen": serde.deserialize_frozen}[format]
+        except KeyError:
+            raise ValueError(
+                f"unknown serialization format {format!r}") from None
+        return fn(buf)
 
     # ------------------------------------------------------------------
     # maintenance (paper: run_optimize / shrink_to_fit)

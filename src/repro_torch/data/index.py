@@ -1,7 +1,8 @@
 """A small inverted index on Roaring bitmaps -- the paper's motivating
 application (section 1: "inverted indexes map query terms to document
-identifiers").  The boolean, count and similarity query surface of the JAX
-package's ``data/index.py``; ``load_index`` is not ported yet.
+identifiers").  The port of the JAX package's ``data/index.py``: the
+boolean, count and similarity query surface, and ``load_index``, the cold
+start over a snapshot archive (``core.serde``).
 """
 
 from __future__ import annotations
@@ -56,16 +57,23 @@ class InvertedIndex:
     @classmethod
     def from_postings(cls, postings, n_docs: int, *, arena=None,
                       device=None) -> "InvertedIndex":
-        """Wrap pre-built posting lists.
+        """Wrap pre-built posting lists -- the snapshot cold-start
+        constructor (``load_index`` and ``StreamingIndexBuilder.finalize``
+        route through here).
 
-        Args: ``postings`` a mapping of term -> RoaringBitmap (copied into
-        a plain dict); ``n_docs`` the document-id space size; ``arena`` an
-        optional BitmapArena -- when given, all postings are bulk-promoted
-        with ``arena.adopt_frozen`` (one batched conversion, one transfer)
-        so every query is warm from the start; ``device`` as for the
-        constructor."""
+        Args: ``postings`` a mapping of term -> RoaringBitmap.  A lazy
+        ``serde.LazyBitmaps`` mapping (what ``read_snapshot`` returns) is
+        kept AS the postings store, so entries stay unmaterialized until a
+        query touches them; any other mapping is copied into a plain dict.
+        ``n_docs`` the document-id space size; ``arena`` an optional
+        BitmapArena -- when given, all postings are materialized and
+        bulk-promoted with ``arena.adopt_frozen`` (one batched conversion,
+        one transfer) so every query is warm from the start; ``device``
+        as for the constructor."""
+        from repro_torch.core import serde
         idx = cls(arena=arena, device=device)
-        idx.postings = dict(postings)
+        idx.postings = (postings if isinstance(postings, serde.LazyBitmaps)
+                        else dict(postings))
         idx.n_docs = int(n_docs)
         if arena is not None:
             arena.adopt_frozen(idx.postings.values())
@@ -242,3 +250,30 @@ class InvertedIndex:
 
     def memory_bytes(self) -> int:
         return sum(bm.memory_bytes() for bm in self.postings.values())
+
+
+def load_index(path, *, arena=None, mmap: bool = True,
+               device=None) -> InvertedIndex:
+    """Map an on-disk snapshot archive straight into a queryable index.
+
+    The cold-start path (docs/FORMAT.md section 3): the archive written
+    by ``StreamingIndexBuilder.finalize`` (or ``serde.write_snapshot``,
+    in either package: the bytes are the same) is mapped read-only, every
+    posting list becomes numpy views over the mapped buffer (zero payload
+    copies, pages fault in on first touch), and -- when ``arena`` is
+    given -- the whole set is promoted to the device slab in one batched
+    transfer.
+
+    Args: ``path`` the snapshot file; ``arena`` optional BitmapArena for
+    device-warm queries; ``mmap=False`` reads the file into memory
+    instead (same views, private buffer); ``device`` where queries run
+    without an arena, "cuda" by default (with an arena, its device).
+
+    Returns an InvertedIndex whose ``n_docs`` is the archive's ``meta``
+    field.  Raises ``ValueError`` on a corrupt archive.  Complexity:
+    O(terms + containers) directory work; payload bytes are only touched
+    by queries (or the arena promotion)."""
+    from repro_torch.core import serde
+    snap = serde.read_snapshot(path, mmap=mmap)
+    return InvertedIndex.from_postings(snap.bitmaps, snap.meta, arena=arena,
+                                       device=device)

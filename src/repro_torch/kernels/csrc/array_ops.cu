@@ -26,19 +26,35 @@
 // hundred values a row, as at 0.1% density, the bytes dominate, and at
 // the count's few bytes a row, latency does.
 //
-// Design of the mask kernels: one block of 256 threads per row, every mask
-// slot written by exactly one thread from its own search, so the masks are
-// deterministic with no atomics, and the count is a block reduction of A's
-// hits.
-//  * array_intersect_kernel stages only B's valid prefix in shared memory
-//    (at most 16 KiB, with 16-byte loads).  A thread owns four 16-byte
-//    groups of four A slots (a warp reads 512 contiguous bytes), loads a
-//    group only when it starts below A's card, binary-searches its valid
-//    values in B's prefix and writes all four mask slots with one 16-byte
-//    store, zeros included.
-//  * array_pair_kernel stages both rows' valid prefixes (2 x 16 KiB); each
-//    thread binary-searches each of its A slots in B's prefix, and each of
-//    its B slots in A's prefix.
+// Design of the A-side kernel (array_intersect_kernel): a block of 256
+// threads a row, the zero tail first.  At the path's mean card of about 64,
+// 1,008 of a row's 1,024 16-byte mask groups are zeros whatever A and B
+// hold: every group from ceil(a_card / 4) on.  A thread stores its share of
+// them (streaming stores: nothing here reads the mask again) as soon as the
+// clamped card has arrived, before any value of A or B is loaded and before
+// any barrier, so every SM has stores in flight one DRAM round trip into
+// the launch (256 rows at M = 256 are two blocks on most of the 132 SMs).
+// Then B's valid prefix goes to shared memory, all of it (16 KiB holds a
+// full row, so every probe is a shared-memory load) with every load in
+// flight at once, while each thread's valid A groups come to registers;
+// one barrier; each thread searches the four slots of each of its valid
+// groups in lock step with `found`'s probes, branch-free, writes the group
+// with one 16-byte store and adds its hits; __reduce_add_sync and a second
+// barrier sum the block.  A full-card row spreads its 4,096 searches over
+// all eight warps (16 a thread), not one warp's chain; such rows are bound
+// by the search's instructions (13 steps of about 8 a slot), not bytes.
+// The first values of each side are asked for in the same round trip as
+// the cards, so a path row needs one DRAM round trip, not two, before its
+// searches: 128 of each (all of a path row) at launches of up to 2,048
+// rows, where latency sets the time, and 64 past that, where the extra
+// bytes cost more than the round trip they save (on an H100 the wider
+// choice was the slower at M = 8,192, the narrower at M = 256).
+// Design of the pair kernel (array_pair_kernel): one block of 256 threads
+// per row, every mask slot written by exactly one thread from its own
+// search, so the masks are deterministic with no atomics, and the count is
+// a block reduction of A's hits.  It stages both rows' valid prefixes (2 x
+// 16 KiB); each thread binary-searches each of its A slots in B's prefix,
+// and each of its B slots in A's prefix.
 // Design of the count (intersect_card_kernel): a warp a row, four rows a
 // block.  At the path's mean card of about 64, a block a row left 192 of
 // 256 threads idle and paid two barriers and a block reduction for half a
@@ -106,41 +122,124 @@ __device__ __forceinline__ unsigned block_sum(unsigned v) {
   return total;
 }
 
+// Hits of the four A slots s0 .. s0 + 3 (values v) in the sorted s[0 ..
+// nb): `found`'s probes, `steps` of them, the four searches in lock step
+// and branch-free; a finished search (lo == hi) takes the "not less" side,
+// which keeps its bounds.  s has kArrayCap + 4 slots, so a probe at mid =
+// nb = 4,096 needs no clamp.  A slot at or past na never matches.
+__device__ __forceinline__ int4 found4(const int32_t* s, int nb, int steps,
+                                       int4 v, int s0, int na) {
+  const int val[4] = {v.x, v.y, v.z, v.w};
+  int lo[4], hi[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    lo[q] = 0;
+    hi[q] = s0 + q < na ? nb : 0;
+  }
+  for (int d = 0; d < steps; ++d) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int mid = (lo[q] + hi[q]) >> 1;
+      const int x = s[mid];
+      const bool up = (lo[q] < hi[q]) & (x < val[q]);
+      lo[q] = up ? mid + 1 : lo[q];
+      hi[q] = up ? hi[q] : mid;
+    }
+  }
+  int hit[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    hit[q] = (s0 + q < na) & (lo[q] < nb) & (s[lo[q]] == val[q]);
+  }
+  return make_int4(hit[0], hit[1], hit[2], hit[3]);
+}
+
+// 16-byte groups of each side asked for with the cards: 32 (all of a path
+// row) at launches of up to kEarlyRows rows, where latency sets the time;
+// 16 past that, where the bytes do.
+constexpr int kEarlyWide = 32;
+constexpr int kEarlyNarrow = 16;
+constexpr int64_t kEarlyRows = 2048;
+
+template <int kEarly>
 __global__ void __launch_bounds__(kThreads)
 array_intersect_kernel(const int4* __restrict__ a,
                        const int32_t* __restrict__ a_card,
                        const int4* __restrict__ b,
                        const int32_t* __restrict__ b_card,
                        int4* __restrict__ mask, int32_t* __restrict__ count) {
-  __shared__ __align__(16) int32_t s_b[kArrayCap];
+  __shared__ __align__(16) int32_t s_b[kArrayCap + 4];
+  __shared__ unsigned warp_sum[kThreads / 32];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
   const int64_t row = blockIdx.x;
-  const int na = min(max(__ldg(a_card + row), 0), kArrayCap);
-  const int nb = min(max(__ldg(b_card + row), 0), kArrayCap);
+  const int4* ar = a + row * kSlotVecs;
   const int4* br = b + row * kSlotVecs;
-  for (int g = threadIdx.x; 4 * g < nb; g += kThreads) {
-    reinterpret_cast<int4*>(s_b)[g] = __ldg(br + g);
+  int4* mr = mask + row * kSlotVecs;
+  const int4 zero = make_int4(0, 0, 0, 0);
+  const int na_in = __ldg(a_card + row);
+  const int nb_in = __ldg(b_card + row);
+  // A's group t (threads below kEarly) and B's group t - kEarly (the next
+  // kEarly threads), asked for in the same round trip as the cards: always
+  // inside the row's 4,096 slots, whatever the cards say.
+  int4 early = zero;
+  if (t < 2 * kEarly) early = __ldg(t < kEarly ? ar + t : br + t - kEarly);
+  const int na = min(max(na_in, 0), kArrayCap);
+  const int nb = min(max(nb_in, 0), kArrayCap);
+  const int ga = (na + 3) >> 2;     // groups holding a slot below na
+  const int gb = (nb + 3) >> 2;
+  // 1. the zero tail: groups ga .. 1023, depending on the card alone;
+  // streaming stores, since this launch never reads the mask again
+#pragma unroll
+  for (int j = 0; j < kSlotVecsPerThread; ++j) {
+    const int g = j * kThreads + t;
+    if (g >= ga) __stcs(mr + g, zero);
+  }
+  // 2. B's valid prefix to shared memory, every load in flight at once
+  // (slots past nb may hold anything: no search reads them as B); A's
+  // valid groups to registers, group j * 256 + t in v[j]
+  int4* sb4 = reinterpret_cast<int4*>(s_b);
+  if (t >= kEarly && t < 2 * kEarly) sb4[t - kEarly] = early;
+  int4 rest[kSlotVecsPerThread];
+#pragma unroll
+  for (int k = 0; k < kSlotVecsPerThread; ++k) {
+    const int g = kEarly + k * kThreads + t;
+    rest[k] = g < gb ? __ldg(br + g) : zero;
+  }
+  int4 v[kSlotVecsPerThread];
+#pragma unroll
+  for (int j = 0; j < kSlotVecsPerThread; ++j) {
+    const int g = j * kThreads + t;
+    v[j] = j == 0 && t < kEarly ? early : g < ga ? __ldg(ar + g) : zero;
+  }
+#pragma unroll
+  for (int k = 0; k < kSlotVecsPerThread; ++k) {
+    const int g = kEarly + k * kThreads + t;
+    if (g < gb) sb4[g] = rest[k];
   }
   __syncthreads();
-  const int4* ar = a + row * kSlotVecs;
-  int4* mr = mask + row * kSlotVecs;
+  // 3. the valid groups: four searches each, one 16-byte store
+  const int steps = 32 - __clz(nb);  // found's most steps over nb values
   unsigned acc = 0u;
 #pragma unroll
   for (int j = 0; j < kSlotVecsPerThread; ++j) {
-    const int g = j * kThreads + threadIdx.x;      // slots 4g .. 4g + 3
-    const int s = 4 * g;
-    int4 m = make_int4(0, 0, 0, 0);
-    if (s < na) {
-      const int4 v = __ldg(ar + g);
-      m.x = found(s_b, nb, v.x);
-      m.y = s + 1 < na ? found(s_b, nb, v.y) : 0;
-      m.z = s + 2 < na ? found(s_b, nb, v.z) : 0;
-      m.w = s + 3 < na ? found(s_b, nb, v.w) : 0;
+    const int g = j * kThreads + t;
+    if (g < ga) {
+      const int4 m = found4(s_b, nb, steps, v[j], 4 * g, na);
+      mr[g] = m;
       acc += m.x + m.y + m.z + m.w;
     }
-    mr[g] = m;
   }
-  const unsigned total = block_sum(acc);
-  if (threadIdx.x == 0) count[row] = static_cast<int32_t>(total);
+  // 4. the count
+  acc = __reduce_add_sync(0xffffffffu, acc);
+  if (lane == 0) warp_sum[t >> 5] = acc;
+  __syncthreads();
+  if (t == 0) {
+    unsigned total = 0u;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) total += warp_sum[w];
+    count[row] = static_cast<int32_t>(total);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -392,8 +491,10 @@ extern "C" int array_intersect_cuda(const void* a, const void* a_card,
                                     void* stream) {
   if (m == 0) return 0;
   if (m < 0 || m > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  array_intersect_kernel<<<static_cast<unsigned>(m), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = m <= kEarlyRows ? array_intersect_kernel<kEarlyWide>
+                                 : array_intersect_kernel<kEarlyNarrow>;
+  kernel<<<static_cast<unsigned>(m), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int4*>(a), static_cast<const int32_t*>(a_card),
       static_cast<const int4*>(b), static_cast<const int32_t*>(b_card),
       static_cast<int4*>(mask), static_cast<int32_t*>(count));

@@ -948,6 +948,66 @@ def test_array_intersect_kernel_matches_plain(cuda, m):
         assert want[0][7, :4].tolist() == [1, 1, 0, 0]
 
 
+def _row12_case(rng, kind, m):
+    """Rows for the A-side intersection's cases: ``tree`` A at 4,096
+    values against B of 513 to 4,000 values (past 512), half of them A's;
+    ``full`` both sides at 4,096, identical on even rows; ``off`` the
+    value 65537 at A's last valid slot beside B padded with 65537, a
+    negative card on either side, cards above 4,096 on either side, and
+    A unsorted with repeats; ``mixed`` cards cycling through 0, 1, 64 and
+    4,096 on each side, out of step."""
+    a = np.zeros((m, ARRAY_CAP), np.int32)
+    b = np.zeros((m, ARRAY_CAP), np.int32)
+    if kind == "tree":
+        ac = np.full(m, 4096)
+        bc = rng.integers(513, 4001, m)
+    elif kind == "full":
+        ac = bc = np.full(m, 4096)
+    elif kind == "off":
+        ac = np.resize(np.array([300, -1, 64, 5000, 4095, 40]), m)
+        bc = np.resize(np.array([200, 64, -7, 100, 4097, 64]), m)
+    else:
+        ac = np.resize(np.array([0, 1, 64, 4096]), m)
+        bc = np.resize(np.array([4096, 64, 1, 0, 64, 4096, 1]), m)
+    for r in range(m):
+        na, nb = np.clip([ac[r], bc[r]], 0, ARRAY_CAP)
+        x = np.sort(rng.choice(1 << 16, na, replace=False))
+        own = rng.choice(1 << 16, nb, replace=False)
+        y = np.union1d(x[::2], own)[:nb]
+        if kind == "full" and r % 2 == 0:
+            y = x
+        a[r, :na], b[r, :y.size] = x, y
+    if kind == "off":
+        a[0::6, 299], b[0::6, 200:] = 65537, 65537
+        a[5::6, :40] = rng.integers(0, 1 << 16, (a[5::6].shape[0], 40))
+        a[5::6, 10:20] = a[5::6, :1]
+    return a, ac.astype(np.int32), b, bc.astype(np.int32)
+
+
+@pytest.mark.parametrize("kind,m", [("tree", 64), ("full", 64),
+                                    ("off", 48), ("mixed", 1027),
+                                    ("mixed", 2049), ("tree", 2049)])
+def test_array_intersect_kernel_cases(cuda, kind, m):
+    """Each mask, count and difference bit-equal to the plain versions,
+    at row counts on both sides of the kernel's early-load limit (2,048
+    rows)."""
+    x = _row12_case(np.random.default_rng(m + len(kind)), kind, m)
+    args = [_i32(v, cuda) for v in x]
+    want = ref.array_intersect_mask(*args)
+    array_ops.reset_launches()
+    got = array_ops.array_intersect(*args)
+    keep, diff = array_ops.array_difference(*args)
+    again = array_ops.array_intersect(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+    ck, cd = array_ops.array_difference(*[v.cpu() for v in args])
+    assert torch.equal(keep.cpu(), ck) and torch.equal(diff.cpu(), cd)
+    assert array_ops.launches_by_kernel["array_intersect"] == 3
+    if kind == "off":
+        assert int(got[0][0, 299]) == 0          # 65537 never matches
+
+
 def test_section4_ops_route_to_the_kernels_by_default(cuda):
     a, b, _ = _pair_words(np.random.default_rng(90), 16)
     ta, tb = _i32(a, cuda), _i32(b, cuda)
