@@ -87,7 +87,9 @@ toolkit (``nvcc``).  Phases, each timed:
    The split count P (the grid blocks a row's keys are split over) is
    the wrapper's (8 at the live shape, one wave of the card; 1 at B =
    64) and forced to 1, 4, 9 (a wave and a tail), 16 and S / bs = 64 at
-   the live shape, each timed, and to 16 in float32.
+   the live shape, each timed, and to 16 in float32; and at Jamba's
+   decode shape (Hkv = 8, so g = 4 query heads a KV head, softcap 0),
+   timed beside its bound, the plain version and SDPA.
    float32 within atol = rtol = 2e-5, bfloat16 within one bf16 ulp of
    each (sequence, head) row's largest output (the ratio printed), rows
    with no visible position exactly 0; every case twice, bit for bit;
@@ -205,7 +207,36 @@ toolkit (``nvcc``).  Phases, each timed:
    for each part; segment_reduce must launch in the reload, in the
    ingest's ``finalize`` and in its queries.
 
-Launch counts are set to 0 just before each of phases 3 to 11 (and each
+12. Jamba-v0.1 (``configs/jamba_v01_52b.py``) served at full width after
+   phase 10 has released its model, with 16 of its 32 layers (two of its
+   four 8-layer periods: 14 mamba and 2 global layers, 8 MoE and 8 dense
+   ffns; 26,053,595,136 random bfloat16 parameters from ``--seed``, since
+   the 32 layers' 103 GB exceed the card's 80 GB): phase 10's traffic
+   (``Engine(max_seq=8192, BlockPolicy(1, 8))``, B = 4 prompts of 5,120
+   tokens, 32 new tokens greedily, then 32 under a ``lexicon_constraint``,
+   every token in the set and every page free after ``release_all``).
+   The decode attention kernel launches 2 times a new token (once a global
+   layer) and never in prefill.  From the state after the first prefill:
+   ``decode_step(backend="ref")`` against the kernel's step (logits within
+   8 bf16 ulps of the largest, each global layer's kernel output within
+   phase 2g's limit), and a second kernel step from the same state giving
+   the same logits bit for bit (the mamba state is not written in place).
+   The first mamba layer's real prefill input at full width (B = 4, 5,120
+   tokens, di 8,192, ds 16) through the chunked selective scan and the
+   per-token float32 recurrence on the card: outputs and final h within
+   1e-5 of the largest magnitude, and the prefill's own h equal to the
+   scan's.  Printed: prefill seconds, decode ms a step (p50, p99),
+   tokens/s, a profiler window over four steps (idle share, the kernel's
+   share of device time, the top device ops), the step's bytes bound
+   (every dense, attention and mamba weight, only the routed experts, the
+   visible K/V rows and the mamba states), the peak device memory, the
+   MoE ``dropped_fraction`` in prefill and in decode, and, from forward
+   hooks, the first MoE layer's ``expert_idx`` of the first prefill
+   through ``routing_sets``, ``load_balance_stats``,
+   ``expert_overlap_matrix`` and ``routing_drift`` against the second
+   prefill of the same prompts.
+
+Launch counts are set to 0 just before each of phases 3 to 12 (and each
 part of 11) and read just after it; a kernel that a phase's path runs and that launched no time
 there fails the script.  Then one JSON line with every kernel's numbers,
 and the last line ``{"ok": true, "device": {...}}``.
@@ -3708,6 +3739,7 @@ def phase_bsa_kernel(dev, seed, failures):
         (f"live/P={n_live_blocks}", dict(L), 50.0, {}, n_live_blocks),
         ("live/softcap=0", dict(L), 0.0, {}, None),
         ("live/softcap=0/full", dict(L), 0.0, dict(words=full_words), None),
+        ("jamba (g=4)", dict(L, hkv=8), 0.0, {}, None),
         ("empty mask", dict(L, s=2048), 50.0, dict(
             words=torch.zeros((4, 1), dtype=torch.int32, device=dev)), None),
         ("kv_len 0/1/mid/S, bits past kv_len", dict(L, s=2048), 50.0, dict(
@@ -3783,7 +3815,7 @@ def phase_bsa_kernel(dev, seed, failures):
                    combine_ok=comb_ok, empty_rows=int(empty.sum()),
                    visible_positions=n_vis, bytes=nbytes,
                    bound_ms=bound_ms, bound_by=bound_by)
-        if name.startswith("live"):
+        if name.startswith(("live", "jamba")):
             row.update(ms=_device_ms(kern, 50), plain_ms=_device_ms(plain, 5),
                        event_ms=_time_ms(kern, 50)[1],
                        event_plain_ms=_time_ms(plain, 5)[1])
@@ -4107,6 +4139,369 @@ def phase_serving(dev, seed, failures):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: Jamba-v0.1 serving at full width, 16 of its 32 layers
+# ---------------------------------------------------------------------------
+
+JAMBA_LAYERS = 16
+CARD_BYTES = 80e9
+
+
+class _MoEHooks:
+    """Forward hooks on every MoE layer: each call's ``dropped_fraction``
+    (kept on the card until read), the routed experts of each decode call,
+    and the first MoE layer's ``expert_idx`` of every prefill."""
+
+    def __init__(self, model):
+        from repro_torch.models.mlp import MoE
+        self.dropped = {"prefill": [], "decode": []}
+        self.prefill_idx, self.decode_idx, self.handles = [], [], []
+        layers = [b.ffn for b in model.layers if isinstance(b.ffn, MoE)]
+        for j, moe in enumerate(layers):
+            self.handles.append(moe.register_forward_hook(
+                lambda mod, inp, out, j=j: self._seen(j, inp[0], out[1])))
+
+    def _seen(self, j, x, metrics):
+        kind = "prefill" if x.shape[1] > 1 else "decode"
+        self.dropped[kind].append(metrics["dropped_fraction"])
+        if kind == "prefill" and j == 0:
+            self.prefill_idx.append(metrics["expert_idx"])
+        elif kind == "decode":
+            self.decode_idx.append(metrics["expert_idx"])
+
+    def dropped_fraction(self, kind):
+        vals = torch.stack(self.dropped[kind]).float().cpu().numpy()
+        return dict(calls=len(vals), mean=float(vals.mean()),
+                    max=float(vals.max()))
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+
+
+def _jamba_step_bound(model, kv_len, words, routed):
+    """Least time of one decode step, in ms, and its bytes: every weight
+    the step reads once (every dense, attention and mamba weight, the LM
+    head, the B embedding rows it looks up, and of each MoE layer only the
+    experts this step routed to: ``routed[j]`` of them in MoE layer j),
+    each global layer's K and V rows at visible valid positions, each
+    mamba layer's state read and its new state written, over the HBM
+    rate."""
+    from repro_torch.models.mlp import MoE
+    cfg, b = model.cfg, len(kv_len)
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    emb = model.embed
+    w_bytes -= (emb.shape[0] - b) * emb.shape[1] * emb.element_size()
+    moes = [blk.ffn for blk in model.layers if isinstance(blk.ffn, MoE)]
+    for moe, n in zip(moes, routed, strict=True):
+        per_expert = sum(w[0].numel() * w.element_size()
+                         for w in (moe.wg, moe.wu, moe.wd))
+        w_bytes -= (cfg.n_experts - n) * per_expert
+    row = cfg.n_kv_heads * cfg.hd * 2 * 2              # K and V, bf16
+    vis = int(_visible_positions(words, torch.tensor(
+        kv_len, dtype=torch.int32, device=words.device), SERVE_MAX_SEQ,
+        cfg.attn_block_size).sum()) * row
+    kinds = [m for m, _ in cfg.layer_kinds]
+    di = cfg.ssm_expand * cfg.d_model
+    state = b * di * ((cfg.ssm_d_conv - 1) * 2 + cfg.ssm_d_state * 4)
+    nbytes = w_bytes + kinds.count("global") * vis \
+        + kinds.count("mamba") * 2 * state
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def _scan_check(model, cfg, h_in):
+    """The first mamba layer's chunked selective scan against the per-token
+    float32 recurrence on the same inputs, on the card: the largest
+    difference of the float32 outputs and of the final h, each over the
+    recurrence's largest magnitude."""
+    from repro_torch.models import ssm
+    mixer = model.layers[0].mixer
+    with torch.no_grad():
+        _, _, xi, dt, bmat, cmat = ssm.scan_inputs(h_in, mixer, cfg)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y, h = ssm.selective_scan(xi, dt, bmat, cmat, mixer.A_log,
+                                  cfg.ssm_chunk, torch.float32)
+        torch.cuda.synchronize()
+        scan_s = time.perf_counter() - t
+        t = time.perf_counter()
+        y_ref, h_ref = ssm.selective_scan_steps(xi, dt, bmat, cmat,
+                                                mixer.A_log)
+        torch.cuda.synchronize()
+        steps_s = time.perf_counter() - t
+    out = dict(
+        shape=list(xi.shape), d_state=cfg.ssm_d_state, chunk=cfg.ssm_chunk,
+        y_err=float((y - y_ref).abs().max() / y_ref.abs().max()),
+        h_err=float((h - h_ref).abs().max() / h_ref.abs().max()),
+        y_max=float(y_ref.abs().max()), h_max=float(h_ref.abs().max()),
+        finite=bool(torch.isfinite(y).all() and torch.isfinite(h).all()),
+        scan_s=scan_s, steps_s=steps_s)
+    return out, h
+
+
+def phase_jamba(dev, seed, failures):
+    """Jamba-v0.1 served at full width with 16 of its 32 layers (see the
+    module docstring, phase 12)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import block_sparse_attn as bsa
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve import (BlockPolicy, Engine, expert_overlap_matrix,
+                                   lexicon_constraint, load_balance_stats,
+                                   routing_drift, routing_sets)
+    _reset_counts()                       # the Jamba path starts here
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev)
+    full = configs.get_config("jamba_v01_52b")
+    cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS)
+    kinds = [m for m, _ in cfg.layer_kinds]
+    ffns = [f for _, f in cfg.layer_kinds]
+    n_global = kinds.count("global")
+    t = time.perf_counter()
+    model = Transformer(cfg, device=dev,
+                        generator=torch.Generator(dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    block_bytes = sum(p.numel() * p.element_size()
+                      for p in model.layers.parameters())
+    full_bytes = w_bytes - block_bytes + block_bytes * (
+        full.n_layers // cfg.n_layers)
+    log(f"  Jamba-v0.1: n_layers {full.n_layers} -> {cfg.n_layers}: "
+        f"{full_bytes / 1e9:.1f} GB of bf16 weights exceed the card's "
+        f"{CARD_BYTES / 1e9:.0f} GB; kept {kinds.count('mamba')} mamba and "
+        f"{n_global} global layers, {ffns.count('moe')} MoE ({cfg.n_experts} "
+        f"experts, top {cfg.moe_top_k}) and {ffns.count('mlp')} dense ffns, "
+        f"d {cfg.d_model}, {n_params} parameters, {w_bytes} bytes, random "
+        f"from seed {seed} in {init_s:.1f} s; allocated before {mem0} bytes")
+    hooks = _MoEHooks(model)
+    scan_in = []
+    first_mamba = model.layers[0].ln1.register_forward_hook(
+        lambda mod, inp, out: scan_in.append(out)
+        if not scan_in and out.dim() == 3 else None)
+    timed = _TimedModel(model)
+    eng = Engine(model, max_seq=SERVE_MAX_SEQ, policy=BlockPolicy(1, 8))
+    eng.model = timed
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab, (SERVE_B, SERVE_PROMPT)).astype(np.int32)
+
+    # 1. greedy generation
+    t = time.perf_counter()
+    out = eng.generate(prompts, SERVE_NEW)
+    gen_s = time.perf_counter() - t
+    first_mamba.remove()
+    launches = bsa.launches
+    want = n_global * SERVE_NEW
+    ok_shape = out.shape == (SERVE_B, SERVE_NEW) and bool(
+        ((out >= 0) & (out < cfg.vocab)).all())
+    steps = np.asarray(timed.step_ms)
+    log(f"  generate: {SERVE_B} x {SERVE_PROMPT} prompt tokens, "
+        f"{SERVE_NEW} new: prefill {timed.prefill_s[0]:.2f} s, decode "
+        f"p50 {np.percentile(steps, 50):.2f} ms p99 "
+        f"{np.percentile(steps, 99):.2f} ms a step, "
+        f"{SERVE_B * SERVE_NEW / (steps.sum() / 1e3):.1f} tokens/s "
+        f"decoding, {SERVE_B * SERVE_NEW / gen_s:.1f} end to end; "
+        f"decode_attention launches {launches} (want {want}), in prefill "
+        f"{timed.prefill_launches[0]}; tokens {out[:, :8].tolist()}")
+    if not ok_shape:
+        failures.append(f"jamba: tokens {out.shape} outside the vocab")
+    if launches != want or timed.prefill_launches[0]:
+        failures.append(f"jamba: decode_attention launched {launches} "
+                        f"times in generate (want {want}), "
+                        f"{timed.prefill_launches[0]} in prefill")
+
+    # 2. the kernel against the plain version, from the state after
+    # prefill; then the kernel's step again from the same state
+    p_logits, state = timed.kept
+    timed.kept = None
+    tok0 = torch.argmax(p_logits, dim=-1).to(torch.int32)
+    words = eng._mask_words([SERVE_PROMPT + 1] * SERVE_B)
+    ref_logits = model.decode_step(state, tok0, words, backend="ref")[0]
+    calls, kernel_fn = [], bsa.decode_attention
+
+    def recorded(q, k, v, w, kvl, **kw):
+        o = kernel_fn(q, k, v, w, kvl, **kw)
+        calls.append((q, k, v, w, kvl, kw, o))
+        return o
+
+    hooks.decode_idx.clear()
+    bsa.decode_attention = recorded         # ops reaches it by attribute
+    try:
+        ker_logits = model.decode_step(state, tok0, words)[0]
+    finally:
+        bsa.decode_attention = kernel_fn
+    routed = [len(torch.unique(i)) for i in hooks.decode_idx]
+    again = model.decode_step(state, tok0, words)[0]
+    torch.cuda.synchronize()
+    same_again = bool(torch.equal(again, ker_logits))
+    fault_words = _drop_last_block(words, SERVE_PROMPT + 1,
+                                   cfg.attn_block_size)
+    layer_ulps, fault_ulps = _layer_ulps(calls, fault_words)
+    del calls
+    layer_check = dict(layers=len(layer_ulps), max_row_ulps=max(
+        layer_ulps, default=None), row_ulps=layer_ulps,
+        fault_row_ulps=fault_ulps,
+        fault_caught=sum(f > 1.0 for f in fault_ulps),
+        q_heads_per_kv_head=cfg.n_heads // cfg.n_kv_heads)
+    log(f"  kernel vs plain in each global layer at the full-size state "
+        f"(g = {cfg.n_heads // cfg.n_kv_heads}): {len(layer_ulps)} layers, "
+        f"at most {layer_check['max_row_ulps']} row ulps (limit 1); a "
+        f"dropped last block gives "
+        f"{min(fault_ulps, default=0):.4g}-{max(fault_ulps, default=0):.4g}"
+        f", over the limit in {layer_check['fault_caught']} layers")
+    if len(layer_ulps) != n_global or layer_check["max_row_ulps"] > 1.0:
+        failures.append(f"jamba: decode_attention kernel != plain in the "
+                        f"global layers {layer_ulps}")
+    diff = (ker_logits.float() - ref_logits.float()).abs()
+    top = float(ref_logits.float().abs().max())
+    tol = 8 * 2.0 ** (np.floor(np.log2(top)) - 7)      # 8 bf16 ulps at top
+    agree = float((ker_logits.argmax(-1) == ref_logits.argmax(-1))
+                  .float().mean())
+    logit_check = dict(max_abs_diff=float(diff.max()),
+                       mean_abs_diff=float(diff.mean()), max_abs_logit=top,
+                       tolerance=tol, argmax_agreement=agree,
+                       finite=bool(torch.isfinite(ker_logits).all()),
+                       same_logits_again=same_again, layers=layer_check)
+    log(f"  kernel vs plain decode logits: max |diff| "
+        f"{logit_check['max_abs_diff']:.4g} (tolerance {tol:.4g}, 8 bf16 "
+        f"ulps at max |logit| {top:.4g}), mean "
+        f"{logit_check['mean_abs_diff']:.3g}, argmax agreement {agree}; a "
+        f"second kernel step from the same state gives the same logits: "
+        f"{same_again}")
+    if not (logit_check["finite"] and logit_check["max_abs_diff"] <= tol):
+        failures.append(f"jamba: kernel and plain decode logits differ "
+                        f"{logit_check}")
+    if not same_again:
+        failures.append("jamba: a second decode step from the same state "
+                        "gave other logits")
+
+    # 3. a profiler window over four decode steps from that state
+    def window():
+        st, tok = state, tok0
+        for _ in range(4):
+            logits, st = model.decode_step(st, tok, words)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+
+    tr = _traced("jamba decode window", window, dev, names=BSA_KERNELS)
+    busy = tr["span_busy_us"]
+    bsa_us = sum(tr["name_us"][n] for n in BSA_KERNELS)
+    share = bsa_us / busy if busy else None
+    idle = 1.0 - busy / tr["wall_us"] if tr["complete"] else None
+    bound_ms, step_bytes = _jamba_step_bound(
+        model, [SERVE_PROMPT + 1] * SERVE_B, words, routed)
+    log(f"  decode window (4 steps): busy {busy / 1e3:.2f} ms of "
+        f"{tr['wall_us'] / 1e3:.2f} ms ({tr['busy_us'] / 1e3:.2f} ms matched "
+        f"to runtime launches, {tr['cu_launches']} cuLaunchKernel-level "
+        f"calls), idle "
+        + (f"{idle:.4f}" if idle is not None else "not measured")
+        + f", decode_attention {bsa_us:.1f} us ("
+        + (f"{share:.4f}" if share is not None else "not measured")
+        + f" of busy); step bound {bound_ms:.2f} ms ({step_bytes} bytes, "
+        f"routed experts a MoE layer {routed}); top "
+        f"{tr['span_top_kernels'][:6]}")
+
+    # 4. the first mamba layer's scan against the per-token recurrence
+    scan, scan_h = _scan_check(model, cfg, scan_in.pop())
+    scan["prefill_h_equal"] = bool(torch.equal(scan_h, state.h[0]))
+    log(f"  chunked scan vs per-token float32 recurrence, first mamba "
+        f"layer's prefill input {scan['shape']} x ds {scan['d_state']}: "
+        f"outputs {scan['y_err']:.3g}, final h {scan['h_err']:.3g} of the "
+        f"largest magnitude ({scan['y_max']:.4g}, {scan['h_max']:.4g}; "
+        f"limit 1e-5); the prefill's h equal to the scan's "
+        f"{scan['prefill_h_equal']}; scan {scan['scan_s']:.3f} s, "
+        f"recurrence {scan['steps_s']:.3f} s")
+    if not (scan["finite"] and scan["y_err"] <= 1e-5
+            and scan["h_err"] <= 1e-5 and scan["prefill_h_equal"]):
+        failures.append(f"jamba: chunked scan != per-token recurrence "
+                        f"{scan}")
+    del state, p_logits, ref_logits, ker_logits, again, scan_h
+    torch.cuda.empty_cache()
+
+    # 5. constrained generation, then every page back
+    v = cfg.vocab
+    lex = {"digits": np.arange(v // 256, v // 256 + 100),
+           "names": np.arange(v // 5, min(v, v // 5 + 2000))}
+    eng.constraint = lexicon_constraint(cfg.vocab, lex, ["digits", "names"],
+                                        device=dev)
+    allowed = np.concatenate(list(lex.values()))
+    _reset_counts()
+    cout = eng.generate(prompts, SERVE_NEW)
+    c_launches = bsa.launches
+    in_set = bool(np.isin(cout, allowed).all())
+    eng.release_all()
+    free = eng.allocator.n_free == eng.allocator.n_pages
+    log(f"  constrained generate: every token in the set {in_set}, "
+        f"launches {c_launches}, prefill {timed.prefill_s[-1]:.2f} s; "
+        f"after release_all {eng.allocator.n_free} of "
+        f"{eng.allocator.n_pages} pages free")
+    if not in_set or not free or c_launches != want:
+        failures.append(f"jamba: constrained tokens in set {in_set}, "
+                        f"pages free {free}, launches {c_launches}")
+    if any(timed.prefill_launches):
+        failures.append(f"jamba: decode_attention launched in prefill "
+                        f"{timed.prefill_launches}")
+
+    # 6. MoE telemetry from the hooks: drops, and the first MoE layer's
+    # routes of the two prefills of the same prompts as Roaring sets
+    hooks.remove()
+    dropped = {k: hooks.dropped_fraction(k) for k in ("prefill", "decode")}
+    idx0, idx1 = (i.reshape(-1, cfg.moe_top_k) for i in hooks.prefill_idx)
+    t = time.perf_counter()
+    sets = routing_sets(idx0, cfg.n_experts)
+    later = routing_sets(idx1, cfg.n_experts)
+    balance = load_balance_stats(sets)
+    overlap = expert_overlap_matrix(sets, device=dev)
+    drift = routing_drift(sets, later, device=dev)
+    tel_s = time.perf_counter() - t
+    off = overlap[~np.eye(cfg.n_experts, dtype=bool)]
+    telemetry = dict(tokens=int(idx0.shape[0]), loads=[
+        s_.cardinality for s_ in sets], balance=balance,
+        overlap_max=float(off.max()), overlap_mean=float(off.mean()),
+        drift=drift.tolist(), seconds=tel_s, dropped=dropped)
+    pre, dec = dropped["prefill"], dropped["decode"]
+    log(f"  MoE dropped_fraction: prefill mean {pre['mean']:.4f} (max "
+        f"{pre['max']:.4f}, {pre['calls']} calls), decode mean "
+        f"{dec['mean']:.4f} (max {dec['max']:.4f}, {dec['calls']} calls); "
+        f"first MoE layer's routes of {telemetry['tokens']} prefill "
+        f"tokens: loads {telemetry['loads']}, {balance}, expert overlap "
+        f"(Jaccard) max {telemetry['overlap_max']:.4f} mean "
+        f"{telemetry['overlap_mean']:.4f}, drift against the second prefill "
+        f"max {drift.max():.4f}; {tel_s:.2f} s")
+    if sum(telemetry["loads"]) != cfg.moe_top_k * telemetry["tokens"]:
+        failures.append(f"jamba: routing sets hold {sum(telemetry['loads'])}"
+                        f" routes of {telemetry['tokens']} tokens")
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps = np.asarray(timed.step_ms)
+    log(f"  peak device memory {peak} bytes")
+    res = dict(
+        layers=cfg.n_layers, full_layers=full.n_layers, params=n_params,
+        weight_bytes=w_bytes, full_weight_bytes=full_bytes,
+        batch=SERVE_B, prompt=SERVE_PROMPT, max_seq=SERVE_MAX_SEQ,
+        new_tokens=SERVE_NEW, init_s=init_s, generate_s=gen_s,
+        prefill_s=timed.prefill_s, step_ms=timed.step_ms,
+        decode_p50_ms=float(np.percentile(steps, 50)),
+        decode_p99_ms=float(np.percentile(steps, 99)),
+        tokens_per_s=SERVE_B * len(steps) / (steps.sum() / 1e3),
+        generate_tokens_per_s=SERVE_B * SERVE_NEW / gen_s,
+        tokens=out.tolist(), constrained_tokens=cout.tolist(),
+        launches=launches + c_launches, launches_per_generate=[
+            launches, c_launches], prefill_launches=timed.prefill_launches,
+        logits=logit_check, scan=scan, telemetry=telemetry, window=dict(
+            steps=4, wall_us=tr["wall_us"], busy_us=busy,
+            runtime_matched_busy_us=tr["busy_us"],
+            cu_launches=tr["cu_launches"], idle_share=idle,
+            decode_attention_us=bsa_us, decode_attention_share=share,
+            top_kernels=tr["span_top_kernels"]),
+        step_bound_ms=bound_ms, step_bound_bytes=step_bytes,
+        routed_experts=routed, allocated_before=mem0, peak_bytes=peak,
+        in_set=in_set, pages_free=free)
+    del eng, model, timed, hooks
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 def _build_all():
     """Build every kernel source at once, one nvcc each, in parallel.
@@ -4138,8 +4533,9 @@ def _build_all():
 def _kernel_line(main_path, sim, cases, topk_cases, max_err, topk_err,
                  pair_cases, pair_err, pairwise, convert_cases, convert_err,
                  tensor, section4_cases, section4_err, surface, ids_cases,
-                 ids_err, sharded, bsa_cases, bsa_err, serving):
+                 ids_err, sharded, bsa_cases, bsa_err, serving, jamba):
     rep = next(c for c in cases if c["case"] == "main/ids/or")
+    jamba_case = next(c for c in bsa_cases if c["case"] == "jamba (g=4)")
     score = next(c for c in topk_cases
                  if c["case"] == "score/main/jaccard/exclude=-1")
     select = next(c for c in topk_cases if c["case"] == "select/jaccard/k=10")
@@ -4239,16 +4635,22 @@ def _kernel_line(main_path, sim, cases, topk_cases, max_err, topk_err,
                  if c["case"] == "select_ids/merge/M=40/k=10")),
         # the decode attention kernel at Gemma2-27B's decode shape (phase
         # 2g, softcap 50, the engine's mask), device times; launches from
-        # phase 10's two generates; library_ms: one
+        # phase 10's and phase 12's two generates each; library_ms: one
         # F.scaled_dot_product_attention over the expanded boolean mask at
-        # softcap 0 (it has no softcap), the same function there
-        row("decode_attention", "block_sparse_attn.cu",
-            "src/repro/kernels/block_sparse_attn.py:110",
-            serving["launches"], bsa_err,
-            dict(next(c for c in bsa_cases if c["case"] == "live"),
-                 library_ms=next(c for c in bsa_cases
-                                 if c["case"] == "live/softcap=0")[
-                                     "library_ms"]))]}
+        # softcap 0 (it has no softcap), the same function there; and the
+        # same numbers at Jamba's decode shape (g = 4, softcap 0)
+        dict(row("decode_attention", "block_sparse_attn.cu",
+                 "src/repro/kernels/block_sparse_attn.py:110",
+                 serving["launches"] + jamba["launches"], bsa_err,
+                 dict(next(c for c in bsa_cases if c["case"] == "live"),
+                      library_ms=next(c for c in bsa_cases
+                                      if c["case"] == "live/softcap=0")[
+                                          "library_ms"])),
+             launches_by_phase={"10": serving["launches"],
+                                "12": jamba["launches"]},
+             jamba_shape={k: jamba_case[k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "max_abs_err", "shape")})]}
 
 
 def main() -> int:
@@ -4395,17 +4797,25 @@ def main() -> int:
     serving = phase("10 (Gemma2-27B serving at full width and depth)",
                     phase_serving, dev, args.seed, failures)
     bsa_per_phase.append(serving["launches"])
+
+    # phase 12 runs alone on the card too: phase 10 has released its model
+    gc.collect()
+    torch.cuda.empty_cache()
+    jamba = phase("12 (Jamba-v0.1 serving at full width, 16 of 32 layers)",
+                  phase_jamba, dev, args.seed, failures)
+    bsa_per_phase.append(jamba["launches"])
     log("decode_attention launches in phases 3 / 4 / 5 / 6 / 7 / 8 / 9 / "
-        "11 / 10: " + " / ".join(map(str, bsa_per_phase)))
-    if any(bsa_per_phase[:-1]):
-        failures.append(f"decode_attention launched outside phase 10: "
-                        f"{bsa_per_phase}")
+        "11 / 10 / 12: " + " / ".join(map(str, bsa_per_phase)))
+    if any(bsa_per_phase[:-2]):
+        failures.append(f"decode_attention launched outside phases 10 and "
+                        f"12: {bsa_per_phase}")
 
     kernels = _kernel_line(main_path, sim, cases, topk_cases, max_err,
                            topk_err, pair_cases, pair_err, pairwise,
                            convert_cases, convert_err, tensor,
                            section4_cases, section4_err, surface, ids_cases,
-                           ids_err, sharded, bsa_cases, bsa_err, serving)
+                           ids_err, sharded, bsa_cases, bsa_err, serving,
+                           jamba)
     REPORT.parent.mkdir(exist_ok=True)
     REPORT.write_text(json.dumps(dict(
         card=card, builds=builds, kernel_cases=cases,
@@ -4414,7 +4824,8 @@ def main() -> int:
         pairwise=pairwise, convert_cases=convert_cases, tensor=tensor,
         section4_cases=section4_cases, ops_surface=surface,
         ids_cases=ids_cases, sharded=sharded, cold_start=cold,
-        bsa_cases=bsa_cases, serving=serving, bsa_launches_per_phase=bsa_per_phase,
+        bsa_cases=bsa_cases, serving=serving, jamba=jamba,
+        bsa_launches_per_phase=bsa_per_phase,
         kernels=kernels["kernels"],
         phases_s=phases, failures=failures,
         total_s=time.perf_counter() - t_all), indent=1, default=str))

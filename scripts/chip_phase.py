@@ -9,7 +9,9 @@ default); its ``chip_smoke.py`` and ``src/repro_torch`` are the ones run.
 The phase's kernels build at first use, the phase runs once, and its cases
 (kernel, plain version, library and bound times, equality) print as one
 JSON line, with the card's name and power limit; ``--out`` also writes
-them to a file.  Phases: 2, 2b, 2c, 2d, 2e, 2f, 2g (see ``chip_smoke.py``).
+them to a file.  Phases: 2, 2b, 2c, 2d, 2e, 2f, 2g (see ``chip_smoke.py``),
+and the serving phases 10 (Gemma2-27B) and 12 (Jamba-v0.1, a tree that
+has it), which print their end-to-end numbers in place of cases.
 
 Timing two trees on one card, in turns (parent, change, change, parent),
 takes one process per run, since each tree has its own ``repro_torch``:
@@ -33,9 +35,12 @@ from pathlib import Path
 PHASES = {"2": "phase_kernels", "2b": "phase_topk_kernels",
           "2c": "phase_pair_kernels", "2d": "phase_convert_kernels",
           "2e": "phase_section4_kernels", "2f": "phase_ids_kernels",
-          "2g": "phase_bsa_kernel"}
+          "2g": "phase_bsa_kernel", "10": "phase_serving",
+          "12": "phase_jamba"}
 KEYS = ("case", "kernel", "rows", "equal", "ms", "plain_ms", "library_ms",
         "bound_ms", "bound_by", "event_ms")
+SERVING_KEYS = ("prefill_s", "decode_p50_ms", "decode_p99_ms",
+                "tokens_per_s", "step_bound_ms", "peak_bytes", "launches")
 
 
 def main() -> int:
@@ -59,14 +64,20 @@ def main() -> int:
     t = time.perf_counter()
     out = getattr(smoke, PHASES[args.phase])(torch.device("cuda"), args.seed,
                                              failures)
-    cases = out[0] if isinstance(out, tuple) else out
     from repro_torch.kernels import _build
     ptxas = {name: [ln.strip() for ln in log.splitlines() if "Used" in ln]
              for name, log in _build.build_logs.items()}
     rep = dict(root=str(root), phase=args.phase, card=card,
                seconds=time.perf_counter() - t, failures=failures,
-               ptxas=ptxas,
-               cases=[{k: c.get(k) for k in KEYS if k in c} for c in cases])
+               ptxas=ptxas)
+    if isinstance(out, dict):                   # a serving phase
+        rep["serving"] = dict({k: out[k] for k in SERVING_KEYS},
+                              idle_share=out["window"]["idle_share"],
+                              window_busy_us=out["window"]["busy_us"])
+    else:
+        cases = out[0] if isinstance(out, tuple) else out
+        rep["cases"] = [{k: c.get(k) for k in KEYS if k in c}
+                        for c in cases]
     line = json.dumps(rep)
     print(line)
     if args.out:

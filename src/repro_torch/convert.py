@@ -116,7 +116,10 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
     casts them to the model's dtypes) from a JAX parameter tree of numpy
     arrays.  ``prefix_<i>`` is layer ``i``; pattern position ``pi`` of
     repeat ``r`` (the leading axis of ``tree["pattern"][pi]``) is layer
-    ``n_prefix + r * len(pattern) + pi``."""
+    ``n_prefix + r * len(pattern) + pi``.  Nested dicts become dotted keys,
+    so attention, Mamba (``mixer.in_proj``, ``mixer.A_log``, ...), MLP and
+    MoE blocks (``ffn.router``, ``ffn.wg``, ``ffn.shared.w_gate``, ...) map
+    alike."""
     if "frontend_proj" in tree:
         raise NotImplementedError("frontends are not ported yet (ROADMAP "
                                   "Queue 1)")

@@ -1,1 +1,2 @@
-"""repro_torch.data -- the inverted index."""
+"""repro_torch.data -- the inverted index, the ingest pipeline and the
+synthetic dataset twins (``synth``)."""

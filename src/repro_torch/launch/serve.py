@@ -4,9 +4,15 @@ the card unless ``--device`` names another.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \
         --batch 4 --prompt-len 5120 --new-tokens 32 --max-seq 8192
 
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch jamba-v0.1-52b --reduced --device cpu
+
 Weights are random, drawn from ``--seed`` on the device; ``--reduced``
 takes the architecture's small configuration (``--device cpu`` runs it
-without a GPU, on the plain PyTorch versions of the kernels).
+without a GPU, on the plain PyTorch versions of the kernels).  The port
+serves gemma2-27b, qwen2.5-3b, stablelm-3b, qwen3-14b, jamba-v0.1-52b and
+mixtral-8x7b.  A model with Mamba layers (Jamba) takes prompts of at most
+``ssm_chunk`` (128) tokens or a multiple of it.
 """
 
 from __future__ import annotations

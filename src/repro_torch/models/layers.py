@@ -10,7 +10,8 @@ float32, and the probabilities drop to the value dtype for the PV product as
 they do there.  The sharding notes (``ctx.constrain``) are no-ops on one
 device and are dropped.  Parameters are the attributes of the module ``p``
 (``models.transformer.Attention``), stored in the compute dtype; norm
-scales stay float32.
+scales stay float32.  ``weight`` and ``fill`` make every module's
+parameters.
 """
 
 from __future__ import annotations
@@ -21,6 +22,28 @@ import torch
 from repro_torch.kernels import ops as kops
 
 _NEG = -1e30
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+def param(t: torch.Tensor) -> torch.nn.Parameter:
+    return torch.nn.Parameter(t, requires_grad=False)      # serving only
+
+
+def weight(shape, std, dtype, device, generator):
+    """A normal(0, std) weight drawn in float32 from ``generator`` and
+    stored in ``dtype``; without a generator, uninitialised storage for
+    ``load_state_dict``."""
+    if generator is None:
+        return param(torch.empty(shape, dtype=dtype, device=device))
+    return param(torch.randn(shape, generator=generator,
+                             device=device).mul_(std).to(dtype))
+
+
+def fill(shape, value, dtype, device):
+    return param(torch.full(shape, value, dtype=dtype, device=device))
 
 
 # ---------------------------------------------------------------------------

@@ -5,23 +5,27 @@ package's ``repro/models/transformer.py`` for prefill and decode.
 (``cfg.layer_kinds``: the prefix, then the pattern repeated), where the JAX
 package scans stacked parameters.  Its state-dict keys follow the JAX
 parameter tree: ``embed``, ``final_norm.scale``, ``layers.<i>.ln1.scale``,
-``layers.<i>.mixer.wq``, ``layers.<i>.ffn.w_gate``, ...;
+``layers.<i>.mixer.wq`` (or ``.mixer.in_proj`` for Mamba),
+``layers.<i>.ffn.w_gate`` (or ``.ffn.router``, ``.ffn.wg`` for MoE), ...;
 ``convert.params_from_jax`` maps a JAX tree onto them.  Matrices and the
 embedding are stored in the compute dtype, the values JAX's per-use
-``.astype(compute_dtype)`` of its float32 weights gives; norm scales stay
-float32, as JAX reads them.
+``.astype(compute_dtype)`` of its float32 weights gives; norm scales, the
+MoE router and Mamba's ``A_log`` stay float32, as JAX reads them.
 
-The decode state holds one KV cache per layer, ``k[i]`` and ``v[i]`` of
-the layer-major stacks (L, B, Hkv, S, hd): each layer's cache is one
-contiguous (B, Hkv, S, hd) tensor that the decode kernel reads in place.
-``decode_step`` writes the new token's column of every layer's cache in
-place and returns a state with ``pos + 1`` that shares the caches; each
-step writes its own column before it reads, so a step can be run again
-from the same state.
+The decode state keeps one entry a layer, as JAX's ``_mixer_state`` does:
+an attention layer has its own contiguous (B, Hkv, S, hd) K and V caches
+(``state.k[i]``, ``state.v[i]``), which the decode kernel reads in place; a
+mamba layer has no cache but ``state.conv[i]`` (B, dc - 1, di) in the
+compute dtype and ``state.h[i]`` (B, di, ds) float32.  ``decode_step``
+writes the new token's column of every attention cache in place and
+returns a state with ``pos + 1`` that shares the caches, and new mamba
+tensors.  Each step writes its own column before it reads, and leaves the
+mamba state it was given as it was, so a step can be run again from the
+same state.
 
-Mixers ``full``, ``local`` and ``global`` with ffn ``mlp`` are ported;
-any other mixer, ffn or frontend raises NotImplementedError (ROADMAP Queue
-1 lists them).
+Mixers ``full``, ``local``, ``global`` and ``mamba`` with ffns ``mlp`` and
+``moe`` are ported; any other mixer, ffn or frontend raises
+NotImplementedError (ROADMAP Queue 1 lists them).
 """
 
 from __future__ import annotations
@@ -35,41 +39,29 @@ from torch import nn
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.mlp import mlp
+from repro_torch.models.layers import fill, weight
+from repro_torch.models.mlp import MLP, MoE, mlp
+from repro_torch.models.ssm import (
+    Mamba, mamba_decode, mamba_init_state, mamba_train,
+)
 
 ATTN = ("full", "local", "global")
+MIXERS = ATTN + ("mamba",)
+FFNS = ("mlp", "moe")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError unless every layer of ``cfg`` is a ported
     (mixer, ffn) pair and there is no frontend."""
     for mixer, ffn in cfg.layer_kinds:
-        if mixer not in ATTN or ffn != "mlp":
+        if mixer not in MIXERS or ffn not in FFNS:
             raise NotImplementedError(
                 f"{cfg.name}: block ({mixer}, {ffn}) is not ported yet "
-                f"(ROADMAP Queue 1); the port runs mixers {ATTN} with ffn "
-                f"'mlp'")
+                f"(ROADMAP Queue 1); the port runs mixers {MIXERS} with "
+                f"ffns {FFNS}")
     if cfg.frontend != "none":
         raise NotImplementedError(f"{cfg.name}: frontend {cfg.frontend!r} is "
                                   f"not ported yet (ROADMAP Queue 1)")
-
-
-def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)      # serving only
-
-
-def _weight(shape, std, dtype, device, generator):
-    """A normal(0, std) weight drawn in float32 from ``generator`` and
-    stored in ``dtype``; without a generator, uninitialised storage for
-    ``load_state_dict``."""
-    if generator is None:
-        return _param(torch.empty(shape, dtype=dtype, device=device))
-    return _param(torch.randn(shape, generator=generator,
-                              device=device).mul_(std).to(dtype))
-
-
-def _fill(shape, value, dtype, device):
-    return _param(torch.full(shape, value, dtype=dtype, device=device))
 
 
 class Norm(nn.Module):
@@ -81,10 +73,10 @@ class Norm(nn.Module):
         self.cfg = cfg
         f32 = torch.float32
         if cfg.norm == "layernorm":
-            self.scale = _fill((d,), 1.0, f32, device)
-            self.bias = _fill((d,), 0.0, f32, device)
+            self.scale = fill((d,), 1.0, f32, device)
+            self.bias = fill((d,), 0.0, f32, device)
         else:
-            self.scale = _fill((d,), 0.0, f32, device)
+            self.scale = fill((d,), 0.0, f32, device)
 
     def forward(self, x):
         if self.cfg.norm == "layernorm":
@@ -100,81 +92,94 @@ class Attention(nn.Module):
         super().__init__()
         d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
         std = d ** -0.5
-        self.wq = _weight((d, h, hd), std, dtype, device, generator)
-        self.wk = _weight((d, hkv, hd), std, dtype, device, generator)
-        self.wv = _weight((d, hkv, hd), std, dtype, device, generator)
-        self.wo = _weight((h, hd, d), (h * hd) ** -0.5, dtype, device,
-                          generator)
+        self.wq = weight((d, h, hd), std, dtype, device, generator)
+        self.wk = weight((d, hkv, hd), std, dtype, device, generator)
+        self.wv = weight((d, hkv, hd), std, dtype, device, generator)
+        self.wo = weight((h, hd, d), (h * hd) ** -0.5, dtype, device,
+                         generator)
         if cfg.qkv_bias:
-            self.bq = _fill((h, hd), 0.0, dtype, device)
-            self.bk = _fill((hkv, hd), 0.0, dtype, device)
-            self.bv = _fill((hkv, hd), 0.0, dtype, device)
+            self.bq = fill((h, hd), 0.0, dtype, device)
+            self.bk = fill((hkv, hd), 0.0, dtype, device)
+            self.bv = fill((hkv, hd), 0.0, dtype, device)
         if cfg.qk_norm:
-            self.q_norm = _fill((hd,), 0.0, torch.float32, device)
-            self.k_norm = _fill((hd,), 0.0, torch.float32, device)
-
-
-class MLP(nn.Module):
-    def __init__(self, cfg: ModelConfig, dtype, device, generator):
-        super().__init__()
-        d = cfg.d_model
-        ff = cfg.dense_d_ff or cfg.d_ff
-        std_in, std_out = d ** -0.5, ff ** -0.5
-        if cfg.act in ("swiglu", "geglu"):
-            self.w_gate = _weight((d, ff), std_in, dtype, device, generator)
-            self.w_up = _weight((d, ff), std_in, dtype, device, generator)
-            self.w_down = _weight((ff, d), std_out, dtype, device, generator)
-        else:
-            self.w_in = _weight((d, ff), std_in, dtype, device, generator)
-            self.w_out = _weight((ff, d), std_out, dtype, device, generator)
+            self.q_norm = fill((hd,), 0.0, torch.float32, device)
+            self.k_norm = fill((hd,), 0.0, torch.float32, device)
 
 
 class Block(nn.Module):
-    """Pre-norm attention and MLP with residuals; gemma2-style post-norms
-    when ``cfg.post_block_norms``."""
+    """Pre-norm mixer (attention or Mamba) and ffn (MLP or MoE) with
+    residuals; gemma2-style post-norms when ``cfg.post_block_norms``."""
 
     def __init__(self, cfg: ModelConfig, kind, dtype, device, generator):
         super().__init__()
         self.cfg = cfg
-        self.mixer_kind = kind[0]
+        self.mixer_kind, self.ffn_kind = kind
         d = cfg.d_model
         self.ln1 = Norm(cfg, d, device)
-        self.mixer = Attention(cfg, dtype, device, generator)
+        mixer = Mamba if self.mixer_kind == "mamba" else Attention
+        self.mixer = mixer(cfg, dtype, device, generator)
         if cfg.post_block_norms:
             self.ln1_post = Norm(cfg, d, device)
         self.ln2 = Norm(cfg, d, device)
-        self.ffn = MLP(cfg, dtype, device, generator)
+        ffn = MoE if self.ffn_kind == "moe" else MLP
+        self.ffn = ffn(cfg, dtype, device, generator)
         if cfg.post_block_norms:
             self.ln2_post = Norm(cfg, d, device)
 
     def _finish(self, x, h):
-        """Residual add of the mixer output, then the MLP half."""
+        """Residual add of the mixer output, then the ffn half."""
         if self.cfg.post_block_norms:
             h = self.ln1_post(h)
         x = x + h
-        h = mlp(self.ln2(x), self.ffn, self.cfg)
+        h = self.ln2(x)
+        if self.ffn_kind == "moe":
+            # tokens (B, d) at decode go through as (B, 1, d), as in JAX
+            h = self.ffn(h.reshape(x.shape[0], -1, x.shape[-1]))[0].reshape(
+                x.shape)
+        else:
+            h = mlp(h, self.ffn, self.cfg)
         if self.cfg.post_block_norms:
             h = self.ln2_post(h)
         return x + h
 
     def prefill(self, x, positions, k_cache, v_cache):
-        h = L.attn_prefill(self.ln1(x), self.mixer, self.cfg,
-                           self.mixer_kind, positions, k_cache, v_cache)
-        return self._finish(x, h)
+        """x: (B, S, d) -> (x, the mamba state (conv, h) or None); an
+        attention layer fills its caches in place."""
+        h = self.ln1(x)
+        if self.mixer_kind == "mamba":
+            h, mstate = mamba_train(h, self.mixer, self.cfg,
+                                    return_state=True)
+        else:
+            h = L.attn_prefill(h, self.mixer, self.cfg, self.mixer_kind,
+                               positions, k_cache, v_cache)
+            mstate = None
+        return self._finish(x, h), mstate
 
-    def decode(self, x, pos, k_cache, v_cache, block_mask_words, backend):
-        h = L.attn_decode(self.ln1(x), self.mixer, self.cfg, self.mixer_kind,
-                          k_cache, v_cache, pos, block_mask_words, backend)
-        return self._finish(x, h)
+    def decode(self, x, pos, k_cache, v_cache, conv, hstate,
+               block_mask_words, backend):
+        """x: (B, d) -> (x, the new mamba state (conv, h) or None)."""
+        h = self.ln1(x)
+        if self.mixer_kind == "mamba":
+            h, mstate = mamba_decode(h, self.mixer, self.cfg, conv, hstate)
+        else:
+            h = L.attn_decode(h, self.mixer, self.cfg, self.mixer_kind,
+                              k_cache, v_cache, pos, block_mask_words,
+                              backend)
+            mstate = None
+        return self._finish(x, h), mstate
 
 
 @dataclasses.dataclass
 class DecodeState:
-    """pos (B,) int32: the next position of each row; k, v (L, B, Hkv, S,
-    hd): layer ``i``'s caches are ``k[i]`` and ``v[i]``."""
+    """pos (B,) int32: the next position of each row; then one entry a
+    layer in each list: ``k[i]`` and ``v[i]`` (B, Hkv, S, hd) for an
+    attention layer, ``conv[i]`` (B, dc - 1, di) and ``h[i]`` (B, di, ds)
+    float32 for a mamba layer, None where the layer has no such part."""
     pos: torch.Tensor
-    k: torch.Tensor
-    v: torch.Tensor
+    k: list
+    v: list
+    conv: list
+    h: list
 
 
 class Transformer(nn.Module):
@@ -191,11 +196,11 @@ class Transformer(nn.Module):
         dev = kops.resolve_device(device)
         self.dtype = getattr(torch, cfg.compute_dtype)
         d = cfg.d_model
-        self.embed = _weight((cfg.vocab, d), d ** -0.5, self.dtype, dev,
-                             generator)
+        self.embed = weight((cfg.vocab, d), d ** -0.5, self.dtype, dev,
+                            generator)
         if not cfg.tie_embeddings:
-            self.lm_head = _weight((d, cfg.vocab), d ** -0.5, self.dtype, dev,
-                                   generator)
+            self.lm_head = weight((d, cfg.vocab), d ** -0.5, self.dtype,
+                                  dev, generator)
         self.final_norm = Norm(cfg, d, dev)
         self.layers = nn.ModuleList(
             Block(cfg, kind, self.dtype, dev, generator)
@@ -224,17 +229,26 @@ class Transformer(nn.Module):
         return logits
 
     def init_decode_state(self, batch: int, s_max: int) -> DecodeState:
-        cfg = self.cfg
-        shape = (len(self.layers), batch, cfg.n_kv_heads, s_max, cfg.hd)
-        return DecodeState(
-            torch.zeros(batch, dtype=torch.int32, device=self.device),
-            torch.zeros(shape, dtype=self.dtype, device=self.device),
-            torch.zeros(shape, dtype=self.dtype, device=self.device))
+        cfg, dev = self.cfg, self.device
+        n = len(self.layers)
+        st = DecodeState(torch.zeros(batch, dtype=torch.int32, device=dev),
+                         [None] * n, [None] * n, [None] * n, [None] * n)
+        shape = (batch, cfg.n_kv_heads, s_max, cfg.hd)
+        for i, block in enumerate(self.layers):
+            if block.mixer_kind == "mamba":
+                st.conv[i], st.h[i] = mamba_init_state(cfg, batch,
+                                                       self.dtype, dev)
+            else:
+                st.k[i] = torch.zeros(shape, dtype=self.dtype, device=dev)
+                st.v[i] = torch.zeros(shape, dtype=self.dtype, device=dev)
+        return st
 
     @torch.no_grad()
     def prefill(self, tokens, s_max: int | None = None):
         """Process a prompt: tokens (B, S) -> (last-position logits (B, V),
-        the decode state with every layer's caches filled to S)."""
+        the decode state with every attention layer's caches filled to S
+        and every mamba layer's state after S).  With a mamba layer, S
+        longer than ``cfg.ssm_chunk`` must be a multiple of it."""
         tokens = torch.as_tensor(tokens, device=self.device)
         b, s = tokens.shape
         x = self._embed(tokens)
@@ -243,7 +257,9 @@ class Transformer(nn.Module):
         state = self.init_decode_state(b, s_max or s)
         state.pos.fill_(s)
         for i, block in enumerate(self.layers):
-            x = block.prefill(x, positions, state.k[i], state.v[i])
+            x, mstate = block.prefill(x, positions, state.k[i], state.v[i])
+            if mstate is not None:
+                state.conv[i], state.h[i] = mstate
         logits = self._logits(self.final_norm(x[:, -1]))
         return logits, state
 
@@ -255,11 +271,16 @@ class Transformer(nn.Module):
         For ``global`` mixers with ``cfg.roaring_sparse_global``,
         ``block_mask_words`` (B, words) int32 Roaring containers select the
         visible KV blocks: the block-sparse kernel on CUDA, its plain
-        version on the CPU or under ``backend="ref"``."""
+        version on the CPU or under ``backend="ref"``; no other layer reads
+        them."""
         tokens = torch.as_tensor(tokens, device=self.device)
         x = self._embed(tokens)
+        conv, hs = list(state.conv), list(state.h)
         for i, block in enumerate(self.layers):
-            x = block.decode(x, state.pos, state.k[i], state.v[i],
-                             block_mask_words, backend)
+            x, mstate = block.decode(x, state.pos, state.k[i], state.v[i],
+                                     conv[i], hs[i], block_mask_words,
+                                     backend)
+            if mstate is not None:
+                conv[i], hs[i] = mstate
         logits = self._logits(self.final_norm(x))
-        return logits, DecodeState(state.pos + 1, state.k, state.v)
+        return logits, DecodeState(state.pos + 1, state.k, state.v, conv, hs)

@@ -1,13 +1,28 @@
-"""Serving telemetry for the continuous query server: every resolved
-ticket carries a ``QueryTelemetry`` (queue time, dispatch latency,
-retries, degradation flags), and the server keeps a running
-``ServerStats`` -- the counters the fault-injection tests and
-``chip_smoke.py`` assert against.
+"""Serving telemetry: per-ticket query timings for the continuous query
+server, plus MoE routing telemetry on Roaring sets (paper section 5.9
+fast counts), the port of the JAX package's ``repro/serve/telemetry.py``.
+
+Query-server side: every resolved ticket carries a ``QueryTelemetry``
+(queue time, dispatch latency, retries, degradation flags), and the
+server keeps a running ``ServerStats`` -- the counters the fault-injection
+tests and ``chip_smoke.py`` assert against.
+
+MoE side: each expert's routed-token-id set is a ``RoaringBitmap``
+(``routing_sets`` of a MoE layer's ``expert_idx``); load balance, expert
+overlap (Jaccard) and drift between steps (symmetric difference) are the
+paper's count-only operations, computed without materializing the
+intermediate sets, on ``device`` (the card unless the caller names
+another).
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import RoaringBitmap
 
 
 @dataclasses.dataclass
@@ -57,3 +72,51 @@ class ServerStats:
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+def routing_sets(expert_idx, n_experts: int) -> list[RoaringBitmap]:
+    """expert_idx: (tokens, top_k) ints (numpy or a tensor on any device)
+    -> the per-expert token-id bitmaps."""
+    if isinstance(expert_idx, torch.Tensor):
+        expert_idx = expert_idx.cpu().numpy()
+    expert_idx = np.asarray(expert_idx)
+    flat_tok = np.repeat(np.arange(expert_idx.shape[0], dtype=np.uint32),
+                         expert_idx.shape[1])
+    flat_e = expert_idx.reshape(-1)
+    return [RoaringBitmap.from_values(flat_tok[flat_e == e])
+            for e in range(n_experts)]
+
+
+def load_balance_stats(sets: list[RoaringBitmap]) -> dict:
+    loads = np.array([bm.cardinality for bm in sets], np.float64)
+    total = loads.sum()
+    frac = loads / max(total, 1)
+    e = len(sets)
+    return {
+        "max_load_fraction": float(frac.max()),
+        "cv": float(loads.std() / max(loads.mean(), 1e-9)),
+        "entropy_ratio": float(
+            -(frac[frac > 0] * np.log(frac[frac > 0])).sum() / np.log(e)),
+    }
+
+
+def expert_overlap_matrix(sets: list[RoaringBitmap], *,
+                          device=None) -> np.ndarray:
+    """Pairwise Jaccard between experts' token sets (fast counts)."""
+    e = len(sets)
+    out = np.zeros((e, e))
+    for i in range(e):
+        for j in range(i, e):
+            out[i, j] = out[j, i] = sets[i].jaccard(sets[j], device=device)
+    return out
+
+
+def routing_drift(prev: list[RoaringBitmap], cur: list[RoaringBitmap], *,
+                  device=None) -> np.ndarray:
+    """Per-expert symmetric-difference cardinality between steps,
+    normalized by union -- 0 = stable routing, 1 = fully churned."""
+    out = np.zeros(len(cur))
+    for i, (a, b) in enumerate(zip(prev, cur)):
+        union = a.or_card(b, device=device)
+        out[i] = a.xor_card(b, device=device) / union if union else 0.0
+    return out

@@ -40,9 +40,12 @@ The Roaring block-sparse decode attention kernel against its plain version
 visible exactly 0) at the live Gemma2 head shape and edge cases, ``ops``
 routing to it, its wrapper refusing bad inputs (misaligned k or v rows
 among them), the split count forced to 1, 2, 3 and the block count with
-the kernel's partials against the plain split step; a decode step of the
-reduced gemma2 model with the kernel against ``backend="ref"``, and the
-serving engine on the card against the CPU's tokens.
+the kernel's partials against the plain split step, and Jamba's decode
+shape (g = 4 query heads a KV head, D = 128, softcap 0); a decode step of
+the reduced gemma2 model with the kernel against ``backend="ref"``, and
+the serving engine on the card against the CPU's tokens.  The Mamba
+layer's chunked selective scan on the card against the per-token float32
+recurrence.
 
 These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip.  Run
 them on a GPU machine with ``PYTHONPATH=src python -m pytest -q -m cuda
@@ -1280,6 +1283,7 @@ def _within_one_bf16_ulp(got, want):
 
 BSA_CASES = {
     "live": (4, 32, 16, 128, 2048, 128, "bfloat16", 50.0, {}),
+    "jamba_g4": (4, 32, 8, 128, 2048, 128, "bfloat16", 0.0, {}),
     "f32": (2, 8, 2, 64, 1024, 128, "float32", 0.0, {}),
     "g1": (2, 4, 4, 128, 512, 128, "float32", 5.0, {}),
     "g8": (2, 16, 2, 64, 512, 128, "bfloat16", 0.0, {}),
@@ -1454,3 +1458,28 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
         eng.release_all()
         assert eng.allocator.n_free == eng.allocator.n_pages
     assert np.array_equal(outs["cpu"], outs[str(cuda)])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunked_scan_matches_the_per_token_recurrence(cuda, dtype):
+    """The Mamba layer's chunked selective scan on the card against the
+    plain per-token float32 recurrence on the same card, on one layer's
+    inputs at Jamba's state width (ds 16, chunks of 128, 512 tokens): the
+    float32 outputs and the final h within atol 1e-6, rtol 1e-5 (the
+    doubling scan associates the recurrence in another order)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import ssm
+    cfg = dataclasses.replace(configs.get_config("jamba_v01_52b",
+                                                 reduced=True),
+                              ssm_d_state=16, compute_dtype=dtype)
+    tdt = getattr(torch, dtype)
+    m = ssm.Mamba(cfg, tdt, cuda, torch.Generator(cuda).manual_seed(0))
+    x = torch.randn((2, 512, cfg.d_model), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(1)).to(tdt)
+    _, _, xi, dt, bmat, cmat = ssm.scan_inputs(x, m, cfg)
+    y, h = ssm.selective_scan(xi, dt, bmat, cmat, m.A_log, cfg.ssm_chunk,
+                              torch.float32)
+    want_y, want_h = ssm.selective_scan_steps(xi, dt, bmat, cmat, m.A_log)
+    torch.testing.assert_close(y, want_y, atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(h, want_h, atol=1e-6, rtol=1e-5)

@@ -55,7 +55,8 @@ def test_package_files_exist():
                  "models/mlp.py", "models/transformer.py",
                  "configs/__init__.py", "configs/gemma2_27b.py",
                  "serve/engine.py", "serve/kv_cache.py",
-                 "serve/constrained.py", "launch/serve.py"):
+                 "serve/constrained.py", "launch/serve.py",
+                 "models/ssm.py", "core/scalar.py", "data/synth.py"):
         assert PKG / name in FILES
     assert len(FILES) > 10 and all(f.is_file() for f in FILES)
 

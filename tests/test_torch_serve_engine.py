@@ -1,9 +1,10 @@
 """The port's serving layer (``repro_torch.serve``: the paged KV
 allocator, constrained decoding, the block policy and the engine) against
 the JAX package's ``repro.serve``: every case of
-``tests/serve/test_serve.py`` but the routing telemetry (not ported yet),
-run on both packages with the same inputs, allocator pages and free sets,
-constraint sets and mask words compared exactly.  ``Engine.generate``
+``tests/serve/test_serve.py`` but the routing telemetry (held in
+``tests/test_torch_moe.py``), run on both packages with the same inputs,
+allocator pages and free sets, constraint sets and mask words compared
+exactly.  ``Engine.generate``
 gives the JAX engine's tokens in float32 compute (in bfloat16, logits over
 the vocabulary tie and round differently: see ``test_torch_model.py``),
 with and without a constraint and a pinned block, on the reduced gemma2
