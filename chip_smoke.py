@@ -97,7 +97,14 @@ toolkit (``nvcc``).  Phases, each timed:
    the plain merge of them against the kernel's output.  Device times of
    the kernel and the plain version, its bytes bound and the ratio, and
    ``F.scaled_dot_product_attention`` over the expanded boolean mask at
-   softcap 0 (live and full density).
+   softcap 0 (live and full density).  Then the ``sparse_topk_blocks``
+   gather route (plain PyTorch: the visible block ids by a prefix sum over
+   the mask bits, a gather of only those K/V blocks) against the kernel
+   on the live inputs with topk = S / bs, at least every row's visible
+   count: float32 within 2e-5, bfloat16 within 8 bf16 ulps of each row's
+   largest output (the route rounds its weights to bf16 before the PV
+   product), also with topk the largest visible count (12); its device
+   time beside the kernel's.
 3. Boolean queries at real scale: an ``InvertedIndex`` over 2^24 documents
    and 1,024 terms on a ``BitmapArena`` on the card (64 dense bitset
    terms, 960 sparse array terms), 64 queries of each boolean class run
@@ -175,7 +182,8 @@ toolkit (``nvcc``).  Phases, each timed:
    within 8 bf16 ulps of the largest, and each global layer's kernel
    output matches the plain version on the full-size cache within phase
    2g's limit; the gaps that a dropped last visible block gives, per
-   layer and in the logits, are printed beside them.  Prefill seconds, decode ms a step
+   layer and in the logits, are printed beside them; a second kernel step
+   from the same state gives the same logits bit for bit.  Prefill seconds, decode ms a step
    (p50, p99), tokens/s, a profiler window over four steps (idle share,
    the kernel's share of device time), the step's bytes bound and the
    peak device memory.
@@ -236,9 +244,48 @@ toolkit (``nvcc``).  Phases, each timed:
    ``expert_overlap_matrix`` and ``routing_drift`` against the second
    prefill of the same prompts.
 
-Launch counts are set to 0 just before each of phases 3 to 12 (and each
-part of 11) and read just after it; a kernel that a phase's path runs and that launched no time
-there fails the script.  Then one JSON line with every kernel's numbers,
+13. DeepSeek-V2 (``configs/deepseek_v2_236b.py``) served at full width
+   after phase 12 has released its model, with 8 of its 60 layers (the
+   dense prefix layer, ff 12,288, and 7 MLA + MoE layers: 128 heads,
+   kv_lora 512, 160 experts of 1,536, top 6, 2 shared; 29,191,377,920
+   random parameters from ``--seed``, 58.4 GB, since 9 layers' 66.3 GB
+   would not fit beside the prefill): phase 10's traffic
+   (``Engine(max_seq=8192, BlockPolicy(1, 8))``, B = 4 prompts of 5,120 tokens, 32 greedy tokens,
+   then 32 under phase 10's lexicon constraint, every page free after).
+   From the state after the first prefill: a second decode step bit-equal
+   to the first; in every MLA layer of one step the absorbed attention
+   (the prefix layer in JAX's ``mla_decode`` flavour, the others in its
+   ``mla_decode_stacked`` one) against keys and values decompressed per
+   head in float32 from the same ckv / k_rope caches, within 2^-5 of each
+   head's largest output.  Printed: prefill seconds, decode ms a step
+   (p50, p99), tokens/s, a profiler window over four steps (idle share,
+   device ms a step, top device ops), the step's bytes bound (every dense,
+   MLA and shared-expert weight, only the routed experts, the ckv / k_rope
+   rows), the MoE ``dropped_fraction`` in prefill and decode (decode
+   capacity 1), and the peak device memory.
+14. xLSTM-350M (``configs/xlstm_350m.py``) whole on phase 10's traffic:
+   the mLSTM prefill takes the chunkwise-parallel form (chunks of 64), the
+   sLSTM runs token by token (its seconds and share of each prefill
+   printed); a second decode step bit-equal; the first mLSTM layer's real
+   prefill input through the chunked form and the per-token float32
+   recurrence, h and the final C, n, m within 1e-5 of the largest
+   magnitude and the prefill's own state equal to the chunked one.  Then
+   HuBERT-xlarge (``configs/hubert_xlarge.py``, 48 encoder layers) whole:
+   one encoder prefill of B = 4 x 5,120 frames of 512-wide audio-stub
+   embeddings and no tokens, twice: finite (4, 504) logits, equal on the
+   rerun.  Prefill seconds, decode ms a step, the idle share, xLSTM's step
+   bytes bound (every weight, the B embedding rows, each layer's float32
+   state read and written) and the peak device memory.
+
+Phases 10, 12, 13 and 14 share one serving driver (``_serve_phase``).
+
+Launch counts are set to 0 just before each of phases 3 to 14 (and each
+part of 11) and read just after it; a kernel that a phase's path runs and
+that launched no time there fails the script, and so does any launch in
+phases 13 and 14, whose paths run none: their prefills, decode steps,
+checks, profiler windows and HuBERT's prefills.  In phases 10, 12, 13 and
+14 the counts are also set to 0 around the lexicon constraint's build,
+whose launches are read apart.  Then one JSON line with every kernel's numbers,
 and the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when there is no CUDA device, when the
@@ -3848,12 +3895,75 @@ def phase_bsa_kernel(dev, seed, failures):
                             f"merge {comb_ok})")
         del q, k, v, got, again, part, want
         torch.cuda.empty_cache()
+    rows += _gather_cases(dev, gen, failures)
     bf16_ulps = max(r["max_row_ulps"] for r in rows
                     if r["max_row_ulps"] is not None)
     log(f"  {len(rows)} cases: {sum(r['equal'] for r in rows)} within "
         f"tolerance, max_abs_err {max_err:.3g}, bf16 at most {bf16_ulps} "
         f"row ulps (limit 1); launches so far {bsa.launches}")
     return rows, max_err
+
+
+def _gather_cases(dev, gen, failures):
+    """The ``sparse_topk_blocks`` gather route (plain PyTorch, no kernel of
+    its own) against row 17 at Gemma2-27B's decode shape (phase 2g's live
+    inputs, softcap 50), with topk at least every row's visible count:
+    the largest count (12), and S / bs (every block, the whole cache
+    gathered).  float32 within atol = rtol = 2e-5 (summation order),
+    bfloat16 within 8 bf16 ulps of each row's largest output (the route
+    rounds the softmax weights to bf16 before the PV product, the kernel
+    does not).  The route's device time beside the kernel's."""
+    from repro_torch.kernels import block_sparse_attn as bsa
+    from repro_torch.kernels.ref import block_mask_bits
+    from repro_torch.models.layers import decode_attention_block_gather
+    L = LIVE
+    bs, n_blocks = L["bs"], L["s"] // L["bs"]
+    dims = {k_: v_ for k_, v_ in L.items() if k_ != "bs"}
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, words, kvl = _bsa_inputs(dev, gen, bs=bs, dtype=dtype,
+                                          **dims)
+        visible = block_mask_bits(words, n_blocks).sum(dim=1).tolist()
+
+        def kern():
+            return bsa.decode_attention(q, k, v, words, kvl, block_size=bs,
+                                        softcap=50.0)
+
+        want = kern()
+        kernel_ms = _device_ms(kern, 50)
+        for topk in (max(visible), n_blocks):
+            def route():
+                return decode_attention_block_gather(
+                    q, k, v, kvl, words, block_size=bs, topk=topk,
+                    softcap=50.0)
+
+            got = route()
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            ulps = None
+            if dtype == torch.float32:
+                ok = bool(torch.allclose(got, want, atol=2e-5, rtol=2e-5))
+            else:
+                ulps = _bf16_ulp_ratio(got, want)
+                ok = ulps <= 8.0
+            row = dict(case=f"gather route/{str(dtype)[6:]}/topk={topk}",
+                       kernel="decode_attention_block_gather",
+                       dtype=str(dtype), shape=list(k.shape), topk=topk,
+                       visible_blocks=visible, equal=ok, max_abs_err=err,
+                       max_row_ulps=None, gather_row_ulps=ulps,
+                       ms=_device_ms(route, 20), kernel_ms=kernel_ms,
+                       event_ms=_time_ms(route, 20)[1])
+            log(f"  {row['case']:36s} visible blocks {visible}: ok={ok} "
+                f"err {err:.3g} ({ulps} row ulps, limit 8 in bf16); "
+                f"device: route {row['ms']:.4f} ms, kernel "
+                f"{kernel_ms:.4f} ms")
+            if not ok:
+                failures.append(f"gather route != decode_attention: {row}")
+            rows.append(row)
+            del got
+        del q, k, v, want
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3940,67 +4050,63 @@ def _layer_ulps(calls, fault_words):
     return layer_ulps, fault_ulps
 
 
-def phase_serving(dev, seed, failures):
-    """Gemma2-27B served at full width and depth (see the module
-    docstring, phase 10)."""
+def _phase_model(name, layers, dev, seed):
+    """A model of ``name``'s config at full width (cut to ``layers`` where
+    given), random bf16 weights from ``seed`` on the card; its config, the
+    full config, the parameter count and bytes, and the init seconds."""
+    import dataclasses
+
     from repro_torch import configs
-    from repro_torch.kernels import block_sparse_attn as bsa
     from repro_torch.models.transformer import Transformer
-    from repro_torch.serve import BlockPolicy, Engine, lexicon_constraint
-    _reset_counts()                       # the serving path starts here
-    torch.cuda.reset_peak_memory_stats(dev)
-    mem0 = torch.cuda.memory_allocated(dev)
-    cfg = configs.get_config("gemma2_27b")
-    kinds = [m for m, _ in cfg.layer_kinds]
-    n_global = kinds.count("global")
+    full = configs.get_config(name)
+    cfg = dataclasses.replace(full, n_layers=layers) if layers else full
     t = time.perf_counter()
     model = Transformer(cfg, device=dev,
                         generator=torch.Generator(dev).manual_seed(seed))
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t
     n_params = sum(p.numel() for p in model.parameters())
     w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    log(f"  Gemma2-27B: {cfg.n_layers} layers ({kinds.count('local')} "
-        f"local, {n_global} global), d {cfg.d_model}, {n_params} "
-        f"parameters, {w_bytes} bytes, random from seed {seed} in "
-        f"{init_s:.1f} s; allocated before {mem0} bytes")
-    timed = _TimedModel(model)
-    eng = Engine(model, max_seq=SERVE_MAX_SEQ, policy=BlockPolicy(1, 8))
-    eng.model = timed
-    prompts = np.random.default_rng(seed).integers(
-        0, cfg.vocab, (SERVE_B, SERVE_PROMPT)).astype(np.int32)
+    return model, cfg, full, n_params, w_bytes, time.perf_counter() - t
 
-    # 1. greedy generation
-    t = time.perf_counter()
-    out = eng.generate(prompts, SERVE_NEW)
-    gen_s = time.perf_counter() - t
-    launches = bsa.launches
-    want = n_global * SERVE_NEW
-    ok_shape = out.shape == (SERVE_B, SERVE_NEW) and bool(
-        ((out >= 0) & (out < cfg.vocab)).all())
-    steps = np.asarray(timed.step_ms)
-    log(f"  generate: {SERVE_B} x {SERVE_PROMPT} prompt tokens, "
-        f"{SERVE_NEW} new: prefill {timed.prefill_s[0]:.2f} s, decode "
-        f"p50 {np.percentile(steps, 50):.2f} ms p99 "
-        f"{np.percentile(steps, 99):.2f} ms a step, "
-        f"{SERVE_B * SERVE_NEW / (steps.sum() / 1e3):.1f} tokens/s "
-        f"decoding, {SERVE_B * SERVE_NEW / gen_s:.1f} end to end; "
-        f"decode_attention launches {launches} (want {want}), in prefill "
-        f"{timed.prefill_launches[0]}; tokens {out[:, :8].tolist()}")
-    if not ok_shape:
-        failures.append(f"serving: tokens {out.shape} outside the vocab")
-    if launches != want or timed.prefill_launches[0]:
-        failures.append(f"serving: decode_attention launched {launches} "
-                        f"times in generate (want {want}), "
-                        f"{timed.prefill_launches[0]} in prefill")
 
-    # 2. the kernel against the plain version, from the state after prefill
-    p_logits, state = timed.kept
-    timed.kept = None
-    tok0 = torch.argmax(p_logits, dim=-1).to(torch.int32)
-    words = eng._mask_words([SERVE_PROMPT + 1] * SERVE_B)
+def _lexicon(dev, vocab):
+    """Phase 10's constraint (the "digits" and "names" lexicons) and the
+    allowed token ids."""
+    from repro_torch.serve import lexicon_constraint
+    lex = {"digits": np.arange(vocab // 256, vocab // 256 + 100),
+           "names": np.arange(vocab // 5, min(vocab, vocab // 5 + 2000))}
+    return (lexicon_constraint(vocab, lex, ["digits", "names"], device=dev),
+            np.concatenate(list(lex.values())))
+
+
+def _sum_counts(*counts) -> dict:
+    """Launch counts by kernel, added."""
+    out = {}
+    for c in counts:
+        for k, n in c.items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def _kernel_vs_plain(label, model, state, tok0, words, failures):
+    """From ``state``: ``decode_step(backend="ref")`` against the kernel's
+    step (logits within 8 bf16 ulps of the largest), and each global
+    layer's kernel output against the plain version on the same full-size
+    cache (each layer's column was written by this step and nothing has
+    written since) within phase 2g's limit; beside them, what each row's
+    last visible block cleared (the fault the limits must catch) gives per
+    layer and through the whole model.  The kernel's step runs last.
+    Returns the logits check."""
+    from repro_torch.kernels import block_sparse_attn as bsa
+    cfg = model.cfg
+    n_global = sum(m == "global" for m, _ in cfg.layer_kinds)
+    g = cfg.n_heads // cfg.n_kv_heads
+    fault_words = _drop_last_block(words, SERVE_PROMPT + 1,
+                                   cfg.attn_block_size)
     # [0]: the returned state shares the caches, and would keep them alive
     ref_logits = model.decode_step(state, tok0, words, backend="ref")[0]
+    fault_logits = model.decode_step(state, tok0, fault_words,
+                                     backend="ref")[0]
     calls, kernel_fn = [], bsa.decode_attention
 
     def recorded(q, k, v, w, kvl, **kw):
@@ -4014,30 +4120,22 @@ def phase_serving(dev, seed, failures):
     finally:
         bsa.decode_attention = kernel_fn
     torch.cuda.synchronize()
-    # every global layer's kernel output against the plain version on the
-    # same full-size cache (each layer's column was written by this step
-    # and nothing has written since), within phase 2g's limit; and the
-    # plain version with each row's last visible block cleared, the fault
-    # the limits must catch, per layer and through the whole model
-    fault_words = _drop_last_block(words, SERVE_PROMPT + 1,
-                                   cfg.attn_block_size)
     layer_ulps, fault_ulps = _layer_ulps(calls, fault_words)
     del calls
     layer_check = dict(layers=len(layer_ulps), max_row_ulps=max(
         layer_ulps, default=None), row_ulps=layer_ulps,
         fault_row_ulps=fault_ulps,
-        fault_caught=sum(f > 1.0 for f in fault_ulps))
-    log(f"  kernel vs plain in each global layer at the full-size state: "
-        f"{len(layer_ulps)} layers, at most {layer_check['max_row_ulps']} "
-        f"row ulps (limit 1); a dropped last block gives "
+        fault_caught=sum(f > 1.0 for f in fault_ulps),
+        q_heads_per_kv_head=g)
+    log(f"  kernel vs plain in each global layer at the full-size state "
+        f"(g = {g}): {len(layer_ulps)} layers, at most "
+        f"{layer_check['max_row_ulps']} row ulps (limit 1); a dropped last "
+        f"block gives "
         f"{min(fault_ulps, default=0):.4g}-{max(fault_ulps, default=0):.4g}"
         f", over the limit in {layer_check['fault_caught']} layers")
     if len(layer_ulps) != n_global or layer_check["max_row_ulps"] > 1.0:
-        failures.append(f"serving: decode_attention kernel != plain in the "
+        failures.append(f"{label}: decode_attention kernel != plain in the "
                         f"global layers {layer_ulps}")
-    fault_logits = model.decode_step(state, tok0, fault_words,
-                                     backend="ref")[0]
-    torch.cuda.synchronize()
     diff = (ker_logits.float() - ref_logits.float()).abs()
     top = float(ref_logits.float().abs().max())
     tol = 8 * 2.0 ** (np.floor(np.log2(top)) - 7)      # 8 bf16 ulps at top
@@ -4056,84 +4154,195 @@ def phase_serving(dev, seed, failures):
         f"{logit_check['mean_abs_diff']:.3g}, argmax agreement {agree}; "
         f"a dropped last block moves them {fault_diff:.4g}")
     if not (logit_check["finite"] and logit_check["max_abs_diff"] <= tol):
-        failures.append(f"serving: kernel and plain decode logits differ "
+        failures.append(f"{label}: kernel and plain decode logits differ "
                         f"{logit_check}")
+    return logit_check
+
+
+def _serve_phase(label, model, dev, seed, failures, checks, bound, *,
+                 want=0, prompt=SERVE_PROMPT):
+    """Phase 10's traffic on ``model``: B = 4 random prompts of ``prompt``
+    tokens through ``Engine(max_seq=8192, BlockPolicy(1, 8))``, 32 tokens
+    greedily; from the state after the first prefill, a second decode step
+    bit-equal to the first, ``checks(state, tok0, words)`` (the phase's
+    own checks) and a profiler window over four steps, printed beside
+    ``bound(words)`` (the step's least ms and its bytes); then 32 tokens
+    under phase 10's lexicon constraint and every page back.
+
+    The decode attention kernel must launch ``want`` times in each
+    generate (0 for a model without global layers) and never in a
+    prefill.  The caller sets the counts to 0 at the phase's start; they
+    are read after the greedy generate (``launch_counts["greedy"]``) and
+    after the window (``["served"]``: prefill, greedy decode, the checks
+    and the window), set to 0 around the constraint's build (its launches
+    read apart, ``["constraint_build"]``) and read after the constrained
+    generate (``["constrained"]``).  Returns the end-to-end numbers with
+    ``checks``' result."""
+    from repro_torch.serve import BlockPolicy, Engine
+    cfg = model.cfg
+    timed = _TimedModel(model)
+    eng = Engine(model, max_seq=SERVE_MAX_SEQ, policy=BlockPolicy(1, 8))
+    eng.model = timed
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab, (SERVE_B, prompt)).astype(np.int32)
+
+    # 1. greedy generation
+    t = time.perf_counter()
+    out = eng.generate(prompts, SERVE_NEW)
+    gen_s = time.perf_counter() - t
+    greedy = _all_counts()
+    launches = greedy.get("decode_attention", 0)
+    steps = np.asarray(timed.step_ms)
+    ok_shape = out.shape == (SERVE_B, SERVE_NEW) and bool(
+        ((out >= 0) & (out < cfg.vocab)).all())
+    log(f"  generate: {SERVE_B} x {prompt} prompt tokens, {SERVE_NEW} "
+        f"new: prefill {timed.prefill_s[0]:.2f} s, decode p50 "
+        f"{np.percentile(steps, 50):.2f} ms p99 "
+        f"{np.percentile(steps, 99):.2f} ms a step, "
+        f"{SERVE_B * SERVE_NEW / (steps.sum() / 1e3):.1f} tokens/s "
+        f"decoding, {SERVE_B * SERVE_NEW / gen_s:.1f} end to end; "
+        f"decode_attention launches {launches} (want {want}), in prefill "
+        f"{timed.prefill_launches[0]}; tokens {out[:, :8].tolist()}")
+    if not ok_shape:
+        failures.append(f"{label}: tokens {out.shape} outside the vocab")
+    if launches != want or timed.prefill_launches[0]:
+        failures.append(f"{label}: decode_attention launched {launches} "
+                        f"times in generate (want {want}), "
+                        f"{timed.prefill_launches[0]} in prefill")
+
+    # 2. from the state after prefill: the same step twice, then the
+    # phase's own checks
+    p_logits, state = timed.kept
+    timed.kept = None
+    tok0 = torch.argmax(p_logits, dim=-1).to(torch.int32)
+    words = eng._mask_words([prompt + 1] * SERVE_B)
+    first = model.decode_step(state, tok0, words)[0]
+    again = model.decode_step(state, tok0, words)[0]
+    torch.cuda.synchronize()
+    same_again = bool(torch.equal(first, again))
+    finite = bool(torch.isfinite(first).all())
+    log(f"  a second decode step from the state after prefill gives the "
+        f"same logits bit for bit: {same_again}; finite {finite}")
+    if not (same_again and finite):
+        failures.append(f"{label}: a second decode step from the same state "
+                        f"gave other logits ({same_again}) or non-finite "
+                        f"ones ({finite})")
+    del first, again
+    extra = checks(state, tok0, words)
 
     # 3. a profiler window over four decode steps from that state (kv_len
-    # 5,121-5,124: one block count, so the same mask words)
+    # prompt + 1 to prompt + 4: one block count, so the same mask words)
     def window():
         st, tok = state, tok0
         for _ in range(4):
             logits, st = model.decode_step(st, tok, words)
             tok = torch.argmax(logits, dim=-1).to(torch.int32)
 
-    tr = _traced("decode window", window, dev, names=BSA_KERNELS)
+    names = BSA_KERNELS if want else ()
+    tr = _traced(f"{label} decode window", window, dev, names=names)
     # the step's weight products run cuBLASLt kernels launched with
     # cuLaunchKernel: busy and idle come from every device event in the range
     busy = tr["span_busy_us"]
-    bsa_us = sum(tr["name_us"][n] for n in BSA_KERNELS)
-    share = bsa_us / busy if busy else None
     idle = 1.0 - busy / tr["wall_us"] if tr["complete"] else None
-    bound_ms, step_bytes = _decode_bound(model, [SERVE_PROMPT + 1] * SERVE_B,
-                                         words)
+    bound_ms, step_bytes = bound(words)
+    win = dict(steps=4, wall_us=tr["wall_us"], busy_us=busy,
+               runtime_matched_busy_us=tr["busy_us"],
+               cu_launches=tr["cu_launches"], idle_share=idle,
+               device_ms_per_step=busy / 4e3,
+               top_kernels=tr["span_top_kernels"])
+    kernel_note = ""
+    if names:
+        bsa_us = sum(tr["name_us"][n] for n in names)
+        share = bsa_us / busy if busy else None
+        win.update(decode_attention_us=bsa_us, decode_attention_split_us=tr[
+            "name_us"]["decode_attention_split"],
+            decode_attention_share=share)
+        kernel_note = (f", decode_attention {bsa_us:.1f} us ("
+                       + (f"{share:.4f}" if share is not None
+                          else "not measured") + " of busy)")
     log(f"  decode window (4 steps): busy {busy / 1e3:.2f} ms of "
         f"{tr['wall_us'] / 1e3:.2f} ms ({tr['busy_us'] / 1e3:.2f} ms matched "
         f"to runtime launches, {tr['cu_launches']} cuLaunchKernel-level "
         f"calls), idle "
         + (f"{idle:.4f}" if idle is not None else "not measured")
-        + f", decode_attention {bsa_us:.1f}"
-        f" us ({share:.4f} of busy); step bound {bound_ms:.2f} ms "
-        f"({step_bytes} bytes); top {tr['span_top_kernels'][:6]}")
-    del state, p_logits, ref_logits, ker_logits, fault_logits
+        + kernel_note + f"; step bound {bound_ms:.2f} ms ({step_bytes} "
+        f"bytes); top {tr['span_top_kernels'][:6]}")
+    del state, p_logits
     torch.cuda.empty_cache()
+    served = _all_counts()
 
     # 4. constrained generation, then every page back
-    v = cfg.vocab
-    lex = {"digits": np.arange(v // 256, v // 256 + 100),
-           "names": np.arange(v // 5, min(v, v // 5 + 2000))}
-    eng.constraint = lexicon_constraint(cfg.vocab, lex, ["digits", "names"],
-                                        device=dev)
-    allowed = np.concatenate(list(lex.values()))
+    _reset_counts()
+    eng.constraint, allowed = _lexicon(dev, cfg.vocab)
+    built = _all_counts()
     _reset_counts()
     cout = eng.generate(prompts, SERVE_NEW)
-    c_launches = bsa.launches
+    constrained = _all_counts()
+    c_launches = constrained.get("decode_attention", 0)
     in_set = bool(np.isin(cout, allowed).all())
     eng.release_all()
     free = eng.allocator.n_free == eng.allocator.n_pages
     log(f"  constrained generate: every token in the set {in_set}, "
         f"launches {c_launches}, prefill {timed.prefill_s[-1]:.2f} s; "
         f"after release_all {eng.allocator.n_free} of "
-        f"{eng.allocator.n_pages} pages free")
+        f"{eng.allocator.n_pages} pages free; the constraint's build "
+        f"launched {built or 'no kernel'}")
     if not in_set or not free or c_launches != want:
-        failures.append(f"serving: constrained tokens in set {in_set}, "
+        failures.append(f"{label}: constrained tokens in set {in_set}, "
                         f"pages free {free}, launches {c_launches}")
-    peak = torch.cuda.max_memory_allocated(dev)
+    if any(timed.prefill_launches):
+        failures.append(f"{label}: decode_attention launched in prefill "
+                        f"{timed.prefill_launches}")
     steps = np.asarray(timed.step_ms)
-    log(f"  peak device memory {peak} bytes")
     res = dict(
-        layers=cfg.n_layers, params=n_params, weight_bytes=w_bytes,
-        batch=SERVE_B, prompt=SERVE_PROMPT, max_seq=SERVE_MAX_SEQ,
-        new_tokens=SERVE_NEW, init_s=init_s, generate_s=gen_s,
-        prefill_s=timed.prefill_s, step_ms=timed.step_ms,
+        batch=SERVE_B, prompt=prompt, max_seq=SERVE_MAX_SEQ,
+        new_tokens=SERVE_NEW, generate_s=gen_s, prefill_s=timed.prefill_s,
+        step_ms=timed.step_ms,
         decode_p50_ms=float(np.percentile(steps, 50)),
         decode_p99_ms=float(np.percentile(steps, 99)),
         tokens_per_s=SERVE_B * len(steps) / (steps.sum() / 1e3),
         generate_tokens_per_s=SERVE_B * SERVE_NEW / gen_s,
         tokens=out.tolist(), constrained_tokens=cout.tolist(),
-        launches=launches + c_launches, launches_per_generate=[
-            launches, c_launches], prefill_launches=timed.prefill_launches,
-        logits=logit_check, window=dict(
-            steps=4, wall_us=tr["wall_us"], busy_us=busy,
-            runtime_matched_busy_us=tr["busy_us"],
-            cu_launches=tr["cu_launches"], idle_share=idle,
-            decode_attention_us=bsa_us, decode_attention_split_us=tr[
-                "name_us"]["decode_attention_split"],
-            decode_attention_share=share,
-            top_kernels=tr["span_top_kernels"]),
-        step_bound_ms=bound_ms, step_bound_bytes=step_bytes,
-        allocated_before=mem0, peak_bytes=peak, in_set=in_set,
-        pages_free=free)
-    del eng, model, timed
+        launches_per_generate=[launches, c_launches],
+        prefill_launches=timed.prefill_launches,
+        launch_counts=dict(greedy=greedy, served=served,
+                           constraint_build=built, constrained=constrained),
+        same_logits_again=same_again, in_set=in_set, pages_free=free,
+        window=win, step_bound_ms=bound_ms, step_bound_bytes=step_bytes)
+    res.update(extra)
+    del eng, timed
+    return res
+
+
+def phase_serving(dev, seed, failures):
+    """Gemma2-27B served at full width and depth (see the module
+    docstring, phase 10)."""
+    _reset_counts()                       # the serving path starts here
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev)
+    model, cfg, _, n_params, w_bytes, init_s = _phase_model(
+        "gemma2_27b", 0, dev, seed)
+    kinds = [m for m, _ in cfg.layer_kinds]
+    n_global = kinds.count("global")
+    log(f"  Gemma2-27B: {cfg.n_layers} layers ({kinds.count('local')} "
+        f"local, {n_global} global), d {cfg.d_model}, {n_params} "
+        f"parameters, {w_bytes} bytes, random from seed {seed} in "
+        f"{init_s:.1f} s; allocated before {mem0} bytes")
+
+    def checks(state, tok0, words):
+        return dict(logits=_kernel_vs_plain("serving", model, state, tok0,
+                                            words, failures))
+
+    res = _serve_phase(
+        "serving", model, dev, seed, failures, checks,
+        lambda words: _decode_bound(model, [SERVE_PROMPT + 1] * SERVE_B,
+                                    words), want=n_global * SERVE_NEW)
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"  peak device memory {peak} bytes")
+    res.update(layers=cfg.n_layers, params=n_params, weight_bytes=w_bytes,
+               init_s=init_s, launches=sum(res["launches_per_generate"]),
+               allocated_before=mem0, peak_bytes=peak)
+    del model
     torch.cuda.empty_cache()
     return res
 
@@ -4178,33 +4387,43 @@ class _MoEHooks:
             h.remove()
 
 
-def _jamba_step_bound(model, kv_len, words, routed):
+def _step_bound(model, kv_len, words, routed):
     """Least time of one decode step, in ms, and its bytes: every weight
-    the step reads once (every dense, attention and mamba weight, the LM
-    head, the B embedding rows it looks up, and of each MoE layer only the
-    experts this step routed to: ``routed[j]`` of them in MoE layer j),
-    each global layer's K and V rows at visible valid positions, each
-    mamba layer's state read and its new state written, over the HBM
-    rate."""
+    the step reads once (every dense, attention, MLA, recurrent and shared
+    expert weight, the LM head, the B embedding rows it looks up, and of
+    each MoE layer only the experts this step routed to: ``routed[j]`` of
+    them in MoE layer j), each global layer's K and V rows at visible
+    valid positions, each MLA layer's ckv and k_rope rows below kv_len,
+    each recurrent layer's state read and its new state written, over the
+    HBM rate."""
     from repro_torch.models.mlp import MoE
     cfg, b = model.cfg, len(kv_len)
     w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     emb = model.embed
     w_bytes -= (emb.shape[0] - b) * emb.shape[1] * emb.element_size()
-    moes = [blk.ffn for blk in model.layers if isinstance(blk.ffn, MoE)]
+    moes = [blk.ffn for blk in model.layers if isinstance(
+        getattr(blk, "ffn", None), MoE)]
     for moe, n in zip(moes, routed, strict=True):
         per_expert = sum(w[0].numel() * w.element_size()
                          for w in (moe.wg, moe.wu, moe.wd))
         w_bytes -= (cfg.n_experts - n) * per_expert
-    row = cfg.n_kv_heads * cfg.hd * 2 * 2              # K and V, bf16
-    vis = int(_visible_positions(words, torch.tensor(
-        kv_len, dtype=torch.int32, device=words.device), SERVE_MAX_SEQ,
-        cfg.attn_block_size).sum()) * row
     kinds = [m for m, _ in cfg.layer_kinds]
-    di = cfg.ssm_expand * cfg.d_model
-    state = b * di * ((cfg.ssm_d_conv - 1) * 2 + cfg.ssm_d_state * 4)
-    nbytes = w_bytes + kinds.count("global") * vis \
-        + kinds.count("mamba") * 2 * state
+    nbytes = w_bytes
+    if "global" in kinds:
+        row = cfg.n_kv_heads * cfg.hd * 2 * 2          # K and V, bf16
+        nbytes += kinds.count("global") * row * int(_visible_positions(
+            words, torch.tensor(kv_len, dtype=torch.int32,
+                                device=words.device), SERVE_MAX_SEQ,
+            cfg.attn_block_size).sum())
+    mla_row = (cfg.kv_lora_rank + cfg.qk_rope_dim) * 2  # ckv and k_rope
+    nbytes += kinds.count("mla") * mla_row * sum(kv_len)
+    state = {"mamba": (cfg.ssm_expand * cfg.d_model) * (
+        (cfg.ssm_d_conv - 1) * 2 + cfg.ssm_d_state * 4)}
+    for blk, kind in zip(model.layers, kinds):
+        if kind in ("mlstm", "slstm"):
+            st = blk.init_state(1, 1, model.dtype, "meta")
+            state[kind] = sum(t.numel() * 4 for t in st.values())
+    nbytes += sum(kinds.count(k) * 2 * b * n for k, n in state.items())
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
 
 
@@ -4241,29 +4460,16 @@ def _scan_check(model, cfg, h_in):
 def phase_jamba(dev, seed, failures):
     """Jamba-v0.1 served at full width with 16 of its 32 layers (see the
     module docstring, phase 12)."""
-    import dataclasses
-
-    from repro_torch import configs
-    from repro_torch.kernels import block_sparse_attn as bsa
-    from repro_torch.models.transformer import Transformer
-    from repro_torch.serve import (BlockPolicy, Engine, expert_overlap_matrix,
-                                   lexicon_constraint, load_balance_stats,
+    from repro_torch.serve import (expert_overlap_matrix, load_balance_stats,
                                    routing_drift, routing_sets)
     _reset_counts()                       # the Jamba path starts here
     torch.cuda.reset_peak_memory_stats(dev)
     mem0 = torch.cuda.memory_allocated(dev)
-    full = configs.get_config("jamba_v01_52b")
-    cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS)
+    model, cfg, full, n_params, w_bytes, init_s = _phase_model(
+        "jamba_v01_52b", JAMBA_LAYERS, dev, seed)
     kinds = [m for m, _ in cfg.layer_kinds]
     ffns = [f for _, f in cfg.layer_kinds]
     n_global = kinds.count("global")
-    t = time.perf_counter()
-    model = Transformer(cfg, device=dev,
-                        generator=torch.Generator(dev).manual_seed(seed))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t
-    n_params = sum(p.numel() for p in model.parameters())
-    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     block_bytes = sum(p.numel() * p.element_size()
                       for p in model.layers.parameters())
     full_bytes = w_bytes - block_bytes + block_bytes * (
@@ -4276,175 +4482,49 @@ def phase_jamba(dev, seed, failures):
         f"d {cfg.d_model}, {n_params} parameters, {w_bytes} bytes, random "
         f"from seed {seed} in {init_s:.1f} s; allocated before {mem0} bytes")
     hooks = _MoEHooks(model)
-    scan_in = []
+    scan_in, routed = [], []
     first_mamba = model.layers[0].ln1.register_forward_hook(
         lambda mod, inp, out: scan_in.append(out)
         if not scan_in and out.dim() == 3 else None)
-    timed = _TimedModel(model)
-    eng = Engine(model, max_seq=SERVE_MAX_SEQ, policy=BlockPolicy(1, 8))
-    eng.model = timed
-    prompts = np.random.default_rng(seed).integers(
-        0, cfg.vocab, (SERVE_B, SERVE_PROMPT)).astype(np.int32)
 
-    # 1. greedy generation
-    t = time.perf_counter()
-    out = eng.generate(prompts, SERVE_NEW)
-    gen_s = time.perf_counter() - t
-    first_mamba.remove()
-    launches = bsa.launches
-    want = n_global * SERVE_NEW
-    ok_shape = out.shape == (SERVE_B, SERVE_NEW) and bool(
-        ((out >= 0) & (out < cfg.vocab)).all())
-    steps = np.asarray(timed.step_ms)
-    log(f"  generate: {SERVE_B} x {SERVE_PROMPT} prompt tokens, "
-        f"{SERVE_NEW} new: prefill {timed.prefill_s[0]:.2f} s, decode "
-        f"p50 {np.percentile(steps, 50):.2f} ms p99 "
-        f"{np.percentile(steps, 99):.2f} ms a step, "
-        f"{SERVE_B * SERVE_NEW / (steps.sum() / 1e3):.1f} tokens/s "
-        f"decoding, {SERVE_B * SERVE_NEW / gen_s:.1f} end to end; "
-        f"decode_attention launches {launches} (want {want}), in prefill "
-        f"{timed.prefill_launches[0]}; tokens {out[:, :8].tolist()}")
-    if not ok_shape:
-        failures.append(f"jamba: tokens {out.shape} outside the vocab")
-    if launches != want or timed.prefill_launches[0]:
-        failures.append(f"jamba: decode_attention launched {launches} "
-                        f"times in generate (want {want}), "
-                        f"{timed.prefill_launches[0]} in prefill")
+    def checks(state, tok0, words):
+        logits = _kernel_vs_plain("jamba", model, state, tok0, words,
+                                  failures)
+        # the kernel's step ran last: its routes are the last of each layer
+        routed[:] = [len(torch.unique(i))
+                     for i in hooks.decode_idx[-len(hooks.handles):]]
+        log(f"  routed experts a MoE layer in that step {routed}")
+        # the first mamba layer's scan against the per-token recurrence
+        first_mamba.remove()
+        scan, scan_h = _scan_check(model, cfg, scan_in.pop())
+        scan["prefill_h_equal"] = bool(torch.equal(scan_h,
+                                                   state.layers[0]["h"]))
+        log(f"  chunked scan vs per-token float32 recurrence, first mamba "
+            f"layer's prefill input {scan['shape']} x ds "
+            f"{scan['d_state']}: outputs {scan['y_err']:.3g}, final h "
+            f"{scan['h_err']:.3g} of the largest magnitude "
+            f"({scan['y_max']:.4g}, {scan['h_max']:.4g}; limit 1e-5); the "
+            f"prefill's h equal to the scan's {scan['prefill_h_equal']}; "
+            f"scan {scan['scan_s']:.3f} s, recurrence "
+            f"{scan['steps_s']:.3f} s")
+        if not (scan["finite"] and scan["y_err"] <= 1e-5
+                and scan["h_err"] <= 1e-5 and scan["prefill_h_equal"]):
+            failures.append(f"jamba: chunked scan != per-token recurrence "
+                            f"{scan}")
+        return dict(logits=logits, scan=scan, routed_experts=routed)
 
-    # 2. the kernel against the plain version, from the state after
-    # prefill; then the kernel's step again from the same state
-    p_logits, state = timed.kept
-    timed.kept = None
-    tok0 = torch.argmax(p_logits, dim=-1).to(torch.int32)
-    words = eng._mask_words([SERVE_PROMPT + 1] * SERVE_B)
-    ref_logits = model.decode_step(state, tok0, words, backend="ref")[0]
-    calls, kernel_fn = [], bsa.decode_attention
-
-    def recorded(q, k, v, w, kvl, **kw):
-        o = kernel_fn(q, k, v, w, kvl, **kw)
-        calls.append((q, k, v, w, kvl, kw, o))
-        return o
-
-    hooks.decode_idx.clear()
-    bsa.decode_attention = recorded         # ops reaches it by attribute
     try:
-        ker_logits = model.decode_step(state, tok0, words)[0]
+        res = _serve_phase(
+            "jamba", model, dev, seed, failures, checks,
+            lambda words: _step_bound(model, [SERVE_PROMPT + 1] * SERVE_B,
+                                      words, routed),
+            want=n_global * SERVE_NEW)
     finally:
-        bsa.decode_attention = kernel_fn
-    routed = [len(torch.unique(i)) for i in hooks.decode_idx]
-    again = model.decode_step(state, tok0, words)[0]
-    torch.cuda.synchronize()
-    same_again = bool(torch.equal(again, ker_logits))
-    fault_words = _drop_last_block(words, SERVE_PROMPT + 1,
-                                   cfg.attn_block_size)
-    layer_ulps, fault_ulps = _layer_ulps(calls, fault_words)
-    del calls
-    layer_check = dict(layers=len(layer_ulps), max_row_ulps=max(
-        layer_ulps, default=None), row_ulps=layer_ulps,
-        fault_row_ulps=fault_ulps,
-        fault_caught=sum(f > 1.0 for f in fault_ulps),
-        q_heads_per_kv_head=cfg.n_heads // cfg.n_kv_heads)
-    log(f"  kernel vs plain in each global layer at the full-size state "
-        f"(g = {cfg.n_heads // cfg.n_kv_heads}): {len(layer_ulps)} layers, "
-        f"at most {layer_check['max_row_ulps']} row ulps (limit 1); a "
-        f"dropped last block gives "
-        f"{min(fault_ulps, default=0):.4g}-{max(fault_ulps, default=0):.4g}"
-        f", over the limit in {layer_check['fault_caught']} layers")
-    if len(layer_ulps) != n_global or layer_check["max_row_ulps"] > 1.0:
-        failures.append(f"jamba: decode_attention kernel != plain in the "
-                        f"global layers {layer_ulps}")
-    diff = (ker_logits.float() - ref_logits.float()).abs()
-    top = float(ref_logits.float().abs().max())
-    tol = 8 * 2.0 ** (np.floor(np.log2(top)) - 7)      # 8 bf16 ulps at top
-    agree = float((ker_logits.argmax(-1) == ref_logits.argmax(-1))
-                  .float().mean())
-    logit_check = dict(max_abs_diff=float(diff.max()),
-                       mean_abs_diff=float(diff.mean()), max_abs_logit=top,
-                       tolerance=tol, argmax_agreement=agree,
-                       finite=bool(torch.isfinite(ker_logits).all()),
-                       same_logits_again=same_again, layers=layer_check)
-    log(f"  kernel vs plain decode logits: max |diff| "
-        f"{logit_check['max_abs_diff']:.4g} (tolerance {tol:.4g}, 8 bf16 "
-        f"ulps at max |logit| {top:.4g}), mean "
-        f"{logit_check['mean_abs_diff']:.3g}, argmax agreement {agree}; a "
-        f"second kernel step from the same state gives the same logits: "
-        f"{same_again}")
-    if not (logit_check["finite"] and logit_check["max_abs_diff"] <= tol):
-        failures.append(f"jamba: kernel and plain decode logits differ "
-                        f"{logit_check}")
-    if not same_again:
-        failures.append("jamba: a second decode step from the same state "
-                        "gave other logits")
+        first_mamba.remove()
+        hooks.remove()
 
-    # 3. a profiler window over four decode steps from that state
-    def window():
-        st, tok = state, tok0
-        for _ in range(4):
-            logits, st = model.decode_step(st, tok, words)
-            tok = torch.argmax(logits, dim=-1).to(torch.int32)
-
-    tr = _traced("jamba decode window", window, dev, names=BSA_KERNELS)
-    busy = tr["span_busy_us"]
-    bsa_us = sum(tr["name_us"][n] for n in BSA_KERNELS)
-    share = bsa_us / busy if busy else None
-    idle = 1.0 - busy / tr["wall_us"] if tr["complete"] else None
-    bound_ms, step_bytes = _jamba_step_bound(
-        model, [SERVE_PROMPT + 1] * SERVE_B, words, routed)
-    log(f"  decode window (4 steps): busy {busy / 1e3:.2f} ms of "
-        f"{tr['wall_us'] / 1e3:.2f} ms ({tr['busy_us'] / 1e3:.2f} ms matched "
-        f"to runtime launches, {tr['cu_launches']} cuLaunchKernel-level "
-        f"calls), idle "
-        + (f"{idle:.4f}" if idle is not None else "not measured")
-        + f", decode_attention {bsa_us:.1f} us ("
-        + (f"{share:.4f}" if share is not None else "not measured")
-        + f" of busy); step bound {bound_ms:.2f} ms ({step_bytes} bytes, "
-        f"routed experts a MoE layer {routed}); top "
-        f"{tr['span_top_kernels'][:6]}")
-
-    # 4. the first mamba layer's scan against the per-token recurrence
-    scan, scan_h = _scan_check(model, cfg, scan_in.pop())
-    scan["prefill_h_equal"] = bool(torch.equal(scan_h, state.h[0]))
-    log(f"  chunked scan vs per-token float32 recurrence, first mamba "
-        f"layer's prefill input {scan['shape']} x ds {scan['d_state']}: "
-        f"outputs {scan['y_err']:.3g}, final h {scan['h_err']:.3g} of the "
-        f"largest magnitude ({scan['y_max']:.4g}, {scan['h_max']:.4g}; "
-        f"limit 1e-5); the prefill's h equal to the scan's "
-        f"{scan['prefill_h_equal']}; scan {scan['scan_s']:.3f} s, "
-        f"recurrence {scan['steps_s']:.3f} s")
-    if not (scan["finite"] and scan["y_err"] <= 1e-5
-            and scan["h_err"] <= 1e-5 and scan["prefill_h_equal"]):
-        failures.append(f"jamba: chunked scan != per-token recurrence "
-                        f"{scan}")
-    del state, p_logits, ref_logits, ker_logits, again, scan_h
-    torch.cuda.empty_cache()
-
-    # 5. constrained generation, then every page back
-    v = cfg.vocab
-    lex = {"digits": np.arange(v // 256, v // 256 + 100),
-           "names": np.arange(v // 5, min(v, v // 5 + 2000))}
-    eng.constraint = lexicon_constraint(cfg.vocab, lex, ["digits", "names"],
-                                        device=dev)
-    allowed = np.concatenate(list(lex.values()))
-    _reset_counts()
-    cout = eng.generate(prompts, SERVE_NEW)
-    c_launches = bsa.launches
-    in_set = bool(np.isin(cout, allowed).all())
-    eng.release_all()
-    free = eng.allocator.n_free == eng.allocator.n_pages
-    log(f"  constrained generate: every token in the set {in_set}, "
-        f"launches {c_launches}, prefill {timed.prefill_s[-1]:.2f} s; "
-        f"after release_all {eng.allocator.n_free} of "
-        f"{eng.allocator.n_pages} pages free")
-    if not in_set or not free or c_launches != want:
-        failures.append(f"jamba: constrained tokens in set {in_set}, "
-                        f"pages free {free}, launches {c_launches}")
-    if any(timed.prefill_launches):
-        failures.append(f"jamba: decode_attention launched in prefill "
-                        f"{timed.prefill_launches}")
-
-    # 6. MoE telemetry from the hooks: drops, and the first MoE layer's
+    # MoE telemetry from the hooks: drops, and the first MoE layer's
     # routes of the two prefills of the same prompts as Roaring sets
-    hooks.remove()
     dropped = {k: hooks.dropped_fraction(k) for k in ("prefill", "decode")}
     idx0, idx1 = (i.reshape(-1, cfg.moe_top_k) for i in hooks.prefill_idx)
     t = time.perf_counter()
@@ -4472,31 +4552,270 @@ def phase_jamba(dev, seed, failures):
         failures.append(f"jamba: routing sets hold {sum(telemetry['loads'])}"
                         f" routes of {telemetry['tokens']} tokens")
     peak = torch.cuda.max_memory_allocated(dev)
-    steps = np.asarray(timed.step_ms)
     log(f"  peak device memory {peak} bytes")
-    res = dict(
-        layers=cfg.n_layers, full_layers=full.n_layers, params=n_params,
-        weight_bytes=w_bytes, full_weight_bytes=full_bytes,
-        batch=SERVE_B, prompt=SERVE_PROMPT, max_seq=SERVE_MAX_SEQ,
-        new_tokens=SERVE_NEW, init_s=init_s, generate_s=gen_s,
-        prefill_s=timed.prefill_s, step_ms=timed.step_ms,
-        decode_p50_ms=float(np.percentile(steps, 50)),
-        decode_p99_ms=float(np.percentile(steps, 99)),
-        tokens_per_s=SERVE_B * len(steps) / (steps.sum() / 1e3),
-        generate_tokens_per_s=SERVE_B * SERVE_NEW / gen_s,
-        tokens=out.tolist(), constrained_tokens=cout.tolist(),
-        launches=launches + c_launches, launches_per_generate=[
-            launches, c_launches], prefill_launches=timed.prefill_launches,
-        logits=logit_check, scan=scan, telemetry=telemetry, window=dict(
-            steps=4, wall_us=tr["wall_us"], busy_us=busy,
-            runtime_matched_busy_us=tr["busy_us"],
-            cu_launches=tr["cu_launches"], idle_share=idle,
-            decode_attention_us=bsa_us, decode_attention_share=share,
-            top_kernels=tr["span_top_kernels"]),
-        step_bound_ms=bound_ms, step_bound_bytes=step_bytes,
-        routed_experts=routed, allocated_before=mem0, peak_bytes=peak,
-        in_set=in_set, pages_free=free)
-    del eng, model, timed, hooks
+    res.update(layers=cfg.n_layers, full_layers=full.n_layers,
+               params=n_params, weight_bytes=w_bytes,
+               full_weight_bytes=full_bytes, init_s=init_s,
+               launches=sum(res["launches_per_generate"]),
+               telemetry=telemetry, allocated_before=mem0, peak_bytes=peak)
+    del model, hooks
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 13 and 14: DeepSeek-V2, xLSTM-350M and HuBERT-xlarge
+# ---------------------------------------------------------------------------
+
+DEEPSEEK_LAYERS = 8
+MLA_LIMIT = 2.0 ** -5         # absorbed vs decompressed, of a head's largest
+XLSTM_PROMPT = SERVE_PROMPT   # xLSTM's prompt length (phase 10's)
+HUBERT_FRAMES = 5120
+
+
+def _mla_check(model, cfg, state, tok0, words):
+    """Every MLA layer of one decode step from ``state``: the absorbed
+    attention's output against the decompressed attention recomputed in
+    float32 from the same caches (written by this step, read after it),
+    the largest difference over each head's largest output; the prefix
+    layer runs JAX's ``mla_decode`` flavour, the others its
+    ``mla_decode_stacked``."""
+    from repro_torch.models import layers as L
+    calls, absorbed = [], L.mla_attend_absorbed
+
+    def recorded(q_nope, q_rope, ckv, kr, kv_len, p, c, *, ctx_f32):
+        out = absorbed(q_nope, q_rope, ckv, kr, kv_len, p, c,
+                       ctx_f32=ctx_f32)
+        calls.append((q_nope, q_rope, ckv, kr, kv_len, p, ctx_f32, out))
+        return out
+
+    L.mla_attend_absorbed = recorded      # mla_decode reads it by name
+    try:
+        model.decode_step(state, tok0, words)
+    finally:
+        L.mla_attend_absorbed = absorbed
+    errs, flavours = [], []
+    for q_nope, q_rope, ckv, kr, kv_len, p, ctx_f32, out in calls:
+        want = L.mla_attend_decompressed(q_nope, q_rope, ckv, kr, kv_len, p,
+                                         cfg)
+        top = want.abs().amax(dim=-1, keepdim=True)
+        errs.append(float(((out.float() - want).abs() / top).max()))
+        flavours.append("prefix" if ctx_f32 else "stacked")
+        del want
+    torch.cuda.empty_cache()
+    return dict(layers=len(errs), max_err=max(errs, default=None),
+                errs=errs, flavours=flavours, limit=MLA_LIMIT)
+
+
+def phase_deepseek(dev, seed, failures):
+    """DeepSeek-V2 served at full width with 8 of its 60 layers (see the
+    module docstring, phase 13)."""
+    _reset_counts()                       # the DeepSeek path starts here
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev)
+    model, cfg, full, n_params, w_bytes, init_s = _phase_model(
+        "deepseek_v2_236b", DEEPSEEK_LAYERS, dev, seed)
+    per_layer = sum(p.numel() * p.element_size() for p in model.layers[
+        1:].parameters()) / (cfg.n_layers - 1)
+    full_bytes = w_bytes + per_layer * (full.n_layers - cfg.n_layers)
+    log(f"  DeepSeek-V2: n_layers {full.n_layers} -> {cfg.n_layers}: "
+        f"{full_bytes / 1e9:.1f} GB of bf16 weights exceed the card's "
+        f"{CARD_BYTES / 1e9:.0f} GB; kept the dense prefix layer (ff "
+        f"{cfg.dense_d_ff}) and {cfg.n_layers - 1} MLA + MoE layers "
+        f"({cfg.n_experts} experts of {cfg.moe_d_ff}, top {cfg.moe_top_k}, "
+        f"{cfg.n_shared_experts} shared), d {cfg.d_model}, {cfg.n_heads} "
+        f"heads, kv_lora {cfg.kv_lora_rank}; {n_params} parameters, "
+        f"{w_bytes} bytes, random from seed {seed} in {init_s:.1f} s; "
+        f"allocated before {mem0} bytes")
+    hooks, routed = _MoEHooks(model), []
+
+    def checks(state, tok0, words):
+        mla = _mla_check(model, cfg, state, tok0, words)
+        # that step's routes are the last of each MoE layer
+        routed[:] = [len(torch.unique(i))
+                     for i in hooks.decode_idx[-len(hooks.handles):]]
+        log(f"  absorbed vs decompressed MLA in each layer of one step "
+            f"({mla['flavours'].count('prefix')} prefix, "
+            f"{mla['flavours'].count('stacked')} stacked): at most "
+            f"{mla['max_err']:.4g} of a head's largest output (limit "
+            f"{MLA_LIMIT}); per layer {[f'{e:.3g}' for e in mla['errs']]}")
+        want_fl = ["prefix"] + ["stacked"] * (cfg.n_layers - 1)
+        if mla["flavours"] != want_fl or mla["max_err"] > MLA_LIMIT:
+            failures.append(f"deepseek: absorbed MLA != decompressed {mla}")
+        log(f"  routed experts a MoE layer in that step {routed}")
+        return dict(mla=mla, routed_experts=routed)
+
+    try:
+        res = _serve_phase(
+            "deepseek", model, dev, seed, failures, checks,
+            lambda words: _step_bound(model, [SERVE_PROMPT + 1] * SERVE_B,
+                                      words, routed))
+    finally:
+        hooks.remove()
+    dropped = {k: hooks.dropped_fraction(k) for k in ("prefill", "decode")}
+    pre, dec = dropped["prefill"], dropped["decode"]
+    cap = max(1, round(cfg.capacity_factor * SERVE_B * cfg.moe_top_k
+                       / cfg.n_experts))
+    log(f"  MoE dropped_fraction: prefill mean {pre['mean']:.4f} (max "
+        f"{pre['max']:.4f}, {pre['calls']} calls), decode mean "
+        f"{dec['mean']:.4f} (max {dec['max']:.4f}, {dec['calls']} calls; "
+        f"capacity {cap})")
+    # prefill, decode, the checks and the window, then the constrained
+    # generate (the constraint's build is counted apart)
+    launches = _sum_counts(res["launch_counts"]["served"], _all_counts())
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"  kernel launches in the phase {launches or 'none'}; peak device "
+        f"memory {peak} bytes")
+    if launches:
+        failures.append(f"deepseek: a kernel launched on the DeepSeek path, "
+                        f"which runs none: {launches}")
+    res.update(layers=cfg.n_layers, full_layers=full.n_layers,
+               params=n_params, weight_bytes=w_bytes,
+               full_weight_bytes=full_bytes, init_s=init_s, dropped=dropped,
+               launches=launches, allocated_before=mem0, peak_bytes=peak)
+    del model, hooks
+    torch.cuda.empty_cache()
+    return res
+
+
+def _mlstm_check(model, cfg, h_in, prefill_state):
+    """The first mLSTM layer's real prefill input through the chunked form
+    (chunks of ``cfg.xlstm_chunk``) and the per-token float32 recurrence
+    on the card: h and the final C, n and m, each's largest difference
+    over its largest magnitude (at least 1); and the prefill's own final
+    state equal to the chunked one."""
+    from repro_torch.models import ssm
+    mixer = model.layers[0].mixer
+    di = cfg.ssm_expand * cfg.d_model
+    with torch.no_grad():
+        ins = ssm.mlstm_inputs((h_in @ mixer.up)[..., :di], mixer, cfg)
+        st0 = ssm.mlstm_init_state(cfg, h_in.shape[0], h_in.device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        h_c, st_c = ssm.mlstm_chunked(*ins, st0, cfg.xlstm_chunk)
+        torch.cuda.synchronize()
+        chunk_s = time.perf_counter() - t
+        t = time.perf_counter()
+        h_s, st_s = ssm.mlstm_steps(*ins, st0)
+        torch.cuda.synchronize()
+        steps_s = time.perf_counter() - t
+    errs = {k: float((a - b).abs().max() / max(float(b.abs().max()), 1.0))
+            for k, a, b in (("h", h_c, h_s), *((k, st_c[k], st_s[k])
+                                                for k in "Cnm"))}
+    same = all(torch.equal(st_c[k], prefill_state[k]) for k in "Cnm")
+    return dict(shape=list(h_c.shape), chunk=cfg.xlstm_chunk, errs=errs,
+                max_err=max(errs.values()), prefill_state_equal=same,
+                finite=bool(torch.isfinite(h_c).all()), chunked_s=chunk_s,
+                steps_s=steps_s)
+
+
+def phase_xlstm_hubert(dev, seed, failures):
+    """xLSTM-350M served whole, then one HuBERT-xlarge encoder prefill (see
+    the module docstring, phase 14)."""
+    from repro_torch.models import ssm
+    _reset_counts()                       # the xLSTM path starts here
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev)
+    model, cfg, _, n_params, w_bytes, init_s = _phase_model(
+        "xlstm_350m", 0, dev, seed)
+    log(f"  xLSTM-350M: {cfg.n_layers} layers (mLSTM and sLSTM, ffn none), "
+        f"d {cfg.d_model}, {cfg.xlstm_heads} heads, mLSTM chunk "
+        f"{cfg.xlstm_chunk}; {n_params} parameters, {w_bytes} bytes, random "
+        f"from seed {seed} in {init_s:.1f} s")
+    mlstm_in, slstm_s, slstm_train = [], [], ssm.slstm_train
+
+    def timed_slstm(*a, **kw):            # transformer.py reads it by name
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = slstm_train(*a, **kw)
+        torch.cuda.synchronize()
+        slstm_s.append(time.perf_counter() - t)
+        return out
+
+    first = model.layers[0].ln1.register_forward_hook(
+        lambda mod, inp, out: mlstm_in.append(out)
+        if not mlstm_in and out.dim() == 3 else None)
+    ssm.slstm_train = timed_slstm
+    n_slstm = sum(m == "slstm" for m, _ in cfg.layer_kinds)
+
+    def checks(state, tok0, words):
+        first.remove()
+        chk = _mlstm_check(model, cfg, mlstm_in.pop(), state.layers[0])
+        errs = {k: f"{v:.3g}" for k, v in chk["errs"].items()}
+        log(f"  chunked mLSTM vs per-token float32 recurrence, first mLSTM "
+            f"layer's prefill input {chk['shape']} (chunks of "
+            f"{chk['chunk']}): {errs} of the largest magnitude (limit "
+            f"1e-5); the prefill's state "
+            f"equal to the chunked one {chk['prefill_state_equal']}; chunked "
+            f"{chk['chunked_s']:.3f} s, recurrence {chk['steps_s']:.3f} s")
+        if not (chk["finite"] and chk["max_err"] <= 1e-5
+                and chk["prefill_state_equal"]):
+            failures.append(f"xlstm: chunked mLSTM != recurrence {chk}")
+        return dict(mlstm=chk)
+
+    try:
+        res = _serve_phase(
+            "xlstm", model, dev, seed, failures, checks,
+            lambda words: _step_bound(model, [XLSTM_PROMPT + 1] * SERVE_B,
+                                      words, []), prompt=XLSTM_PROMPT)
+    finally:
+        ssm.slstm_train = slstm_train
+        first.remove()
+    prefill_slstm = [sum(slstm_s[i:i + n_slstm])
+                     for i in range(0, len(slstm_s), n_slstm)]
+    share = [s_ / p_ for s_, p_ in zip(prefill_slstm, res["prefill_s"])]
+    log(f"  sLSTM layers (token by token) in each prefill: "
+        f"{[f'{s_:.2f}' for s_ in prefill_slstm]} s, "
+        f"{[f'{x:.3f}' for x in share]} of the prefill")
+    res.update(layers=cfg.n_layers, params=n_params, weight_bytes=w_bytes,
+               init_s=init_s, slstm_prefill_s=prefill_slstm,
+               slstm_share=share, allocated_before=mem0,
+               peak_bytes=torch.cuda.max_memory_allocated(dev))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # HuBERT-xlarge: one encoder prefill of audio-stub embeddings, twice
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, hcfg, _, h_params, h_bytes, h_init = _phase_model(
+        "hubert_xlarge", 0, dev, seed)
+    fe = torch.randn((SERVE_B, HUBERT_FRAMES, hcfg.frontend_dim),
+                     generator=torch.Generator(dev).manual_seed(seed + 1),
+                     device=dev).to(torch.bfloat16)
+    times, outs = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, _st = model.prefill(frontend_embeds=fe)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        outs.append(logits)
+        del _st
+    ok = (outs[0].shape == (SERVE_B, hcfg.vocab)
+          and bool(torch.isfinite(outs[0]).all())
+          and bool(torch.equal(outs[0], outs[1])))
+    h_peak = torch.cuda.max_memory_allocated(dev)
+    log(f"  HuBERT-xlarge: {hcfg.n_layers} encoder layers, d "
+        f"{hcfg.d_model}, {h_params} parameters, random from seed {seed} in "
+        f"{h_init:.1f} s; prefill of {SERVE_B} x {HUBERT_FRAMES} frames of "
+        f"{hcfg.frontend_dim}-wide embeddings, no tokens: "
+        f"{[f'{t_:.2f}' for t_ in times]} s; logits {tuple(outs[0].shape)} "
+        f"finite and equal on the rerun: {ok}; peak {h_peak} bytes")
+    if not ok:
+        failures.append("hubert: encoder prefill logits not finite, of "
+                        "another shape, or different on a rerun")
+    # xLSTM's prefill, decode, checks and window, its constrained generate
+    # and HuBERT's prefills (the constraint's build is counted apart)
+    launches = _sum_counts(res["launch_counts"]["served"], _all_counts())
+    log(f"  kernel launches in the phase {launches or 'none'}")
+    if launches:
+        failures.append(f"xlstm/hubert: a kernel launched on a path that "
+                        f"runs none: {launches}")
+    res.update(launches=launches, hubert=dict(
+        layers=hcfg.n_layers, params=h_params, weight_bytes=h_bytes,
+        init_s=h_init, frames=HUBERT_FRAMES, prefill_s=times, ok=ok,
+        peak_bytes=h_peak))
+    del model, outs, fe
     torch.cuda.empty_cache()
     return res
 
@@ -4533,7 +4852,8 @@ def _build_all():
 def _kernel_line(main_path, sim, cases, topk_cases, max_err, topk_err,
                  pair_cases, pair_err, pairwise, convert_cases, convert_err,
                  tensor, section4_cases, section4_err, surface, ids_cases,
-                 ids_err, sharded, bsa_cases, bsa_err, serving, jamba):
+                 ids_err, sharded, bsa_cases, bsa_err, serving, jamba,
+                 later):
     rep = next(c for c in cases if c["case"] == "main/ids/or")
     jamba_case = next(c for c in bsa_cases if c["case"] == "jamba (g=4)")
     score = next(c for c in topk_cases
@@ -4548,7 +4868,7 @@ def _kernel_line(main_path, sim, cases, topk_cases, max_err, topk_err,
                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                 "library_ms": c.get("library_ms")}
 
-    return {"kernels": [
+    rows = [
         # no single PyTorch call computes a segmented bitwise reduce fused
         # with a popcount, nor a segmented AND-popcount fused with a score
         row("segment_reduce", "segment_reduce.cu",
@@ -4650,7 +4970,17 @@ def _kernel_line(main_path, sim, cases, topk_cases, max_err, topk_err,
                                 "12": jamba["launches"]},
              jamba_shape={k: jamba_case[k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                 "max_abs_err", "shape")})]}
+                 "max_abs_err", "shape")})]
+    # launches in phases 13 and 14 (``later``: the counts by kernel), whose
+    # model paths run no kernel of the port
+    count_key = {"similarity_score": "score", "similarity_select": "select",
+                 "similarity_score_ids": "score_ids",
+                 "topk_merge": "select_ids"}
+    for r in rows:
+        key = count_key.get(r["name"], r["name"])
+        r["launches_by_phase"] = dict(r.get("launches_by_phase", {}), **{
+            ph: counts.get(key, 0) for ph, counts in later.items()})
+    return {"kernels": rows}
 
 
 def main() -> int:
@@ -4810,12 +5140,24 @@ def main() -> int:
         failures.append(f"decode_attention launched outside phases 10 and "
                         f"12: {bsa_per_phase}")
 
+    # phases 13 and 14 run alone on the card too, after phase 12's model
+    gc.collect()
+    torch.cuda.empty_cache()
+    deepseek = phase("13 (DeepSeek-V2 serving at full width, 8 of 60 "
+                     "layers)", phase_deepseek, dev, args.seed, failures)
+    gc.collect()
+    torch.cuda.empty_cache()
+    xlstm = phase("14 (xLSTM-350M serving and a HuBERT-xlarge encoder "
+                  "prefill, whole)", phase_xlstm_hubert, dev, args.seed,
+                  failures)
+
     kernels = _kernel_line(main_path, sim, cases, topk_cases, max_err,
                            topk_err, pair_cases, pair_err, pairwise,
                            convert_cases, convert_err, tensor,
                            section4_cases, section4_err, surface, ids_cases,
                            ids_err, sharded, bsa_cases, bsa_err, serving,
-                           jamba)
+                           jamba, {"13": deepseek["launches"],
+                                   "14": xlstm["launches"]})
     REPORT.parent.mkdir(exist_ok=True)
     REPORT.write_text(json.dumps(dict(
         card=card, builds=builds, kernel_cases=cases,
@@ -4825,6 +5167,7 @@ def main() -> int:
         section4_cases=section4_cases, ops_surface=surface,
         ids_cases=ids_cases, sharded=sharded, cold_start=cold,
         bsa_cases=bsa_cases, serving=serving, jamba=jamba,
+        deepseek=deepseek, xlstm_hubert=xlstm,
         bsa_launches_per_phase=bsa_per_phase,
         kernels=kernels["kernels"],
         phases_s=phases, failures=failures,

@@ -10,8 +10,9 @@ The phase's kernels build at first use, the phase runs once, and its cases
 (kernel, plain version, library and bound times, equality) print as one
 JSON line, with the card's name and power limit; ``--out`` also writes
 them to a file.  Phases: 2, 2b, 2c, 2d, 2e, 2f, 2g (see ``chip_smoke.py``),
-and the serving phases 10 (Gemma2-27B) and 12 (Jamba-v0.1, a tree that
-has it), which print their end-to-end numbers in place of cases.
+and the serving phases 10 (Gemma2-27B), 12 (Jamba-v0.1), 13 (DeepSeek-V2)
+and 14 (xLSTM-350M and a HuBERT-xlarge prefill), each in a tree that has
+it, which print their end-to-end numbers in place of cases.
 
 Timing two trees on one card, in turns (parent, change, change, parent),
 takes one process per run, since each tree has its own ``repro_torch``:
@@ -36,7 +37,8 @@ PHASES = {"2": "phase_kernels", "2b": "phase_topk_kernels",
           "2c": "phase_pair_kernels", "2d": "phase_convert_kernels",
           "2e": "phase_section4_kernels", "2f": "phase_ids_kernels",
           "2g": "phase_bsa_kernel", "10": "phase_serving",
-          "12": "phase_jamba"}
+          "12": "phase_jamba", "13": "phase_deepseek",
+          "14": "phase_xlstm_hubert"}
 KEYS = ("case", "kernel", "rows", "equal", "ms", "plain_ms", "library_ms",
         "bound_ms", "bound_by", "event_ms")
 SERVING_KEYS = ("prefill_s", "decode_p50_ms", "decode_p99_ms",
@@ -71,7 +73,7 @@ def main() -> int:
                seconds=time.perf_counter() - t, failures=failures,
                ptxas=ptxas)
     if isinstance(out, dict):                   # a serving phase
-        rep["serving"] = dict({k: out[k] for k in SERVING_KEYS},
+        rep["serving"] = dict({k: out.get(k) for k in SERVING_KEYS},
                               idle_share=out["window"]["idle_share"],
                               window_busy_us=out["window"]["busy_us"])
     else:

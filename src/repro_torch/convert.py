@@ -117,15 +117,13 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
     arrays.  ``prefix_<i>`` is layer ``i``; pattern position ``pi`` of
     repeat ``r`` (the leading axis of ``tree["pattern"][pi]``) is layer
     ``n_prefix + r * len(pattern) + pi``.  Nested dicts become dotted keys,
-    so attention, Mamba (``mixer.in_proj``, ``mixer.A_log``, ...), MLP and
+    so every mixer (attention ``mixer.wq``, MLA ``mixer.w_dkv``, Mamba
+    ``mixer.A_log``, mLSTM ``mixer.wi``, sLSTM ``mixer.r``, ...), MLP and
     MoE blocks (``ffn.router``, ``ffn.wg``, ``ffn.shared.w_gate``, ...) map
-    alike."""
-    if "frontend_proj" in tree:
-        raise NotImplementedError("frontends are not ported yet (ROADMAP "
-                                  "Queue 1)")
+    alike; ``frontend_proj`` keeps its name."""
     out: dict[str, torch.Tensor] = {}
-    _flatten("", {k: tree[k] for k in ("embed", "lm_head", "final_norm")
-                  if k in tree}, out)
+    _flatten("", {k: tree[k] for k in ("embed", "lm_head", "final_norm",
+                                       "frontend_proj") if k in tree}, out)
     n_prefix = sum(k.startswith("prefix_") for k in tree)
     for i in range(n_prefix):
         _flatten(f"layers.{i}", tree[f"prefix_{i}"], out)

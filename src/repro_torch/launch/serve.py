@@ -10,9 +10,13 @@ the card unless ``--device`` names another.
 Weights are random, drawn from ``--seed`` on the device; ``--reduced``
 takes the architecture's small configuration (``--device cpu`` runs it
 without a GPU, on the plain PyTorch versions of the kernels).  The port
-serves gemma2-27b, qwen2.5-3b, stablelm-3b, qwen3-14b, jamba-v0.1-52b and
-mixtral-8x7b.  A model with Mamba layers (Jamba) takes prompts of at most
-``ssm_chunk`` (128) tokens or a multiple of it.
+serves every decoder the repository ships: gemma2-27b, qwen2.5-3b,
+stablelm-3b, qwen3-14b, jamba-v0.1-52b, mixtral-8x7b, deepseek-v2-236b,
+xlstm-350m and qwen2-vl-72b (text prompts; ``Transformer.prefill`` takes
+the vision stub's ``frontend_embeds``).  hubert-xlarge is encoder-only and
+refused here, as the JAX launcher refuses it.  A model with Mamba layers
+(Jamba) takes prompts of at most ``ssm_chunk`` (128) tokens or a multiple
+of it.
 """
 
 from __future__ import annotations

@@ -1,6 +1,8 @@
-"""Shared neural layers of the serving path: norms, RoPE, chunked flash
-attention (prefill), and decode attention (dense, and Roaring block-sparse
-through ``kernels.ops.decode_attention``).
+"""Shared neural layers of the serving path: norms, RoPE (M-RoPE sections
+checked), chunked flash attention (prefill), decode attention (dense;
+Roaring block-sparse through ``kernels.ops.decode_attention``; and the
+``sparse_topk_blocks`` gather route), and DeepSeek-V2 multi-head latent
+attention (``MLA``).
 
 The port of the JAX package's ``repro/models/layers.py``, in its
 arithmetic: every product that JAX runs with
@@ -9,8 +11,8 @@ bfloat16 ``torch.matmul`` would round the result), softmax statistics are
 float32, and the probabilities drop to the value dtype for the PV product as
 they do there.  The sharding notes (``ctx.constrain``) are no-ops on one
 device and are dropped.  Parameters are the attributes of the module ``p``
-(``models.transformer.Attention``), stored in the compute dtype; norm
-scales stay float32.  ``weight`` and ``fill`` make every module's
+(``models.transformer.Attention``, ``MLA``), stored in the compute dtype;
+norm scales stay float32.  ``weight`` and ``fill`` make every module's
 parameters.
 """
 
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import block_mask_bits
 
 _NEG = -1e30
 
@@ -211,6 +214,66 @@ def decode_attention_roaring(q, k_cache, v_cache, kv_len, block_mask_words,
                                  backend=backend)
 
 
+def visible_block_ids(block_mask_words, kv_len, n_blocks, block_size, topk):
+    """Roaring words (B, W) int32 -> the first ``topk`` visible block ids of
+    each row in ascending order (B, topk) int32, 0 past the row's count,
+    and the counts min(visible, topk) (B,).  A block is visible when its
+    bit is set and it starts below ``kv_len``; the rank is the prefix sum
+    of the visibility row (the paper's section 3.1 extraction)."""
+    vis = block_mask_bits(block_mask_words, n_blocks)
+    blocks = torch.arange(n_blocks, device=vis.device)
+    vis &= (blocks * block_size)[None, :] < kv_len.to(vis.device)[:, None]
+    rank = torch.cumsum(vis, dim=1) - 1
+    # ranks past topk and invisible blocks land in the spare last column
+    dst = torch.where(vis & (rank < topk), rank, topk)
+    idx = torch.zeros((vis.shape[0], topk + 1), dtype=torch.int32,
+                      device=vis.device)
+    idx.scatter_(1, dst, blocks.to(torch.int32).expand_as(dst))
+    return idx[:, :topk], torch.clamp(vis.sum(dim=1), max=topk)
+
+
+def decode_attention_block_gather(q, k_cache, v_cache, kv_len,
+                                  block_mask_words, *, block_size=128,
+                                  topk=64, scale=None, softcap=0.0):
+    """The portable Roaring block-sparse decode: the visible block ids from
+    the mask words (``visible_block_ids``), a gather of only those K and V
+    blocks, and attention over the gathered window.
+
+    q: (B, H, D); caches (B, Hkv, S, D); block_mask_words (B, W) int32;
+    kv_len (B,).  Returns (B, H, D) in q's dtype.  Only the first
+    ``topk`` visible blocks of a row count, so with more visible blocks
+    than ``topk`` this is another function than row 17's; and the softmax
+    weights drop to the value dtype before the PV product, as in the JAX
+    package, where row 17 keeps them in float32.  A row with no visible
+    block attends uniformly over the gathered block 0 repeated (-1e30
+    everywhere), as there."""
+    b, h, d = q.shape
+    hkv, s = k_cache.shape[1], k_cache.shape[2]
+    g = h // hkv
+    nblk = s // block_size
+    topk = min(topk, nblk)
+    scale = (d ** -0.5) if scale is None else scale
+    idx, n_vis = visible_block_ids(block_mask_words, kv_len, nblk,
+                                   block_size, topk)
+    rows = torch.arange(b, device=q.device)[:, None]
+    # (B, topk, Hkv, bs, D): only the addressed blocks are read
+    k_sel = k_cache.reshape(b, hkv, nblk, block_size, d)[rows, :, idx.long()]
+    v_sel = v_cache.reshape(b, hkv, nblk, block_size, d)[rows, :, idx.long()]
+    qg = q.reshape(b, hkv, g, d).float()
+    sc = torch.einsum("bhgd,bthsd->bhgts", qg, k_sel.float()) * scale
+    if softcap:
+        sc = softcap * torch.tanh(sc / softcap)
+    pos = idx[:, :, None] * block_size + torch.arange(block_size,
+                                                      device=q.device)
+    valid = (torch.arange(topk, device=q.device)[None, :, None]
+             < n_vis[:, None, None]) & (pos < kv_len[:, None, None])
+    sc = torch.where(valid[:, None, None], sc, _NEG)
+    w = torch.softmax(sc.reshape(b, hkv, g, topk * block_size), dim=-1)
+    w = w.reshape(b, hkv, g, topk, block_size).to(v_sel.dtype)
+    out = torch.einsum("bhgts,bthsd->bhgd", w.float(), v_sel.float())
+    return out.reshape(b, h, d).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # attention blocks (projection + rope + attention + output)
 # ---------------------------------------------------------------------------
@@ -263,7 +326,9 @@ def attn_decode(x_tok, p, cfg, mixer, k_cache, v_cache, pos,
     (B, d).
 
     A ``global`` mixer with ``cfg.roaring_sparse_global`` and mask words
-    takes the Roaring block-sparse kernel, reading the cache where it lies;
+    takes the Roaring block-sparse kernel, reading the cache where it lies,
+    or with ``cfg.sparse_topk_blocks`` the gather route
+    (``decode_attention_block_gather``, plain PyTorch on every device);
     every other mixer the dense path."""
     x = x_tok[:, None, :]
     q, k, v = _project_qkv(x, p, cfg, positions=pos[:, None])
@@ -276,16 +341,169 @@ def attn_decode(x_tok, p, cfg, mixer, k_cache, v_cache, pos,
     if (mixer == "global" and cfg.roaring_sparse_global
             and block_mask_words is not None):
         if cfg.sparse_topk_blocks:
-            raise NotImplementedError(
-                "the sparse_topk_blocks gather route is not ported yet "
-                "(ROADMAP Queue 1)")
-        out = decode_attention_roaring(
-            q, k_cache, v_cache, kv_len, block_mask_words,
-            block_size=cfg.attn_block_size, scale=cfg.hd ** -0.5,
-            softcap=cfg.attn_softcap, backend=backend)
+            out = decode_attention_block_gather(
+                q, k_cache, v_cache, kv_len, block_mask_words,
+                block_size=cfg.attn_block_size,
+                topk=cfg.sparse_topk_blocks, scale=cfg.hd ** -0.5,
+                softcap=cfg.attn_softcap)
+        else:
+            out = decode_attention_roaring(
+                q, k_cache, v_cache, kv_len, block_mask_words,
+                block_size=cfg.attn_block_size, scale=cfg.hd ** -0.5,
+                softcap=cfg.attn_softcap, backend=backend)
     else:
         out = decode_attention_dense(
             q, k_cache, v_cache, kv_len,
             window=cfg.sliding_window if mixer == "local" else 0,
             softcap=cfg.attn_softcap)
     return out_proj(out, p.wo)
+
+
+# ---------------------------------------------------------------------------
+# Multi-head latent attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+class MLA(torch.nn.Module):
+    """The MLA mixer's parameters, with JAX's keys, shapes and init scales:
+    ``w_dq`` (d, q_lora), ``q_ln`` (q_lora,), ``w_uq`` (q_lora, H, nope +
+    rope), ``w_dkv`` (d, kv_lora + rope), ``kv_ln`` (kv_lora,), ``w_uk``
+    (kv_lora, H, nope), ``w_uv`` (kv_lora, H, v_head), ``wo`` (H, v_head,
+    d).  The two norm scales stay float32."""
+
+    def __init__(self, cfg, dtype, device, generator):
+        super().__init__()
+        d, h = cfg.d_model, cfg.n_heads
+        ql, kl = cfg.q_lora_rank, cfg.kv_lora_rank
+        nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        f32 = torch.float32
+        self.w_dq = weight((d, ql), d ** -0.5, dtype, device, generator)
+        self.q_ln = fill((ql,), 0.0, f32, device)
+        self.w_uq = weight((ql, h, nope + rope_d), ql ** -0.5, dtype, device,
+                           generator)
+        self.w_dkv = weight((d, kl + rope_d), d ** -0.5, dtype, device,
+                            generator)
+        self.kv_ln = fill((kl,), 0.0, f32, device)
+        self.w_uk = weight((kl, h, nope), kl ** -0.5, dtype, device,
+                           generator)
+        self.w_uv = weight((kl, h, vd), kl ** -0.5, dtype, device, generator)
+        self.wo = weight((h, vd, d), (h * vd) ** -0.5, dtype, device,
+                         generator)
+
+
+def _heads(x, w):
+    """einsum("...k,khn->...hn") in x's dtype: x (..., k), w (k, H, n)."""
+    k, h, n = w.shape
+    return (x @ w.reshape(k, h * n)).reshape(*x.shape[:-1], h, n)
+
+
+def _mla_q(x, p, cfg, positions):
+    """x (B, S, d) -> q_nope (B, S, H, nope), q_rope (B, S, H, rope)."""
+    cq = rms_norm(x @ p.w_dq, p.q_ln, cfg.norm_eps)
+    q = _heads(cq, p.w_uq)
+    q_rope = apply_rope(q[..., cfg.qk_nope_dim:], positions, cfg.rope_theta)
+    return q[..., :cfg.qk_nope_dim], q_rope
+
+
+def _mla_ckv(x, p, cfg, positions):
+    """x (B, S, d) -> the compressed cache rows: ckv (B, S, kv_lora), normed,
+    and k_rope (B, S, rope), one rotary key shared by every head."""
+    dkv = x @ p.w_dkv
+    kl = cfg.kv_lora_rank
+    ckv = rms_norm(dkv[..., :kl], p.kv_ln, cfg.norm_eps)
+    k_rope = apply_rope(dkv[..., None, kl:], positions, cfg.rope_theta)
+    return ckv, k_rope[:, :, 0]
+
+
+def mla_prefill(x, p, cfg, positions, ckv_cache, kr_cache):
+    """x: (B, S, d) -> (B, S, d) through the decompressed attention (keys
+    and values expanded per head from ckv, causal flash attention with
+    qk width nope + rope and v width v_head); writes the prompt's ckv and
+    k_rope into the caches (B, S_max, kv_lora) / (B, S_max, rope) in
+    place, as JAX's ``_mixer_prefill`` fills them."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    q_nope, q_rope = _mla_q(x, p, cfg, positions)
+    ckv, k_rope = _mla_ckv(x, p, cfg, positions)
+    k = torch.cat([_heads(ckv, p.w_uk), k_rope[:, :, None, :].expand(
+        b, s, h, cfg.qk_rope_dim)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = flash_attention(
+        q, k, _heads(ckv, p.w_uv), causal=True,
+        scale=(cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5,
+        q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk,
+        block_skip=cfg.flash_block_skip)
+    ckv_cache[:, :s] = ckv
+    kr_cache[:, :s] = k_rope
+    return out_proj(out, p.wo)
+
+
+def _mla_scores(q_c, q_rope, ckv32, kr, kv_len, cfg):
+    """float32 scores (B, H, S) of the absorbed query: q_c . ckv + q_rope .
+    k_rope, scaled, -1e30 at and past ``kv_len``; ``ckv32`` is the ckv
+    cache already upcast to float32."""
+    sc = torch.matmul(q_c.float(), ckv32.transpose(1, 2))
+    sc = sc + torch.matmul(q_rope.float(), kr.float().transpose(1, 2))
+    sc = sc * ((cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5)
+    valid = torch.arange(ckv32.shape[1], device=ckv32.device)[None, :] \
+        < kv_len[:, None]
+    return torch.where(valid[:, None, :], sc, _NEG)
+
+
+def mla_attend_absorbed(q_nope, q_rope, ckv, kr, kv_len, p, cfg, *,
+                        ctx_f32):
+    """The absorbed-matrix MLA attention over the compressed caches: q_nope
+    (B, H, nope) is folded into the latent space through ``w_uk``, the
+    softmax weights read ckv directly, and ``w_uv`` expands the context.
+    Returns (B, H, v_head) in q_nope's dtype.
+
+    ``ctx_f32`` picks which of the JAX package's two decode functions this
+    is; they differ in bfloat16.  True: ``mla_decode`` (its prefix layers),
+    float32 weights times the cache upcast to float32.  False:
+    ``mla_decode_stacked`` (its scanned pattern layers), the weights
+    rounded to the cache dtype first."""
+    dt = q_nope.dtype
+    # einsum("bhn,khn->bhk") per head: (H, B, nope) @ (H, nope, kv_lora)
+    q_c = (q_nope.transpose(0, 1) @ p.w_uk.permute(1, 2, 0)).transpose(0, 1)
+    ckv32 = ckv.float()                 # one upcast for both products
+    w = torch.softmax(_mla_scores(q_c, q_rope, ckv32, kr, kv_len, cfg),
+                      dim=-1)
+    if not ctx_f32:
+        w = w.to(ckv.dtype)
+    ctx = torch.matmul(w.float(), ckv32).to(dt)              # (B, H, kl)
+    # einsum("bhk,khv->bhv"): (H, B, kl) @ (H, kl, v_head)
+    return (ctx.transpose(0, 1) @ p.w_uv.transpose(0, 1)).transpose(0, 1)
+
+
+def mla_attend_decompressed(q_nope, q_rope, ckv, kr, kv_len, p, cfg):
+    """The same attention with keys and values decompressed per head, all
+    in float32 from the same caches: k_nope = ckv w_uk, v = ckv w_uv.
+    The plain check of ``mla_attend_absorbed``; returns (B, H, v_head)
+    float32."""
+    ckv32 = ckv.float()
+    k_nope = torch.einsum("bsk,khn->bhsn", ckv32, p.w_uk.float())
+    sc = torch.einsum("bhn,bhsn->bhs", q_nope.float(), k_nope)
+    del k_nope
+    sc = sc + torch.matmul(q_rope.float(), kr.float().transpose(1, 2))
+    sc = sc * ((cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5)
+    valid = torch.arange(ckv.shape[1], device=ckv.device)[None, :] \
+        < kv_len[:, None]
+    w = torch.softmax(torch.where(valid[:, None, :], sc, _NEG), dim=-1)
+    v = torch.einsum("bsk,khv->bhsv", ckv32, p.w_uv.float())
+    return torch.einsum("bhs,bhsv->bhv", w, v)
+
+
+def mla_decode(x_tok, p, cfg, ckv_cache, kr_cache, pos, *, ctx_f32):
+    """Absorbed MLA decode: x_tok (B, d) -> (B, d).  The new token's ckv
+    and k_rope are written into the caches (B, S, kv_lora) / (B, S, rope)
+    IN PLACE at each row's ``pos`` before they are read; the cache is all
+    a layer keeps.  ``ctx_f32``: see ``mla_attend_absorbed``."""
+    x = x_tok[:, None, :]
+    q_nope, q_rope = _mla_q(x, p, cfg, pos[:, None])
+    ckv_new, kr_new = _mla_ckv(x, p, cfg, pos[:, None])
+    rows = torch.arange(x.shape[0], device=x.device)
+    col = pos.long()
+    ckv_cache[rows, col] = ckv_new[:, 0]
+    kr_cache[rows, col] = kr_new[:, 0]
+    vout = mla_attend_absorbed(q_nope[:, 0], q_rope[:, 0], ckv_cache,
+                               kr_cache, pos + 1, p, cfg, ctx_f32=ctx_f32)
+    return out_proj(vout, p.wo)

@@ -1,6 +1,5 @@
-"""Mamba-1, the state-space mixer of Jamba: the port of the Mamba half of
-the JAX package's ``repro/models/ssm.py`` (mLSTM and sLSTM are not ported
-yet, ROADMAP Queue 1).
+"""The recurrent mixers: Mamba-1 (Jamba), and mLSTM and sLSTM (xLSTM), the
+port of the JAX package's ``repro/models/ssm.py``.
 
 ``Mamba`` holds the JAX keys ``in_proj`` (d, 2 di), ``conv_w`` (dc, di),
 ``conv_b``, ``x_proj`` (di, dt_rank + 2 ds), ``dt_proj`` (dt_rank, di),
@@ -17,16 +16,35 @@ association order, so the float32 results agree to rounding, not to the
 bit.  The decode state is (``conv`` (B, dc - 1, di) in the compute dtype,
 ``h`` (B, di, ds) float32); ``mamba_decode`` returns new tensors and never
 writes the state it is given.
+
+``MLSTM`` (matrix memory) holds ``up`` (d, 2 di), ``wq`` / ``wk`` / ``wv``
+(di, h, dh), ``wi`` / ``wf`` (di, h), ``down`` (di, d) in the compute
+dtype and ``bi``, ``bf`` (h,) and the norm scale ``ln`` (di,) float32.
+``SLSTM`` (scalar memory) holds ``w`` (d, 4, h, dh), ``up`` (d, 2 ff) and
+``down`` (ff, d) in the compute dtype and the recurrent ``r`` (4, h, dh,
+dh) and ``b`` (4, h, dh) float32, as JAX reads them.  Both gate
+exponentially with a float32 stabilizer m that starts at -1e30; their
+decode states are dicts of float32 tensors under JAX's names (mLSTM:
+``C`` (B, h, dh, dh), ``n`` (B, h, dh), ``m`` (B, h); sLSTM: ``c``,
+``n``, ``h``, ``m`` (B, h, dh)), and the decode steps return new ones.
+``mlstm_train`` takes the chunkwise-parallel form (``mlstm_chunked``)
+exactly where JAX does (``cfg.xlstm_chunk`` set, S a multiple of it and
+longer), else the per-token recurrence (``mlstm_steps``); the sLSTM runs
+token by token.  The float32 gates are PyTorch's fused ``F.logsigmoid``
+and ``torch.sigmoid``, within 2.3e-7 relative of ``jax.nn``'s (measured;
+XLA expands them into several ops): the sLSTM runs them once a token a
+layer, so its op count sets the prefill's time.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import fill, param, weight
-from repro_torch.models.mlp import silu
+from repro_torch.models.layers import fill, param, rms_norm, weight
+from repro_torch.models.mlp import gelu_tanh, silu
 
 
 def mamba_dims(cfg):
@@ -213,3 +231,240 @@ def mamba_decode(x_tok, p, cfg, conv, h):
     y = y + xi * p.D
     y = y * silu(z[:, 0])
     return y @ p.out_proj, (conv, h)
+
+
+# ---------------------------------------------------------------------------
+# xLSTM: mLSTM (matrix memory) and sLSTM (scalar memory)
+# ---------------------------------------------------------------------------
+
+def _xlstm_dims(cfg):
+    di = cfg.ssm_expand * cfg.d_model
+    return di, cfg.xlstm_heads, di // cfg.xlstm_heads
+
+
+class MLSTM(nn.Module):
+    """The mLSTM mixer's parameters, with JAX's init shapes and scales."""
+
+    def __init__(self, cfg, dtype, device, generator):
+        super().__init__()
+        d = cfg.d_model
+        di, h, dh = _xlstm_dims(cfg)
+        std, f32 = di ** -0.5, torch.float32
+        self.up = weight((d, 2 * di), d ** -0.5, dtype, device, generator)
+        self.wq = weight((di, h, dh), std, dtype, device, generator)
+        self.wk = weight((di, h, dh), std, dtype, device, generator)
+        self.wv = weight((di, h, dh), std, dtype, device, generator)
+        self.wi = weight((di, h), std, dtype, device, generator)
+        self.wf = weight((di, h), std, dtype, device, generator)
+        self.bi = fill((h,), 0.0, f32, device)
+        self.bf = fill((h,), 3.0, f32, device)        # forget-dominant init
+        self.ln = fill((di,), 0.0, f32, device)
+        self.down = weight((di, d), di ** -0.5, dtype, device, generator)
+
+
+def mlstm_init_state(cfg, batch, device):
+    _, h, dh = _xlstm_dims(cfg)
+    f32 = torch.float32
+    return {"C": torch.zeros((batch, h, dh, dh), dtype=f32, device=device),
+            "n": torch.zeros((batch, h, dh), dtype=f32, device=device),
+            "m": torch.full((batch, h), -1e30, dtype=f32, device=device)}
+
+
+def mlstm_step(state, q, k, v, i_pre, f_pre):
+    """One stabilized mLSTM step (exponential gating, Beck et al. 2024):
+    q, k, v (B, h, dh) and the gate inputs (B, h), all float32 -> (the new
+    state, h (B, h, dh))."""
+    C, n = state["C"], state["n"]
+    fm = F.logsigmoid(f_pre) + state["m"]
+    m_new = torch.maximum(fm, i_pre)
+    i_g = torch.exp(i_pre - m_new)
+    f_g = torch.exp(fm - m_new)
+    C_new = f_g[..., None, None] * C + i_g[..., None, None] \
+        * (v[..., :, None] * k[..., None, :])                 # (B, h, dh, dh)
+    n_new = f_g[..., None] * n + i_g[..., None] * k
+    num = torch.matmul(C_new, q[..., None])[..., 0]
+    den = torch.maximum(torch.abs((n_new * q).sum(dim=-1)),
+                        torch.exp(-m_new))
+    return {"C": C_new, "n": n_new, "m": m_new}, num / den[..., None]
+
+
+def mlstm_inputs(xi, p, cfg):
+    """xi (B, T, di) -> q, k (scaled by dh^-0.5), v (B, T, h, dh) and the
+    input and forget gate inputs (B, T, h), float32; the projections run
+    in xi's dtype."""
+    b, t, di = xi.shape
+    _, h, dh = _xlstm_dims(cfg)
+
+    def heads(w):                          # einsum("btd,dhk->bthk")
+        return (xi @ w.reshape(di, h * dh)).reshape(b, t, h, dh).float()
+
+    q, k, v = heads(p.wq), heads(p.wk) * dh ** -0.5, heads(p.wv)
+    i_pre = (xi @ p.wi).float() + p.bi
+    f_pre = (xi @ p.wf).float() + p.bf
+    return q, k, v, i_pre, f_pre
+
+
+def mlstm_steps(q, k, v, i_pre, f_pre, state):
+    """The per-token recurrence from ``state`` over q, k, v (B, S, h, dh)
+    and the gate inputs (B, S, h): (h (B, S, h, dh) float32, the final
+    state)."""
+    hs = torch.empty_like(q)
+    for t in range(q.shape[1]):
+        state, hs[:, t] = mlstm_step(state, q[:, t], k[:, t], v[:, t],
+                                     i_pre[:, t], f_pre[:, t])
+    return hs, state
+
+
+def mlstm_chunked(q, k, v, i_pre, f_pre, state, chunk):
+    """The chunkwise-parallel mLSTM from ``state``: the same recurrence as
+    ``mlstm_steps`` with C updated once a chunk of ``chunk`` tokens and the
+    within-chunk part an (L, L)-masked attention-like product, in the JAX
+    package's ``_mlstm_chunked`` arithmetic.  Within a chunk, with F_t the
+    cumulative log forget gate:
+
+        m_t = F_t + cummax(max(m0, i_j - F_j))
+        C_t = e^{m0+F_t-m_t} C_0 + sum_{j<=t} e^{i_j+F_t-F_j-m_t} v_j k_j
+        h_t = C_t q_t / max(|n_t q_t|, e^{-m_t})
+
+    Returns (h (B, S, h, dh) float32, the final state)."""
+    b, s, h, dh = q.shape
+    C0, n0, m0 = state["C"], state["n"], state["m"]
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=q.device))[None, :, :, None]
+    hs = torch.empty_like(q)
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, c0 + chunk)
+        qt, kt, vt, it = q[:, sl], k[:, sl], v[:, sl], i_pre[:, sl]
+        Fc = torch.cumsum(F.logsigmoid(f_pre[:, sl]), dim=1)  # (B, L, h)
+        m = Fc + torch.maximum(m0[:, None],
+                               torch.cummax(it - Fc, dim=1).values)
+        w0 = torch.exp(m0[:, None] + Fc - m)                  # (B, L, h)
+        # log-weights (B, L_t, L_j, h) of token j in output t
+        D = it[:, None] + Fc[:, :, None] - Fc[:, None] - m[:, :, None]
+        expD = torch.exp(torch.where(tri, D, -torch.inf))
+        A = torch.einsum("bthd,bjhd->btjh", qt, kt) * expD
+        h_num = (w0[..., None] * torch.einsum("bthd,bhvd->bthv", qt, C0)
+                 + torch.einsum("btjh,bjhv->bthv", A, vt))
+        n_t = (w0[..., None] * n0[:, None]
+               + torch.einsum("btjh,bjhd->bthd", expD, kt))
+        den = torch.maximum(torch.abs((n_t * qt).sum(dim=-1)),
+                            torch.exp(-m))
+        hs[:, sl] = h_num / den[..., None]
+        # the chunk-end state (t = L - 1)
+        m_new = m[:, -1]
+        wC = torch.exp(m0 + Fc[:, -1] - m_new)                # (B, h)
+        wj = torch.exp(it + Fc[:, -1:] - Fc - m_new[:, None])  # (B, L, h)
+        C0 = wC[..., None, None] * C0 + torch.einsum(
+            "bjhv,bjhd->bhvd", wj[..., None] * vt, kt)
+        n0 = wC[..., None] * n0 + torch.einsum("bjh,bjhd->bhd", wj, kt)
+        m0 = m_new
+    return hs, {"C": C0, "n": n0, "m": m0}
+
+
+def mlstm_train(x, p, cfg, return_state=False):
+    """x: (B, S, d) -> (B, S, d) [, the decode state after the sequence]:
+    the chunkwise-parallel form where JAX takes it, else the per-token
+    recurrence."""
+    b, s, _ = x.shape
+    di = cfg.ssm_expand * cfg.d_model
+    xz = x @ p.up
+    xi, z = xz[..., :di], xz[..., di:]
+    q, k, v, i_pre, f_pre = mlstm_inputs(xi, p, cfg)
+    state = mlstm_init_state(cfg, b, x.device)
+    chunk = cfg.xlstm_chunk
+    if chunk and s % chunk == 0 and s > chunk:
+        hs, state = mlstm_chunked(q, k, v, i_pre, f_pre, state, chunk)
+    else:
+        hs, state = mlstm_steps(q, k, v, i_pre, f_pre, state)
+    hs = rms_norm(hs.reshape(b, s, di).to(x.dtype), p.ln, cfg.norm_eps)
+    out = (hs * silu(z)) @ p.down
+    return (out, state) if return_state else out
+
+
+def mlstm_decode(x_tok, p, cfg, state):
+    """x_tok: (B, d) -> (out (B, d), the new state)."""
+    b = x_tok.shape[0]
+    di = cfg.ssm_expand * cfg.d_model
+    xz = x_tok[:, None, :] @ p.up
+    xi, z = xz[..., :di], xz[:, 0, di:]
+    q, k, v, i_pre, f_pre = mlstm_inputs(xi, p, cfg)
+    state, h = mlstm_step(state, q[:, 0], k[:, 0], v[:, 0], i_pre[:, 0],
+                          f_pre[:, 0])
+    hs = rms_norm(h.reshape(b, di).to(x_tok.dtype), p.ln, cfg.norm_eps)
+    return (hs * silu(z)) @ p.down, state
+
+
+class SLSTM(nn.Module):
+    """The sLSTM mixer's parameters, with JAX's init shapes and scales."""
+
+    def __init__(self, cfg, dtype, device, generator):
+        super().__init__()
+        d, h = cfg.d_model, cfg.xlstm_heads
+        dh = d // h
+        ff = max(1, (4 * d) // 3)
+        f32 = torch.float32
+        self.w = weight((d, 4, h, dh), d ** -0.5, dtype, device, generator)
+        self.r = weight((4, h, dh, dh), dh ** -0.5, f32, device, generator)
+        self.b = fill((4, h, dh), 0.0, f32, device)
+        self.up = weight((d, 2 * ff), d ** -0.5, dtype, device, generator)
+        self.down = weight((ff, d), ff ** -0.5, dtype, device, generator)
+
+
+def slstm_init_state(cfg, batch, device):
+    h = cfg.xlstm_heads
+    dh = cfg.d_model // h
+    f32 = torch.float32
+    z = torch.zeros((batch, h, dh), dtype=f32, device=device)
+    return {"c": z, "n": z, "h": z,
+            "m": torch.full((batch, h, dh), -1e30, dtype=f32, device=device)}
+
+
+def slstm_step(p, state, wx):
+    """One sLSTM step: wx (B, 4, h, dh), the input's contributions to the
+    i, f, z and o gates -> (the new state, h (B, h, dh) float32)."""
+    c, n = state["c"], state["n"]
+    # einsum("ghkl,bhl->bghk", r, h): (4, h, dh, dh) @ (B, 1, h, dh, 1)
+    rec = torch.matmul(p.r, state["h"][:, None, :, :, None])[..., 0]
+    pre = wx.float() + rec + p.b
+    i_pre, f_pre, z_pre, o_pre = pre.unbind(1)
+    fm = F.logsigmoid(f_pre) + state["m"]
+    m_new = torch.maximum(fm, i_pre)
+    i_g = torch.exp(i_pre - m_new)
+    f_g = torch.exp(fm - m_new)
+    c_new = f_g * c + i_g * torch.tanh(z_pre)
+    n_new = f_g * n + i_g
+    h_new = torch.sigmoid(o_pre) * c_new / torch.clamp_min(n_new, 1e-6)
+    return {"c": c_new, "n": n_new, "h": h_new, "m": m_new}, h_new
+
+
+def _slstm_wx(x, p):
+    """einsum("...d,dghk->...ghk") in x's dtype."""
+    d, g, h, dh = p.w.shape
+    return (x @ p.w.reshape(d, g * h * dh)).reshape(*x.shape[:-1], g, h, dh)
+
+
+def _slstm_out(hs, p):
+    """The post up/down projection (factor 4/3, GeLU-gated) in hs's dtype."""
+    u = hs @ p.up
+    ff = u.shape[-1] // 2
+    return (gelu_tanh(u[..., :ff]) * u[..., ff:]) @ p.down
+
+
+def slstm_train(x, p, cfg, return_state=False):
+    """x: (B, S, d) -> (B, S, d) [, the decode state after the sequence],
+    token by token."""
+    b, s, d = x.shape
+    wx = _slstm_wx(x, p).float()                            # (B, S, 4, h, dh)
+    state = slstm_init_state(cfg, b, x.device)
+    hs = torch.empty(wx.shape[:2] + wx.shape[3:], dtype=torch.float32,
+                     device=x.device)
+    for t in range(s):
+        state, hs[:, t] = slstm_step(p, state, wx[:, t])
+    out = _slstm_out(hs.reshape(b, s, d).to(x.dtype), p)
+    return (out, state) if return_state else out
+
+
+def slstm_decode(x_tok, p, cfg, state):
+    """x_tok: (B, d) -> (out (B, d), the new state)."""
+    state, h = slstm_step(p, state, _slstm_wx(x_tok, p))
+    return _slstm_out(h.reshape(x_tok.shape).to(x_tok.dtype), p), state

@@ -4,28 +4,31 @@ package's ``repro/models/transformer.py`` for prefill and decode.
 ``Transformer`` is an ``nn.Module`` with one ``Block`` submodule per layer
 (``cfg.layer_kinds``: the prefix, then the pattern repeated), where the JAX
 package scans stacked parameters.  Its state-dict keys follow the JAX
-parameter tree: ``embed``, ``final_norm.scale``, ``layers.<i>.ln1.scale``,
-``layers.<i>.mixer.wq`` (or ``.mixer.in_proj`` for Mamba),
-``layers.<i>.ffn.w_gate`` (or ``.ffn.router``, ``.ffn.wg`` for MoE), ...;
-``convert.params_from_jax`` maps a JAX tree onto them.  Matrices and the
-embedding are stored in the compute dtype, the values JAX's per-use
-``.astype(compute_dtype)`` of its float32 weights gives; norm scales, the
-MoE router and Mamba's ``A_log`` stay float32, as JAX reads them.
+parameter tree: ``embed``, ``final_norm.scale``, ``frontend_proj``,
+``layers.<i>.ln1.scale``, ``layers.<i>.mixer.wq`` (``.mixer.w_dkv`` for
+MLA, ``.mixer.in_proj`` for Mamba, ...), ``layers.<i>.ffn.w_gate`` (or
+``.ffn.router``, ``.ffn.wg`` for MoE), ...; ``convert.params_from_jax``
+maps a JAX tree onto them.  Matrices and the embedding are stored in the
+compute dtype, the values JAX's per-use ``.astype(compute_dtype)`` of its
+float32 weights gives; norm scales, the MoE router, Mamba's ``A_log`` and
+the xLSTM gate biases and sLSTM recurrence stay float32, as JAX reads them.
 
-The decode state keeps one entry a layer, as JAX's ``_mixer_state`` does:
-an attention layer has its own contiguous (B, Hkv, S, hd) K and V caches
-(``state.k[i]``, ``state.v[i]``), which the decode kernel reads in place; a
-mamba layer has no cache but ``state.conv[i]`` (B, dc - 1, di) in the
-compute dtype and ``state.h[i]`` (B, di, ds) float32.  ``decode_step``
-writes the new token's column of every attention cache in place and
-returns a state with ``pos + 1`` that shares the caches, and new mamba
-tensors.  Each step writes its own column before it reads, and leaves the
-mamba state it was given as it was, so a step can be run again from the
-same state.
+Every mixer (``full``, ``local``, ``global``, ``enc``, ``mla``, ``mamba``,
+``mlstm``, ``slstm``), ffn (``mlp``, ``moe``, ``none``) and frontend
+(``vision_stub``, ``audio_stub``: precomputed embeddings projected by
+``frontend_proj`` and put before the tokens) of the JAX package is ported.
 
-Mixers ``full``, ``local``, ``global`` and ``mamba`` with ffns ``mlp`` and
-``moe`` are ported; any other mixer, ffn or frontend raises
-NotImplementedError (ROADMAP Queue 1 lists them).
+The decode state keeps one dict a layer, under the keys of JAX's
+``_mixer_state``: an attention layer its contiguous (B, Hkv, S, hd) caches
+``k`` and ``v``, which the decode kernel reads in place; an MLA layer its
+compressed caches ``ckv`` (B, S, kv_lora) and ``kr`` (B, S, rope); a mamba
+layer ``conv`` (B, dc - 1, di) in the compute dtype and ``h`` (B, di, ds)
+float32; an mLSTM layer ``C``, ``n``, ``m`` and an sLSTM layer ``c``,
+``n``, ``h``, ``m``, float32.  ``decode_step`` writes the new token's
+column of every cache in place before it reads it and returns a state with
+``pos + 1`` that shares the caches (the same dicts), and new recurrent
+state: the state it was given keeps its recurrent tensors, so a step can
+be run again from the same state.
 """
 
 from __future__ import annotations
@@ -38,30 +41,34 @@ from torch import nn
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
-from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import fill, weight
+from repro_torch.models import ssm
+from repro_torch.models.config import ATTN_MIXERS as ATTN
+from repro_torch.models.config import FFNS, MIXERS, ModelConfig
+from repro_torch.models.layers import MLA, fill, weight
 from repro_torch.models.mlp import MLP, MoE, mlp
-from repro_torch.models.ssm import (
-    Mamba, mamba_decode, mamba_init_state, mamba_train,
-)
+from repro_torch.models.ssm import MLSTM, SLSTM, Mamba
 
-ATTN = ("full", "local", "global")
-MIXERS = ATTN + ("mamba",)
-FFNS = ("mlp", "moe")
+FRONTENDS = ("none", "vision_stub", "audio_stub")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError unless every layer of ``cfg`` is a ported
-    (mixer, ffn) pair and there is no frontend."""
+    """Raise NotImplementedError for a mixer, ffn or frontend the JAX
+    package does not know, and ValueError for an MLA layer without its
+    low-rank widths (JAX's init divides by them)."""
     for mixer, ffn in cfg.layer_kinds:
         if mixer not in MIXERS or ffn not in FFNS:
             raise NotImplementedError(
-                f"{cfg.name}: block ({mixer}, {ffn}) is not ported yet "
-                f"(ROADMAP Queue 1); the port runs mixers {MIXERS} with "
-                f"ffns {FFNS}")
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: frontend {cfg.frontend!r} is "
-                                  f"not ported yet (ROADMAP Queue 1)")
+                f"{cfg.name}: unknown block ({mixer}, {ffn}); mixers are "
+                f"{MIXERS}, ffns {FFNS}")
+    if cfg.frontend not in FRONTENDS:
+        raise NotImplementedError(f"{cfg.name}: unknown frontend "
+                                  f"{cfg.frontend!r}; frontends are "
+                                  f"{FRONTENDS}")
+    if any(m == "mla" for m, _ in cfg.layer_kinds) and not (
+            cfg.q_lora_rank and cfg.kv_lora_rank):
+        raise ValueError(f"{cfg.name}: an mla layer needs q_lora_rank and "
+                         f"kv_lora_rank (got {cfg.q_lora_rank}, "
+                         f"{cfg.kv_lora_rank})")
 
 
 class Norm(nn.Module):
@@ -106,31 +113,62 @@ class Attention(nn.Module):
             self.k_norm = fill((hd,), 0.0, torch.float32, device)
 
 
-class Block(nn.Module):
-    """Pre-norm mixer (attention or Mamba) and ffn (MLP or MoE) with
-    residuals; gemma2-style post-norms when ``cfg.post_block_norms``."""
+_MIXERS = {"mla": MLA, "mamba": Mamba, "mlstm": MLSTM, "slstm": SLSTM}
 
-    def __init__(self, cfg: ModelConfig, kind, dtype, device, generator):
+
+class Block(nn.Module):
+    """Pre-norm mixer and ffn (MLP, MoE, or none) with residuals;
+    gemma2-style post-norms when ``cfg.post_block_norms``.  ``prefix``
+    marks a layer of ``cfg.prefix``: its MLA decode is the JAX package's
+    ``mla_decode``, a pattern layer's its ``mla_decode_stacked``."""
+
+    def __init__(self, cfg: ModelConfig, kind, dtype, device, generator,
+                 prefix=False):
         super().__init__()
         self.cfg = cfg
         self.mixer_kind, self.ffn_kind = kind
+        self.prefix = prefix
         d = cfg.d_model
         self.ln1 = Norm(cfg, d, device)
-        mixer = Mamba if self.mixer_kind == "mamba" else Attention
+        mixer = _MIXERS.get(self.mixer_kind, Attention)
         self.mixer = mixer(cfg, dtype, device, generator)
         if cfg.post_block_norms:
             self.ln1_post = Norm(cfg, d, device)
-        self.ln2 = Norm(cfg, d, device)
-        ffn = MoE if self.ffn_kind == "moe" else MLP
-        self.ffn = ffn(cfg, dtype, device, generator)
-        if cfg.post_block_norms:
-            self.ln2_post = Norm(cfg, d, device)
+        if self.ffn_kind != "none":
+            self.ln2 = Norm(cfg, d, device)
+            ffn = MoE if self.ffn_kind == "moe" else MLP
+            self.ffn = ffn(cfg, dtype, device, generator)
+            if cfg.post_block_norms:
+                self.ln2_post = Norm(cfg, d, device)
+
+    def init_state(self, batch, s_max, dtype, device) -> dict:
+        """This layer's decode state before any token (JAX's
+        ``_mixer_state``)."""
+        cfg, kind = self.cfg, self.mixer_kind
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        if kind in ATTN:
+            shape = (batch, cfg.n_kv_heads, s_max, cfg.hd)
+            return {"k": zeros(*shape), "v": zeros(*shape)}
+        if kind == "mla":
+            return {"ckv": zeros(batch, s_max, cfg.kv_lora_rank),
+                    "kr": zeros(batch, s_max, cfg.qk_rope_dim)}
+        if kind == "mamba":
+            return dict(zip(("conv", "h"), ssm.mamba_init_state(
+                cfg, batch, dtype, device)))
+        if kind == "mlstm":
+            return ssm.mlstm_init_state(cfg, batch, device)
+        return ssm.slstm_init_state(cfg, batch, device)
 
     def _finish(self, x, h):
         """Residual add of the mixer output, then the ffn half."""
         if self.cfg.post_block_norms:
             h = self.ln1_post(h)
         x = x + h
+        if self.ffn_kind == "none":
+            return x
         h = self.ln2(x)
         if self.ffn_kind == "moe":
             # tokens (B, d) at decode go through as (B, 1, d), as in JAX
@@ -142,44 +180,54 @@ class Block(nn.Module):
             h = self.ln2_post(h)
         return x + h
 
-    def prefill(self, x, positions, k_cache, v_cache):
-        """x: (B, S, d) -> (x, the mamba state (conv, h) or None); an
-        attention layer fills its caches in place."""
+    def prefill(self, x, positions, st):
+        """x: (B, S, d) -> (x, the layer's state after the sequence): an
+        attention or MLA layer fills its caches in ``st`` in place and
+        returns ``st``; a recurrent layer returns its new state."""
+        cfg, kind, p = self.cfg, self.mixer_kind, self.mixer
         h = self.ln1(x)
-        if self.mixer_kind == "mamba":
-            h, mstate = mamba_train(h, self.mixer, self.cfg,
-                                    return_state=True)
+        if kind in ATTN:
+            h = L.attn_prefill(h, p, cfg, kind, positions, st["k"], st["v"])
+        elif kind == "mla":
+            h = L.mla_prefill(h, p, cfg, positions, st["ckv"], st["kr"])
+        elif kind == "mamba":
+            h, (conv, hs) = ssm.mamba_train(h, p, cfg, return_state=True)
+            st = {"conv": conv, "h": hs}
+        elif kind == "mlstm":
+            h, st = ssm.mlstm_train(h, p, cfg, return_state=True)
         else:
-            h = L.attn_prefill(h, self.mixer, self.cfg, self.mixer_kind,
-                               positions, k_cache, v_cache)
-            mstate = None
-        return self._finish(x, h), mstate
+            h, st = ssm.slstm_train(h, p, cfg, return_state=True)
+        return self._finish(x, h), st
 
-    def decode(self, x, pos, k_cache, v_cache, conv, hstate,
-               block_mask_words, backend):
-        """x: (B, d) -> (x, the new mamba state (conv, h) or None)."""
+    def decode(self, x, pos, st, block_mask_words, backend):
+        """x: (B, d) -> (x, the layer's next state): the same dict for an
+        attention or MLA layer (its caches written in place), a new one for
+        a recurrent layer."""
+        cfg, kind, p = self.cfg, self.mixer_kind, self.mixer
         h = self.ln1(x)
-        if self.mixer_kind == "mamba":
-            h, mstate = mamba_decode(h, self.mixer, self.cfg, conv, hstate)
+        if kind in ATTN:
+            h = L.attn_decode(h, p, cfg, kind, st["k"], st["v"], pos,
+                              block_mask_words, backend)
+        elif kind == "mla":
+            h = L.mla_decode(h, p, cfg, st["ckv"], st["kr"], pos,
+                             ctx_f32=self.prefix)
+        elif kind == "mamba":
+            h, (conv, hs) = ssm.mamba_decode(h, p, cfg, st["conv"], st["h"])
+            st = {"conv": conv, "h": hs}
+        elif kind == "mlstm":
+            h, st = ssm.mlstm_decode(h, p, cfg, st)
         else:
-            h = L.attn_decode(h, self.mixer, self.cfg, self.mixer_kind,
-                              k_cache, v_cache, pos, block_mask_words,
-                              backend)
-            mstate = None
-        return self._finish(x, h), mstate
+            h, st = ssm.slstm_decode(h, p, cfg, st)
+        return self._finish(x, h), st
 
 
 @dataclasses.dataclass
 class DecodeState:
-    """pos (B,) int32: the next position of each row; then one entry a
-    layer in each list: ``k[i]`` and ``v[i]`` (B, Hkv, S, hd) for an
-    attention layer, ``conv[i]`` (B, dc - 1, di) and ``h[i]`` (B, di, ds)
-    float32 for a mamba layer, None where the layer has no such part."""
+    """pos (B,) int32: the next position of each row; ``layers[i]``: layer
+    i's state, a dict under JAX's ``_mixer_state`` keys (see the module
+    docstring)."""
     pos: torch.Tensor
-    k: list
-    v: list
-    conv: list
-    h: list
+    layers: list
 
 
 class Transformer(nn.Module):
@@ -201,10 +249,15 @@ class Transformer(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = weight((d, cfg.vocab), d ** -0.5, self.dtype,
                                   dev, generator)
+        if cfg.frontend != "none":
+            fd = cfg.frontend_dim or d
+            self.frontend_proj = weight((fd, d), fd ** -0.5, self.dtype, dev,
+                                        generator)
         self.final_norm = Norm(cfg, d, dev)
+        n_prefix = len(cfg.prefix)
         self.layers = nn.ModuleList(
-            Block(cfg, kind, self.dtype, dev, generator)
-            for kind in cfg.layer_kinds)
+            Block(cfg, kind, self.dtype, dev, generator, prefix=i < n_prefix)
+            for i, kind in enumerate(cfg.layer_kinds))
         # sqrt(d) rounded to the compute dtype, as the JAX package scales
         # (68.0 in bfloat16 for d = 4608)
         self.embed_scale = float(torch.tensor(np.sqrt(d), dtype=self.dtype))
@@ -214,8 +267,23 @@ class Transformer(nn.Module):
         return self.embed.device
 
     # ------------------------------------------------------------------
-    def _embed(self, tokens):
-        x = self.embed[tokens.long()]
+    def _embed(self, tokens=None, frontend_embeds=None):
+        """JAX's ``_embed_inputs``: the frontend embeddings (B, F, fd)
+        projected to d, then the token embeddings (B, S), joined along the
+        sequence and scaled together."""
+        parts = []
+        if frontend_embeds is not None:
+            if self.cfg.frontend == "none":
+                raise ValueError(f"{self.cfg.name} has no frontend for "
+                                 f"frontend_embeds")
+            fe = torch.as_tensor(frontend_embeds, device=self.device)
+            parts.append(fe.to(self.dtype) @ self.frontend_proj)
+        if tokens is not None:
+            tokens = torch.as_tensor(tokens, device=self.device)
+            parts.append(self.embed[tokens.long()])
+        if not parts:
+            raise ValueError("prefill needs tokens, frontend_embeds or both")
+        x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
         if self.cfg.scale_embed:
             x = x * self.embed_scale
         return x
@@ -229,37 +297,28 @@ class Transformer(nn.Module):
         return logits
 
     def init_decode_state(self, batch: int, s_max: int) -> DecodeState:
-        cfg, dev = self.cfg, self.device
-        n = len(self.layers)
-        st = DecodeState(torch.zeros(batch, dtype=torch.int32, device=dev),
-                         [None] * n, [None] * n, [None] * n, [None] * n)
-        shape = (batch, cfg.n_kv_heads, s_max, cfg.hd)
-        for i, block in enumerate(self.layers):
-            if block.mixer_kind == "mamba":
-                st.conv[i], st.h[i] = mamba_init_state(cfg, batch,
-                                                       self.dtype, dev)
-            else:
-                st.k[i] = torch.zeros(shape, dtype=self.dtype, device=dev)
-                st.v[i] = torch.zeros(shape, dtype=self.dtype, device=dev)
-        return st
+        dev = self.device
+        return DecodeState(
+            torch.zeros(batch, dtype=torch.int32, device=dev),
+            [block.init_state(batch, s_max, self.dtype, dev)
+             for block in self.layers])
 
     @torch.no_grad()
-    def prefill(self, tokens, s_max: int | None = None):
-        """Process a prompt: tokens (B, S) -> (last-position logits (B, V),
-        the decode state with every attention layer's caches filled to S
-        and every mamba layer's state after S).  With a mamba layer, S
-        longer than ``cfg.ssm_chunk`` must be a multiple of it."""
-        tokens = torch.as_tensor(tokens, device=self.device)
-        b, s = tokens.shape
-        x = self._embed(tokens)
+    def prefill(self, tokens=None, s_max: int | None = None, *,
+                frontend_embeds=None):
+        """Process a prompt: tokens (B, S) and/or ``frontend_embeds`` (B, F,
+        frontend_dim), which go first -> (last-position logits (B, V), the
+        decode state with every cache filled to F + S and every recurrent
+        layer's state after them).  With a mamba layer, F + S longer than
+        ``cfg.ssm_chunk`` must be a multiple of it."""
+        x = self._embed(tokens, frontend_embeds)
+        b, s = x.shape[:2]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=self.device).expand(b, s)
         state = self.init_decode_state(b, s_max or s)
         state.pos.fill_(s)
         for i, block in enumerate(self.layers):
-            x, mstate = block.prefill(x, positions, state.k[i], state.v[i])
-            if mstate is not None:
-                state.conv[i], state.h[i] = mstate
+            x, state.layers[i] = block.prefill(x, positions, state.layers[i])
         logits = self._logits(self.final_norm(x[:, -1]))
         return logits, state
 
@@ -271,16 +330,13 @@ class Transformer(nn.Module):
         For ``global`` mixers with ``cfg.roaring_sparse_global``,
         ``block_mask_words`` (B, words) int32 Roaring containers select the
         visible KV blocks: the block-sparse kernel on CUDA, its plain
-        version on the CPU or under ``backend="ref"``; no other layer reads
+        version on the CPU or under ``backend="ref"``, or the gather route
+        where ``cfg.sparse_topk_blocks`` is set; no other layer reads
         them."""
-        tokens = torch.as_tensor(tokens, device=self.device)
         x = self._embed(tokens)
-        conv, hs = list(state.conv), list(state.h)
-        for i, block in enumerate(self.layers):
-            x, mstate = block.decode(x, state.pos, state.k[i], state.v[i],
-                                     conv[i], hs[i], block_mask_words,
-                                     backend)
-            if mstate is not None:
-                conv[i], hs[i] = mstate
+        layers = []
+        for block, st in zip(self.layers, state.layers, strict=True):
+            x, st = block.decode(x, state.pos, st, block_mask_words, backend)
+            layers.append(st)
         logits = self._logits(self.final_norm(x))
-        return logits, DecodeState(state.pos + 1, state.k, state.v, conv, hs)
+        return logits, DecodeState(state.pos + 1, layers)

@@ -8,9 +8,9 @@ Per-request state carries
   * paged-KV bookkeeping via PagedKVAllocator.
 It runs where the model lies: on the card, every decode step's global
 layers launch the block-sparse kernel; on the CPU they take its plain
-version.  Hybrid and MoE models (Jamba, Mixtral) run unchanged: the mask
-words reach only the global layers, and the paged-KV bookkeeping counts
-positions whatever the layers keep.
+version.  Every other model (Jamba, Mixtral, DeepSeek-V2's MLA, xLSTM)
+runs unchanged: the mask words reach only the global layers, and the
+paged-KV bookkeeping counts positions whatever the layers keep.
 """
 
 from __future__ import annotations

@@ -45,7 +45,12 @@ shape (g = 4 query heads a KV head, D = 128, softcap 0); a decode step of
 the reduced gemma2 model with the kernel against ``backend="ref"``, and
 the serving engine on the card against the CPU's tokens.  The Mamba
 layer's chunked selective scan on the card against the per-token float32
-recurrence.
+recurrence.  DeepSeek-V2's MLA at full width: the absorbed attention (both
+of the JAX package's bf16 flavours) against keys and values decompressed
+in float32 from the same caches; the ``sparse_topk_blocks`` gather route
+against the decode attention kernel at Gemma2-27B's decode shape with
+every block gathered; and xLSTM's chunkwise-parallel mLSTM against its
+per-token recurrence at full width.
 
 These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip.  Run
 them on a GPU machine with ``PYTHONPATH=src python -m pytest -q -m cuda
@@ -1483,3 +1488,91 @@ def test_chunked_scan_matches_the_per_token_recurrence(cuda, dtype):
     want_y, want_h = ssm.selective_scan_steps(xi, dt, bmat, cmat, m.A_log)
     torch.testing.assert_close(y, want_y, atol=1e-6, rtol=1e-5)
     torch.testing.assert_close(h, want_h, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mla_absorbed_matches_decompressed(cuda, dtype):
+    """DeepSeek-V2's MLA at full width (128 heads, kv_lora 512, rope 64)
+    over a 2,048-row cache on the card: the absorbed attention, both
+    flavours, against keys and values decompressed per head in float32
+    from the same caches, within 1e-5 (float32) or 2^-5 (bfloat16) of each
+    head's largest output."""
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+    cfg = configs.get_config("deepseek_v2_236b")
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(cuda).manual_seed(5)
+    p = L.MLA(cfg, tdt, cuda, gen)
+    b, s = 4, 2048
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=cuda).to(tdt)
+    pos = torch.arange(s, dtype=torch.int32, device=cuda).expand(b, s)
+    ckv, kr = L._mla_ckv(x, p, cfg, pos)
+    kv_len = torch.tensor([2048, 2000, 1023, 1], dtype=torch.int32,
+                          device=cuda)
+    q_nope, q_rope = L._mla_q(x[:, -1:], p, cfg, (kv_len - 1)[:, None])
+    args = (q_nope[:, 0], q_rope[:, 0], ckv, kr, kv_len, p, cfg)
+    want = L.mla_attend_decompressed(*args)
+    top = want.abs().amax(dim=-1, keepdim=True)
+    for ctx_f32 in (True, False):
+        got = L.mla_attend_absorbed(*args, ctx_f32=ctx_f32)
+        err = float(((got.float() - want).abs() / top).max())
+        assert err <= (1e-5 if dtype == "float32" else 2.0 ** -5), err
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_route_against_row_17(cuda, dtype):
+    """The ``sparse_topk_blocks`` gather route (plain PyTorch) against the
+    row-17 kernel at Gemma2-27B's decode head shape (32 / 16 heads of
+    128, 8,192 positions, softcap 50, kv_len 5,121-5,160, the engine's
+    sink + local mask), topk = every block: float32 within 2e-5, bfloat16
+    within 8 bf16 ulps of each row's largest output (the route rounds the
+    weights to bf16 before the PV product, the kernel does not)."""
+    from repro_torch.kernels import block_sparse_attn as bsa
+    from repro_torch.models import layers as L
+    from repro_torch.serve import BlockPolicy
+    from repro_torch.core.tensor import block_mask_words
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(cuda).manual_seed(6)
+    b, h, hkv, d, s, bs = 4, 32, 16, 128, 8192, 128
+    q = torch.randn((b, h, d), generator=gen, device=cuda).to(tdt)
+    k = (torch.randn((b, hkv, s, d), generator=gen, device=cuda) * 0.3
+         ).to(tdt)
+    v = torch.randn((b, hkv, s, d), generator=gen, device=cuda).to(tdt)
+    kv = [5121 + 13 * i for i in range(b)]
+    words = block_mask_words([BlockPolicy(1, 8).visible_set(
+        n, bs, device=cuda) for n in kv], s // bs, device=cuda)
+    kv_len = torch.tensor(kv, dtype=torch.int32, device=cuda)
+    want = bsa.decode_attention(q, k, v, words, kv_len, block_size=bs,
+                                softcap=50.0)
+    got = L.decode_attention_block_gather(q, k, v, kv_len, words,
+                                          block_size=bs, topk=s // bs,
+                                          softcap=50.0)
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    else:
+        g, w = got.float(), want.float()
+        top = w.abs().amax(dim=-1, keepdim=True)
+        ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+        assert float(((g - w).abs() / ulp).max()) <= 8.0
+
+
+def test_chunked_mlstm_matches_the_recurrence(cuda):
+    """xLSTM-350M's mLSTM at full width (4 heads of 512) on the card: the
+    chunkwise-parallel form (chunks of 64 over 1,024 tokens) against the
+    per-token float32 recurrence on the same inputs, h and the final C, n
+    and m within 1e-5 of each one's largest magnitude."""
+    from repro_torch import configs
+    from repro_torch.models import ssm
+    cfg = configs.get_config("xlstm_350m")
+    gen = torch.Generator(cuda).manual_seed(7)
+    p = ssm.MLSTM(cfg, torch.bfloat16, cuda, gen)
+    x = torch.randn((4, 1024, cfg.d_model), generator=gen,
+                    device=cuda).bfloat16()
+    di = cfg.ssm_expand * cfg.d_model
+    ins = ssm.mlstm_inputs((x @ p.up)[..., :di], p, cfg)
+    st0 = ssm.mlstm_init_state(cfg, 4, cuda)
+    h_c, st_c = ssm.mlstm_chunked(*ins, st0, cfg.xlstm_chunk)
+    h_s, st_s = ssm.mlstm_steps(*ins, st0)
+    for got, want in ((h_c, h_s), *((st_c[k], st_s[k]) for k in "Cnm")):
+        top = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-5 * max(top, 1.0)

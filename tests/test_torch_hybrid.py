@@ -77,6 +77,14 @@ def _close(got, want, tol):
     np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
 
 
+def _row_ulps(got, want):
+    """The largest |got - want| over one bf16 ulp of the largest |want| of
+    its row (the last axis)."""
+    g, w = _np(got), _np(want)
+    top = np.maximum(np.abs(w).max(axis=-1, keepdims=True), 2.0 ** -126)
+    return float((np.abs(g - w) / 2.0 ** (np.floor(np.log2(top)) - 7)).max())
+
+
 class _Routes:
     """JAX's routing, recorded call by call, and the port's top-k made to
     follow it where JAX's probabilities of the flipped pair nearly tie."""
@@ -129,20 +137,28 @@ def _exact(fn, *args):
         compiler_options={"xla_allow_excess_precision": False})
 
 
+def _jax_layer_state(jst, jc, i):
+    """Layer i's decode state in JAX's tree: ``prefix_<i>``, or repeat r of
+    pattern position pi (batch-major stacks)."""
+    n_prefix = len(jc.prefix)
+    if i < n_prefix:
+        return jst[f"prefix_{i}"]
+    r, pi = divmod(i - n_prefix, len(jc.pattern))
+    return {k: v[:, r] for k, v in jst["pattern"][pi].items()}
+
+
 def _states_close(jst, pst, jc, tol):
-    n_pat = len(jc.pattern)
+    """Every layer's state, key by key (attention ``k``/``v``, MLA
+    ``ckv``/``kr``, mamba ``conv``/``h``, mLSTM ``C``/``n``/``m``, sLSTM
+    ``c``/``n``/``h``/``m``); the recurrent states are float32."""
     for i, (mixer, _) in enumerate(jc.layer_kinds):
-        r, pi = divmod(i, n_pat)
-        js = jst["pattern"][pi]
-        if mixer == "mamba":
-            assert pst.k[i] is None and pst.v[i] is None
-            assert pst.h[i].dtype == torch.float32
-            _close(pst.h[i], js["h"][:, r], tol)
-            _close(pst.conv[i], js["conv"][:, r], tol)
-        else:
-            assert pst.h[i] is None and pst.conv[i] is None
-            _close(pst.k[i], js["k"][:, r], tol)
-            _close(pst.v[i], js["v"][:, r], tol)
+        js = _jax_layer_state(jst, jc, i)
+        ps = pst.layers[i]
+        assert set(ps) == set(js), (mixer, set(ps), set(js))
+        for key, want in js.items():
+            if mixer in ("mamba", "mlstm", "slstm") and key != "conv":
+                assert ps[key].dtype == torch.float32
+            _close(ps[key], want, tol)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -210,16 +226,18 @@ def test_decode_step_reruns_from_the_same_state(arch):
     toks = torch.from_numpy(np.random.default_rng(8).integers(
         0, pc.vocab, (B, S + 1)).astype(np.int32))
     _, st = model.prefill(toks[:, :S], s_max=S_MAX)
-    h0 = [None if h is None else h.clone() for h in st.h]
+    h0 = [ls["h"].clone() if "conv" in ls else None for ls in st.layers]
     words = torch.full((B, 1), 0b111, dtype=torch.int32)
     a, st1 = model.decode_step(st, toks[:, S], words)
     b, st2 = model.decode_step(st, toks[:, S], words, backend="ref")
-    assert torch.equal(a, b) and st1.k is st2.k
+    assert torch.equal(a, b)
     for i, h in enumerate(h0):
         if h is not None:
-            assert torch.equal(st.h[i], h)
-            assert torch.equal(st1.h[i], st2.h[i])
-            assert not torch.equal(st1.h[i], h)
+            assert torch.equal(st.layers[i]["h"], h)
+            assert torch.equal(st1.layers[i]["h"], st2.layers[i]["h"])
+            assert not torch.equal(st1.layers[i]["h"], h)
+        else:
+            assert st1.layers[i] is st2.layers[i] is st.layers[i]
     assert st.pos.tolist() == [S] * B and st1.pos.tolist() == [S + 1] * B
 
 
@@ -247,6 +265,12 @@ def test_check_supported_accepts_jamba_and_mixtral():
             check_supported(C.get_config(arch, reduced=reduced))
 
 
+@pytest.mark.parametrize("reduced", [True, False])
+@pytest.mark.parametrize("arch", C.ARCH_IDS)
+def test_check_supported_accepts_every_config(arch, reduced):
+    check_supported(C.get_config(arch, reduced=reduced))
+
+
 @pytest.mark.parametrize("arch,kw", [
     ("deepseek_v2_236b", {}),                               # mla
     ("hubert_xlarge", {}),                                  # enc, audio
@@ -255,17 +279,56 @@ def test_check_supported_accepts_jamba_and_mixtral():
     ("jamba_v01_52b", dict(pattern=(("mamba", "none"),))),  # ffn none
     ("jamba_v01_52b", dict(pattern=(("mlstm", "moe"),))),
     ("jamba_v01_52b", dict(pattern=(("slstm", "mlp"),))),
-    ("mixtral_8x7b", dict(pattern=(("mla", "moe"),))),
+    # MLA needs its low-rank widths, which mixtral does not set
+    ("mixtral_8x7b", dict(pattern=(("mla", "moe"),), q_lora_rank=48,
+                          kv_lora_rank=32)),
     ("mixtral_8x7b", dict(pattern=(("enc", "moe"),))),
     ("mixtral_8x7b", dict(frontend="vision_stub")),
     ("mixtral_8x7b", dict(frontend="audio_stub")),
 ])
-def test_check_supported_still_raises(arch, kw):
+def test_every_block_and_frontend_runs(arch, kw):
+    """Each combination the port once refused now builds and runs a
+    prefill (frontend embeddings first where there is a frontend) and one
+    decode step on the CPU: finite logits of the right shape, every layer's
+    state under JAX's keys."""
     cfg = dataclasses.replace(C.get_config(arch, reduced=True), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Transformer(cfg, device="cpu")
+    check_supported(cfg)
+    model = Transformer(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(2))
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, 65))
+                            .astype(np.int32))
+    fe = None
+    if cfg.frontend != "none":
+        fe = torch.from_numpy(rng.standard_normal(
+            (B, 8, cfg.frontend_dim or cfg.d_model)).astype(np.float32))
+    n = 64 - (8 if fe is not None else 0)
+    logits, st = model.prefill(toks[:, :n], s_max=128, frontend_embeds=fe)
+    assert logits.shape == (B, cfg.vocab) and torch.isfinite(logits).all()
+    assert st.pos.tolist() == [64] * B
+    words = torch.full((B, 1), -1, dtype=torch.int32)
+    logits, st = model.decode_step(st, toks[:, n], words)
+    assert logits.shape == (B, cfg.vocab) and torch.isfinite(logits).all()
+    assert st.pos.tolist() == [65] * B
+    keys = {"mla": {"ckv", "kr"}, "mamba": {"conv", "h"},
+            "mlstm": {"C", "n", "m"}, "slstm": {"c", "n", "h", "m"}}
+    for (mixer, _), ls in zip(cfg.layer_kinds, st.layers, strict=True):
+        assert set(ls) == keys.get(mixer, {"k", "v"})
+
+
+def test_check_supported_refuses_what_jax_cannot_build():
+    """An mla layer without its low-rank widths (JAX's init divides by
+    them) and a frontend the JAX package does not know."""
+    mla = dataclasses.replace(C.get_config("mixtral_8x7b", reduced=True),
+                              pattern=(("mla", "moe"),))
+    with pytest.raises(ValueError, match="q_lora_rank"):
+        check_supported(mla)
+    with pytest.raises(ValueError, match="q_lora_rank"):
+        Transformer(mla, device="cpu")
+    video = dataclasses.replace(C.get_config("qwen2_vl_72b", reduced=True),
+                                frontend="video_stub")
+    with pytest.raises(NotImplementedError, match="video_stub"):
+        check_supported(video)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -140,8 +140,10 @@ def test_defaults_raise_without_gpu():
     from repro_torch.core import complement
     from repro_torch.models.transformer import Transformer
     from repro_torch.serve import PagedKVAllocator
-    with pytest.raises(RuntimeError, match="CUDA"):
-        Transformer(configs.get_config("gemma2_27b", reduced=True))
+    for arch in ("gemma2_27b", "deepseek_v2_236b", "xlstm_350m",
+                 "hubert_xlarge", "qwen2_vl_72b"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Transformer(configs.get_config(arch, reduced=True))
     with pytest.raises(RuntimeError, match="CUDA"):
         PagedKVAllocator(64)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -301,7 +303,8 @@ def test_similarity_kernel_route_does_not_fall_back_to_cpu():
                                   "kernels/block_sparse_attn.py",
                                   "models/layers.py",
                                   "models/transformer.py",
-                                  "serve/engine.py"])
+                                  "models/ssm.py", "models/mlp.py",
+                                  "convert.py", "serve/engine.py"])
 def test_every_except_reraises(name):
     tree = ast.parse((PKG / name).read_text())
     for node in ast.walk(tree):

@@ -89,8 +89,8 @@ def test_prefill_and_teacher_forced_decode(arch, dtype):
         n_pat = len(jc.pattern)
         for i in range(jc.n_layers):
             r, pi = divmod(i, n_pat)
-            for name, stack in (("k", pst.k), ("v", pst.v)):
-                _close(stack[i], jst["pattern"][pi][name][:, r],
+            for name in ("k", "v"):
+                _close(pst.layers[i][name], jst["pattern"][pi][name][:, r],
                        CACHE_TOL[dtype])
         step = jax.jit(lambda p, st, t, m: JT.decode_step(p, st, t, jc, m))
         for t in range(STEPS):
@@ -101,8 +101,8 @@ def test_prefill_and_teacher_forced_decode(arch, dtype):
             _close(pl, jl, LOGIT_TOL[dtype])
         for i in range(jc.n_layers):
             r, pi = divmod(i, n_pat)
-            for name, stack in (("k", pst.k), ("v", pst.v)):
-                _close(stack[i], jst["pattern"][pi][name][:, r],
+            for name in ("k", "v"):
+                _close(pst.layers[i][name], jst["pattern"][pi][name][:, r],
                        CACHE_TOL[dtype])
         assert pst.pos.tolist() == [S + STEPS] * B
     finally:

@@ -212,15 +212,16 @@ def test_prefill_against_prefill_then_decode():
     for i, (mix, _) in enumerate(pc.layer_kinds):
         if mix == "mamba":
             n_mamba += 1
-            np.testing.assert_allclose(st.h[i].numpy(), full.h[i].numpy(),
-                                       **H)
-            np.testing.assert_allclose(st.conv[i].numpy(),
-                                       full.conv[i].numpy(), **CONV)
-            assert st.k[i] is None and st.v[i] is None
+            np.testing.assert_allclose(st.layers[i]["h"].numpy(),
+                                       full.layers[i]["h"].numpy(), **H)
+            np.testing.assert_allclose(st.layers[i]["conv"].numpy(),
+                                       full.layers[i]["conv"].numpy(), **CONV)
+            assert set(st.layers[i]) == {"conv", "h"}
         else:
-            np.testing.assert_allclose(st.k[i].numpy(), full.k[i].numpy(),
+            np.testing.assert_allclose(st.layers[i]["k"].numpy(),
+                                       full.layers[i]["k"].numpy(),
                                        atol=1e-5, rtol=1e-5)
-            assert st.h[i] is None and st.conv[i] is None
+            assert set(st.layers[i]) == {"k", "v"}
     assert n_mamba == 7
     assert st.pos.tolist() == [256, 256]
 
