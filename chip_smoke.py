@@ -277,14 +277,46 @@ toolkit (``nvcc``).  Phases, each timed:
    bytes bound (every weight, the B embedding rows, each layer's float32
    state read and written) and the peak device memory.
 
+15. Qwen2.5-3B (``configs/qwen2_5_3b.py``) trained at full width and
+   depth after phase 14, alone on the card: the port's ``Trainer`` (36
+   layers, d 2,048, 16 / 2 heads, ff 11,008, vocab 151,936; 3,085,938,688
+   random float32 master parameters from ``--seed``, bf16 compute,
+   ``remat="block"``), its Roaring pipeline over 65,536 documents, batch 1
+   of 4,096 tokens (the one cut: ``train_4k``'s global batch of 256), AdamW
+   at lr 1e-3 with 5 warm-up steps, 5 steps (cut from 8 for the phase's
+   time), then a sixth in a profiler window (``_traced`` with the
+   trainer's ranges).  Printed: step ms p50 / p99 over steps 2-5,
+   tokens/s, model FLOPs a step (6 N a token plus causal attention, 6 L S
+   H hd) and their share of 989 TFLOP/s (``mfu``), the optimizer's bytes
+   bound (read p, g, m, v, write p, m, v), the peak memory, and from the
+   window the device time split into the data draw, forward + backward
+   and the optimizer, the idle share (null unless the window kept every
+   device event) and the top device ops.  Checks: every loss and grad
+   norm finite, the norms above 0; the eval loss of the first and last
+   batches (drawn by a twin of the trainer's pipeline) before their steps
+   equals those steps' own losses, and each of the two steps lowers its
+   own batch's loss.  At lr 1e-3 the first batch's loss after the 5 steps
+   is printed, not checked: the pipeline's tokens are uniformly random,
+   and at that rate the loss rises on the card (PERF.md, Findings).  So a
+   second trainer from the same masters, pipeline and schedule at lr 1e-4
+   trains 5 steps and must lower the first batch's loss from the same
+   start.  Checked too: with 2 of the 36 layers at full width, the loss
+   and every gradient leaf with remat on and off bit-equal; resume with 2
+   layers (3 steps, an asynchronous checkpoint, a fresh trainer that
+   resumes, 2 more steps) within 2e-4 of 5 uninterrupted steps, at the
+   same pipeline step.  The pipeline's set algebra stays on its host
+   merge at 65,536 documents, so the phase launches none of the
+   17 kernels, and a launch fails it.
+
 Phases 10, 12, 13 and 14 share one serving driver (``_serve_phase``).
 
-Launch counts are set to 0 just before each of phases 3 to 14 (and each
+Launch counts are set to 0 just before each of phases 3 to 15 (and each
 part of 11) and read just after it; a kernel that a phase's path runs and
 that launched no time there fails the script, and so does any launch in
-phases 13 and 14, whose paths run none: their prefills, decode steps,
-checks, profiler windows and HuBERT's prefills.  In phases 10, 12, 13 and
-14 the counts are also set to 0 around the lexicon constraint's build,
+phases 13, 14 and 15, whose paths run none: their prefills, decode steps,
+checks, profiler windows, HuBERT's prefills and the training steps.  In
+phases 10, 12, 13 and 14 the counts are also set to 0 around the lexicon
+constraint's build,
 whose launches are read apart.  Then one JSON line with every kernel's numbers,
 and the last line ``{"ok": true, "device": {...}}``.
 
@@ -461,7 +493,7 @@ _PAIR_KERNEL_NAMES = ("pair_kernel", "probe_kernel",
                       "intersect_card_kernel")
 
 
-def _trace_window(fn, dev, names=(), lead=64):
+def _trace_window(fn, dev, names=(), lead=64, ranges=()):
     """Run ``fn`` once in a profiler window and read the exported trace.
 
     Late in a long process the profiler can leave a window's earliest
@@ -481,7 +513,14 @@ def _trace_window(fn, dev, names=(), lead=64):
     have no runtime call to match, so ``span_busy_us`` also sums every
     device event that starts inside the measured range,
     ``span_top_kernels`` ranks those, and ``cu_launches`` counts the
-    range's ``cuLaunchKernel`` / ``cuMemcpy`` / ``cuMemset`` calls."""
+    range's ``cuLaunchKernel`` / ``cuMemcpy`` / ``cuMemset`` calls.
+
+    With ``ranges`` (names of ``record_function`` ranges that ``fn``
+    opens), those driver calls are matched to their device events too and
+    count in ``runtime_calls`` and towards ``complete`` (a training step
+    launches its matmuls through them), and ``range_us`` splits
+    ``busy_us`` by the range each event's call ran in, ``other`` for the
+    rest."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -505,6 +544,7 @@ def _trace_window(fn, dev, names=(), lead=64):
                  and e.get("name") == "chip_smoke.measured"), (0.0, 0.0))
     calls, lead_calls, work, by_kernel = {}, {}, {}, {}
     span_busy, span_kernels, cu_launches = 0.0, {}, 0
+    range_spans = {n: [] for n in ranges}
     for e in events:
         cat, name = e.get("cat", ""), e.get("name", "")
         corr = e.get("args", {}).get("correlation")
@@ -513,6 +553,10 @@ def _trace_window(fn, dev, names=(), lead=64):
             (calls if inside else lead_calls)[corr] = e
         elif name.startswith(_CU_LAUNCHES):
             cu_launches += inside
+            if ranges and inside:
+                calls[corr] = e
+        elif cat == "user_annotation" and name in range_spans:
+            range_spans[name].append((e["ts"], e["ts"] + e["dur"]))
         elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
             work[corr] = e
             if inside:
@@ -520,17 +564,21 @@ def _trace_window(fn, dev, names=(), lead=64):
                 if cat == "kernel":
                     span_kernels[name[:100]] = span_kernels.get(
                         name[:100], 0.0) + float(e.get("dur", 0.0))
-    mine = [work[c] for c in calls if c in work]
+    mine = {c: work[c] for c in calls if c in work}
     out = dict(wall_us=wall_us, lead=lead, busy_us=0.0, kernel_us=0.0,
                name_us={n: 0.0 for n in names}, h2d_bytes=0, d2h_bytes=0,
+               range_us=dict.fromkeys((*ranges, "other"), 0.0),
                device_events=len(mine), runtime_calls=len(calls),
                lead_kept=sum(c in work for c in lead_calls),
                span_busy_us=span_busy, cu_launches=cu_launches,
                span_top_kernels=sorted(span_kernels.items(),
                                        key=lambda kv: -kv[1])[:8])
-    for e in mine:
+    for c, e in mine.items():
         name, dur = e.get("name", ""), float(e.get("dur", 0.0))
         out["busy_us"] += dur
+        ts = calls[c]["ts"]
+        out["range_us"][next((n for n, spans in range_spans.items() if any(
+            a <= ts <= b for a, b in spans)), "other")] += dur
         if e["cat"] == "kernel":
             by_kernel[name[:100]] = by_kernel.get(name[:100], 0.0) + dur
         hit = ([n for n in names if re.search(n, name)]
@@ -551,13 +599,13 @@ def _trace_window(fn, dev, names=(), lead=64):
     return out
 
 
-def _traced(label, fn, dev, names=()):
+def _traced(label, fn, dev, names=(), ranges=()):
     """:func:`_trace_window` of a second call, with 64, then 256, then
     1,024 lead adds until a window is complete.  The first complete window
     is kept; every incomplete one is logged and kept in the report."""
     tries = []
     for lead in (64, 256, 1024):
-        tr = _trace_window(fn, dev, names, lead)
+        tr = _trace_window(fn, dev, names, lead, ranges)
         if tr["complete"]:
             break
         tries.append(tr)
@@ -4821,6 +4869,305 @@ def phase_xlstm_hubert(dev, seed, failures):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: Qwen2.5-3B training at full width and depth
+# ---------------------------------------------------------------------------
+
+TRAIN_SEQ = 4096              # the JAX package's train_4k sequence
+TRAIN_STEPS = 5               # 8 planned, cut to keep the phase's time
+TRAIN_DOCS = 65_536           # the train launcher's pipeline
+TRAIN_CHECK_LAYERS = 2        # the remat and resume checks' depth
+TRAIN_LR = 1e-3
+WITNESS_LR = 1e-4             # the first-batch descent check's rate
+BF16_DENSE_FLOPS = 989e12     # H100 SXM, dense bf16 tensor cores
+TRAIN_RANGES = ("trainer.data", "train_step.forward_backward",
+                "train_step.optimizer")
+
+
+def _train_cfg(layers=0, **kw):
+    import dataclasses
+
+    from repro_torch import configs
+    cfg = configs.get_config("qwen2_5_3b")
+    return dataclasses.replace(cfg, **(dict(n_layers=layers) if layers
+                                       else {}), **kw)
+
+
+def _train_opt(steps, lr=TRAIN_LR):
+    from repro_torch.optim.adamw import AdamWConfig
+    return AdamWConfig(lr=lr, warmup_steps=5, total_steps=steps)
+
+
+def _train_pipeline(cfg, dev):
+    """The launcher's pipeline: 65,536 documents, batch 1 of TRAIN_SEQ."""
+    from repro_torch.data.pipeline import RoaringDataPipeline
+    return RoaringDataPipeline(n_docs=TRAIN_DOCS, seq_len=TRAIN_SEQ,
+                               batch_size=1, vocab=cfg.vocab, seed=0,
+                               device=dev)
+
+
+def _trainer(cfg, dev, seed, ckpt_dir, steps, ckpt_every=10 ** 9,
+             async_ckpt=True, lr=TRAIN_LR):
+    """The launcher's trainer over ``_train_pipeline``, float32 masters
+    from ``seed``."""
+    from repro_torch.train.trainer import Trainer
+    return Trainer(cfg, _train_opt(steps, lr), _train_pipeline(cfg, dev),
+                   ckpt_dir, ckpt_every=ckpt_every, async_ckpt=async_ckpt,
+                   seed=seed, device=dev)
+
+
+def _batches(cfg, dev, n):
+    """The first ``n`` batches a trainer of ``cfg`` draws (a twin of its
+    pipeline), on the card."""
+    pipe = _train_pipeline(cfg, dev)
+    out = []
+    for _ in range(n):
+        b = pipe.next_batch()
+        out.append({k: torch.from_numpy(b[k]).to(dev)
+                    for k in ("tokens", "labels")})
+    return out
+
+
+def _remat_check(dev, seed, batch):
+    """TRAIN_CHECK_LAYERS layers at full width from the same seed, with
+    remat on and off: the loss and every gradient leaf compared bit for
+    bit; the leaves that differ named with their largest difference."""
+    from repro_torch.models.transformer import Transformer
+    out = {}
+    for remat in ("block", "none"):
+        cfg = _train_cfg(TRAIN_CHECK_LAYERS, remat=remat)
+        model = Transformer(cfg, device=dev, param_dtype="float32",
+                            generator=torch.Generator(dev).manual_seed(seed))
+        model.requires_grad_(True)
+        params = dict(model.named_parameters())
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, _ = model.loss_and_metrics(batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+        out[remat] = (loss.detach(), dict(zip(params, grads)),
+                      time.perf_counter() - t,
+                      torch.cuda.max_memory_allocated(dev))
+        del model, params, grads
+    (l_on, g_on, s_on, _), (l_off, g_off, s_off, _) = out["block"], \
+        out["none"]
+    differ = {k: float((g_on[k] - g).abs().max())
+              for k, g in g_off.items() if not torch.equal(g_on[k], g)}
+    return dict(layers=TRAIN_CHECK_LAYERS, leaves=len(g_off),
+                loss_equal=bool(torch.equal(l_on, l_off)),
+                loss=float(l_on), differ=differ, remat_s=s_on,
+                no_remat_s=s_off)
+
+
+def _resume_check(dev, seed, tmp):
+    """TRAIN_CHECK_LAYERS layers at full width: 3 steps and an asynchronous
+    checkpoint, a fresh trainer that resumes, 2 more steps; against 5
+    uninterrupted steps."""
+    cfg = _train_cfg(TRAIN_CHECK_LAYERS)
+    t = time.perf_counter()
+    a = _trainer(cfg, dev, seed, os.path.join(tmp, "run"), 5, ckpt_every=3)
+    a.train(3, log_every=10 ** 9)          # waits for the save
+    run_s = time.perf_counter() - t
+    state_bytes = sum(p.numel() * 12 for p in a.params.values())
+    del a
+    gc.collect()
+    b = _trainer(cfg, dev, seed, os.path.join(tmp, "run"), 5, ckpt_every=3)
+    t = time.perf_counter()
+    resumed = b.maybe_resume()
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t
+    b_step = b.step
+    hb = b.train(2, log_every=10 ** 9)
+    b_pipe = b.pipeline.step
+    del b
+    gc.collect()
+    c = _trainer(cfg, dev, seed, os.path.join(tmp, "ref"), 5)
+    hc = c.train(5, log_every=10 ** 9)
+    c_pipe = c.pipeline.step
+    del c
+    gc.collect()
+    got = [h["loss"] for h in hb]
+    want = [h["loss"] for h in hc[3:]]
+    close = bool(np.allclose(got, want, rtol=2e-4, atol=2e-4))
+    return dict(layers=TRAIN_CHECK_LAYERS, state_bytes=state_bytes,
+                resumed=resumed, resumed_step=b_step, losses=got,
+                reference=want, close=close, equal=got == want,
+                pipeline_step=(b_pipe, c_pipe), first_run_s=run_s,
+                resume_s=resume_s)
+
+
+def _descent_witness(cfg, dev, seed, ckpt_dir, steps, first):
+    """A trainer from the same masters, pipeline and schedule as phase
+    15's, at WITNESS_LR: the loss (eval step) of ``first``, the first
+    batch, before and after ``steps`` steps, and the steps' losses."""
+    from repro_torch.train.train_step import make_eval_step
+    eval_step = make_eval_step(cfg)
+    tr = _trainer(cfg, dev, seed, ckpt_dir, steps, lr=WITNESS_LR)
+    before = float(eval_step(tr.model, first)["loss"])
+    hist = tr.train(steps, log_every=10 ** 9)
+    after = float(eval_step(tr.model, first)["loss"])
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(lr=WITNESS_LR, before=before, after=after,
+                losses=[h["loss"] for h in hist])
+
+
+def phase_training(dev, seed, failures, steps=TRAIN_STEPS):
+    """Phase 15: Qwen2.5-3B trained at full width and depth (see the module
+    docstring)."""
+    import tempfile
+
+    from repro_torch.train.train_step import make_eval_step
+    _reset_counts()                       # the training path starts here
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = _train_cfg()
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = _trainer(cfg, dev, seed, tmp, steps)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        n_params = sum(p.numel() for p in tr.params.values())
+        log(f"  Qwen2.5-3B: {cfg.n_layers} layers, d {cfg.d_model}, "
+            f"{cfg.n_heads} / {cfg.n_kv_heads} heads, ff {cfg.d_ff}, vocab "
+            f"{cfg.vocab}; {n_params} float32 master parameters from seed "
+            f"{seed} in {init_s:.1f} s; {cfg.compute_dtype} compute, remat "
+            f"{cfg.remat!r}; batch 1 x {TRAIN_SEQ} tokens from the Roaring "
+            f"pipeline over {TRAIN_DOCS} documents")
+        eval_step = make_eval_step(cfg)
+        batches = _batches(cfg, dev, steps)
+        walls, before, own = [], {}, {}
+        for k in range(1, steps + 1):
+            if k in (1, steps):             # the step's own batch, before
+                before[k] = float(eval_step(tr.model, batches[k - 1])["loss"])
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tr.train(1, log_every=10 ** 9)
+            walls.append(time.perf_counter() - t)
+            if k in (1, steps):             # and after it
+                own[k] = float(eval_step(tr.model, batches[k - 1])["loss"])
+        hist = list(tr.history)
+        loss0, loss1 = before[1], float(eval_step(tr.model,
+                                                  batches[0])["loss"])
+        window = _traced("training step", lambda: tr.train(
+            1, log_every=10 ** 9), dev, ranges=TRAIN_RANGES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        step_ms = [h["sec"] * 1e3 for h in hist[1:]]
+        p50, p99 = (float(np.percentile(step_ms, q)) for q in (50, 99))
+        flops_token = 6 * n_params + 6 * cfg.n_layers * TRAIN_SEQ \
+            * cfg.n_heads * cfg.hd
+        flops_step = flops_token * TRAIN_SEQ
+        mfu = flops_step / (p50 / 1e3) / BF16_DENSE_FLOPS
+        opt_bytes = 28 * n_params           # read p, g, m, v; write p, m, v
+        opt_bound_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
+        split_ms = {k: v / 1e3 for k, v in window["range_us"].items()}
+        idle, top = window["idle_share"], window["top_kernels"]
+        finite = all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                     and h["grad_norm"] > 0 for h in hist)
+        log(f"  {steps} steps: losses "
+            f"{[round(h['loss'], 4) for h in hist]}, grad norms "
+            f"{[round(h['grad_norm'], 4) for h in hist]}, lr "
+            f"{['%.2e' % h['lr'] for h in hist]}; all finite, norms above "
+            f"0: {finite}")
+        log(f"  step ms (steps 2-{steps}) p50 {p50:.1f}, p99 {p99:.1f}; "
+            f"with the data draw {[round(w * 1e3, 1) for w in walls]}; "
+            f"{TRAIN_SEQ / (p50 / 1e3):.0f} tokens/s; model FLOPs "
+            f"{flops_token / 1e9:.2f} G a token, {flops_step / 1e12:.1f} T "
+            f"a step: mfu {mfu:.4f} of {BF16_DENSE_FLOPS / 1e12:.0f} T/s "
+            f"bf16 dense ({flops_step / BF16_DENSE_FLOPS * 1e3:.1f} ms a "
+            f"step at 100%)")
+        tries = len(window["incomplete_windows"]) + window["complete"]
+        log(f"  profiler window of a training step ({tries} window(s); "
+            f"complete {window['complete']}, "
+            f"{window['device_events']} of {window['runtime_calls']} launch "
+            f"calls, lead adds {window['lead']}): wall "
+            f"{window['wall_us'] / 1e3:.1f} ms, device "
+            f"{window['busy_us'] / 1e3:.1f} ms, idle "
+            f"{'null' if idle is None else f'{idle:.4f}'}; forward + "
+            f"backward {split_ms['train_step.forward_backward']:.1f} ms, "
+            f"optimizer {split_ms['train_step.optimizer']:.1f} ms (bound "
+            f"{opt_bound_ms:.1f} ms: {opt_bytes / 1e9:.1f} GB), data "
+            f"{split_ms['trainer.data']:.3f} ms, other "
+            f"{split_ms['other']:.3f} ms; top device ops "
+            f"{[(n[:60], round(us / 1e3, 2)) for n, us in top]}")
+        descent = {k: (before[k], own[k]) for k in own}
+        twin = {k: (before[k], hist[k - 1]["loss"]) for k in before}
+        log(f"  each step's own batch, its loss (eval step) before and after "
+            f"the step: {descent}; the eval loss before each of those steps "
+            f"against the step's own loss (equal when the twin pipeline "
+            f"drew the trainer's batch): {twin}; first batch's loss "
+            f"{loss0:.5f} before, {loss1:.5f} after {steps} steps at lr "
+            f"{TRAIN_LR:g}; peak {peak} bytes")
+        if not finite:
+            failures.append(f"training: a non-finite loss or grad norm, or "
+                            f"a zero norm: {hist}")
+        if any(a != b for a, b in twin.values()):
+            failures.append(f"training: the twin pipeline's batches are not "
+                            f"the trainer's: {twin}")
+        if not all(after < b for b, after in descent.values()):
+            failures.append(f"training: a step did not lower its own batch's "
+                            f"loss: {descent}")
+        witness = _descent_witness(cfg, dev, seed, os.path.join(
+            tmp, "witness"), steps, batches[0])
+        log(f"  the same masters, pipeline and schedule at lr "
+            f"{WITNESS_LR:g}: first batch's loss {witness['before']:.5f} "
+            f"before, {witness['after']:.5f} after {steps} steps; losses "
+            f"{[round(x, 4) for x in witness['losses']]}")
+        if not (witness["after"] < witness["before"]
+                and witness["before"] == loss0
+                and all(np.isfinite(witness["losses"]))):
+            failures.append(f"training: at lr {WITNESS_LR:g} the first "
+                            f"batch's loss did not fall from the same start: "
+                            f"{witness} (at lr {TRAIN_LR:g} it began at "
+                            f"{loss0})")
+
+        remat = _remat_check(dev, seed, batches[0])
+        log(f"  remat on vs off, {remat['layers']} of {cfg.n_layers} layers "
+            f"at full width: loss equal {remat['loss_equal']}, "
+            f"{remat['leaves'] - len(remat['differ'])} of {remat['leaves']} "
+            f"gradient leaves bit-equal, differing {remat['differ'] or 'none'}"
+            f"; {remat['remat_s']:.2f} / {remat['no_remat_s']:.2f} s")
+        if not remat["loss_equal"] or remat["differ"]:
+            failures.append(f"training: remat on and off differ: {remat}")
+        del batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        resume = _resume_check(dev, seed, tmp)
+        log(f"  resume, {resume['layers']} layers at full width "
+            f"({resume['state_bytes']} bytes of state): 3 steps and a "
+            f"checkpoint in {resume['first_run_s']:.1f} s, resumed "
+            f"{resume['resumed']} at step {resume['resumed_step']} in "
+            f"{resume['resume_s']:.1f} s; losses {resume['losses']} against "
+            f"uninterrupted {resume['reference']} (within 2e-4: "
+            f"{resume['close']}, equal: {resume['equal']}); pipeline steps "
+            f"{resume['pipeline_step']}")
+        if not (resume["resumed"] and resume["resumed_step"] == 3
+                and resume["close"]
+                and resume["pipeline_step"][0] == resume["pipeline_step"][1]):
+            failures.append(f"training: resume differs: {resume}")
+    launches = _all_counts()
+    log(f"  kernel launches in the phase {launches or 'none'}")
+    if launches:
+        failures.append(f"training: a kernel launched on a path that runs "
+                        f"none: {launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.n_layers, params=n_params, init_s=init_s,
+                steps=steps, history=hist, step_walls_s=walls,
+                step_p50_ms=p50, step_p99_ms=p99,
+                tokens_per_s=TRAIN_SEQ / (p50 / 1e3),
+                flops_per_step=flops_step,
+                mfu=mfu, optimizer_bytes=opt_bytes,
+                optimizer_bound_ms=opt_bound_ms, window=window,
+                eval_loss=(loss0, loss1), descent=descent, twin=twin,
+                witness=witness, peak_bytes=peak, remat=remat,
+                resume=resume, launches=launches)
+
+
+# ---------------------------------------------------------------------------
 
 def _build_all():
     """Build every kernel source at once, one nvcc each, in parallel.
@@ -4971,8 +5318,8 @@ def _kernel_line(main_path, sim, cases, topk_cases, max_err, topk_err,
              jamba_shape={k: jamba_case[k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                  "max_abs_err", "shape")})]
-    # launches in phases 13 and 14 (``later``: the counts by kernel), whose
-    # model paths run no kernel of the port
+    # launches in phases 13, 14 and 15 (``later``: the counts by kernel),
+    # whose model paths run no kernel of the port
     count_key = {"similarity_score": "score", "similarity_select": "select",
                  "similarity_score_ids": "score_ids",
                  "topk_merge": "select_ids"}
@@ -5150,6 +5497,11 @@ def main() -> int:
     xlstm = phase("14 (xLSTM-350M serving and a HuBERT-xlarge encoder "
                   "prefill, whole)", phase_xlstm_hubert, dev, args.seed,
                   failures)
+    # phase 15 runs alone on the card too, after phase 14's models
+    gc.collect()
+    torch.cuda.empty_cache()
+    training = phase("15 (Qwen2.5-3B training at full width and depth)",
+                     phase_training, dev, args.seed, failures)
 
     kernels = _kernel_line(main_path, sim, cases, topk_cases, max_err,
                            topk_err, pair_cases, pair_err, pairwise,
@@ -5157,7 +5509,8 @@ def main() -> int:
                            section4_cases, section4_err, surface, ids_cases,
                            ids_err, sharded, bsa_cases, bsa_err, serving,
                            jamba, {"13": deepseek["launches"],
-                                   "14": xlstm["launches"]})
+                                   "14": xlstm["launches"],
+                                   "15": training["launches"]})
     REPORT.parent.mkdir(exist_ok=True)
     REPORT.write_text(json.dumps(dict(
         card=card, builds=builds, kernel_cases=cases,
@@ -5167,7 +5520,7 @@ def main() -> int:
         section4_cases=section4_cases, ops_surface=surface,
         ids_cases=ids_cases, sharded=sharded, cold_start=cold,
         bsa_cases=bsa_cases, serving=serving, jamba=jamba,
-        deepseek=deepseek, xlstm_hubert=xlstm,
+        deepseek=deepseek, xlstm_hubert=xlstm, training=training,
         bsa_launches_per_phase=bsa_per_phase,
         kernels=kernels["kernels"],
         phases_s=phases, failures=failures,

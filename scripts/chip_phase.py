@@ -2,7 +2,7 @@
 """Run one kernel phase of a tree's ``chip_smoke.py`` on the card, alone.
 
     python3 scripts/chip_phase.py --root TREE --phase 2e [--seed 0]
-        [--out FILE]
+        [--out FILE] [--steps N]
 
 ``TREE`` is the root of a checkout of this repository (this one by
 default); its ``chip_smoke.py`` and ``src/repro_torch`` are the ones run.
@@ -10,9 +10,11 @@ The phase's kernels build at first use, the phase runs once, and its cases
 (kernel, plain version, library and bound times, equality) print as one
 JSON line, with the card's name and power limit; ``--out`` also writes
 them to a file.  Phases: 2, 2b, 2c, 2d, 2e, 2f, 2g (see ``chip_smoke.py``),
-and the serving phases 10 (Gemma2-27B), 12 (Jamba-v0.1), 13 (DeepSeek-V2)
-and 14 (xLSTM-350M and a HuBERT-xlarge prefill), each in a tree that has
-it, which print their end-to-end numbers in place of cases.
+the serving phases 10 (Gemma2-27B), 12 (Jamba-v0.1), 13 (DeepSeek-V2)
+and 14 (xLSTM-350M and a HuBERT-xlarge prefill), and the training phase 15
+(Qwen2.5-3B; ``--steps`` sets its step count, 5 by default as in
+``chip_smoke.py``), each in a tree that has it, which print their
+end-to-end numbers in place of cases.
 
 Timing two trees on one card, in turns (parent, change, change, parent),
 takes one process per run, since each tree has its own ``repro_torch``:
@@ -38,11 +40,14 @@ PHASES = {"2": "phase_kernels", "2b": "phase_topk_kernels",
           "2e": "phase_section4_kernels", "2f": "phase_ids_kernels",
           "2g": "phase_bsa_kernel", "10": "phase_serving",
           "12": "phase_jamba", "13": "phase_deepseek",
-          "14": "phase_xlstm_hubert"}
+          "14": "phase_xlstm_hubert", "15": "phase_training"}
 KEYS = ("case", "kernel", "rows", "equal", "ms", "plain_ms", "library_ms",
         "bound_ms", "bound_by", "event_ms")
 SERVING_KEYS = ("prefill_s", "decode_p50_ms", "decode_p99_ms",
                 "tokens_per_s", "step_bound_ms", "peak_bytes", "launches")
+TRAINING_KEYS = ("step_p50_ms", "step_p99_ms", "tokens_per_s", "mfu",
+                 "optimizer_bound_ms", "peak_bytes", "launches", "eval_loss",
+                 "descent", "twin", "witness")
 
 
 def main() -> int:
@@ -51,6 +56,8 @@ def main() -> int:
     ap.add_argument("--phase", required=True, choices=sorted(PHASES))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out")
+    ap.add_argument("--steps", type=int,
+                    help="phase 15's training steps (its default: 5)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -64,15 +71,24 @@ def main() -> int:
                           text=True, timeout=60, check=True).stdout.strip()
     failures: list[str] = []
     t = time.perf_counter()
+    kw = {"steps": args.steps} if args.steps is not None else {}
+    if kw and args.phase != "15":
+        ap.error("--steps is phase 15's")
     out = getattr(smoke, PHASES[args.phase])(torch.device("cuda"), args.seed,
-                                             failures)
+                                             failures, **kw)
     from repro_torch.kernels import _build
     ptxas = {name: [ln.strip() for ln in log.splitlines() if "Used" in ln]
              for name, log in _build.build_logs.items()}
     rep = dict(root=str(root), phase=args.phase, card=card,
                seconds=time.perf_counter() - t, failures=failures,
                ptxas=ptxas)
-    if isinstance(out, dict):                   # a serving phase
+    if args.phase == "15":                      # the training phase
+        rep["training"] = dict({k: out.get(k) for k in TRAINING_KEYS},
+                               window={k: out["window"][k] for k in (
+                                   "range_us", "idle_share", "busy_us",
+                                   "complete", "top_kernels")},
+                               remat=out["remat"], resume=out["resume"])
+    elif isinstance(out, dict):                 # a serving phase
         rep["serving"] = dict({k: out.get(k) for k in SERVING_KEYS},
                               idle_share=out["window"]["idle_share"],
                               window_busy_us=out["window"]["busy_us"])

@@ -21,7 +21,8 @@ converts the same way.
 A model's parameters come from the JAX package's pytree, read as numpy
 arrays: :func:`params_from_jax` unstacks the scanned pattern groups into the
 port's per-layer state dict (``models.transformer``), so both packages
-compute with the same weights.
+compute with the same weights; :func:`opt_state_from_jax` maps AdamW's
+state the same way.
 """
 
 from __future__ import annotations
@@ -136,3 +137,12 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
                 out[f"layers.{n_prefix + r * len(pattern) + pi}.{key}"] = \
                     x[r].clone()
     return out
+
+
+def opt_state_from_jax(state) -> dict:
+    """The port's AdamW state (``optim.adamw``) from the JAX package's
+    ``{"m", "v", "step"}`` of numpy arrays: ``m`` and ``v`` mirror the
+    parameter tree, so they map as :func:`params_from_jax` maps it."""
+    return {"m": params_from_jax(state["m"]), "v": params_from_jax(state["v"]),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32)}

@@ -32,7 +32,16 @@ _NEG = -1e30
 # ---------------------------------------------------------------------------
 
 def param(t: torch.Tensor) -> torch.nn.Parameter:
-    return torch.nn.Parameter(t, requires_grad=False)      # serving only
+    # frozen for serving; a trainer turns gradients on for its masters
+    return torch.nn.Parameter(t, requires_grad=False)
+
+
+def cast(w, like):
+    """A parameter in ``like``'s dtype at the point of use, as JAX writes
+    ``p[...].astype(dt)``: no copy where it is stored in that dtype (the
+    serving model), a cast of the float32 master under training, whose
+    backward upcasts the compute-dtype gradient."""
+    return w.to(like.dtype)
 
 
 def weight(shape, std, dtype, device, generator):
@@ -47,6 +56,50 @@ def weight(shape, std, dtype, device, generator):
 
 def fill(shape, value, dtype, device):
     return param(torch.full(shape, value, dtype=dtype, device=device))
+
+
+class _GatherRows(torch.autograd.Function):
+    """``table[ids]`` whose backward adds the rows of repeated ids in their
+    order of appearance, in the table's dtype: one ``index_add_`` a round,
+    round r adding every id's r-th occurrence, so each round's ids are
+    distinct.  That is the sequential sum XLA's scatter computes for the
+    JAX package's gather, and it is the same on every run and device (the
+    CPU's accumulating ``index_put_``, which ``table[ids]`` differentiates
+    through, adds repeats in parallel).  The rounds are as many as the
+    most repeated id's count; one host sync reads their sizes."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape[0]
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        flat = ids.reshape(-1)
+        g = grad.reshape(flat.numel(), grad.shape[-1])
+        order = torch.sort(flat, stable=True).indices
+        sid = flat[order]
+        pos = torch.arange(sid.numel(), device=sid.device)
+        first = torch.ones_like(sid, dtype=torch.bool)
+        first[1:] = sid[1:] != sid[:-1]
+        rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+        by_round = torch.sort(rank, stable=True).indices   # round, then id
+        sid, order = sid[by_round], order[by_round]
+        out = torch.zeros((ctx.rows, g.shape[1]), dtype=g.dtype,
+                          device=g.device)
+        start = 0
+        for n in torch.bincount(rank).tolist():
+            out.index_add_(0, sid[start:start + n],
+                           g[order[start:start + n]])
+            start += n
+        return out, None
+
+
+def gather_rows(table, ids):
+    """``table[ids]`` (ids int64) with a deterministic backward."""
+    return _GatherRows.apply(table, ids)
 
 
 # ---------------------------------------------------------------------------
@@ -283,13 +336,14 @@ def _project_qkv(x, p, cfg, positions):
     b, s, d = x.shape
 
     def proj(w):                          # einsum("bsd,dhk->bshk")
-        return (x @ w.reshape(d, -1)).reshape(b, s, w.shape[1], w.shape[2])
+        return (x @ cast(w, x).reshape(d, -1)).reshape(
+            b, s, w.shape[1], w.shape[2])
 
     q, k, v = proj(p.wq), proj(p.wk), proj(p.wv)
     if cfg.qkv_bias:
-        q = q + p.bq
-        k = k + p.bk
-        v = v + p.bv
+        q = q + cast(p.bq, q)
+        k = k + cast(p.bk, k)
+        v = v + cast(p.bv, v)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
@@ -301,18 +355,29 @@ def _project_qkv(x, p, cfg, positions):
 def out_proj(o, wo):
     """einsum("...hk,hkd->...d"): o (..., H, hd), wo (H, hd, d)."""
     h, hd, d = wo.shape
-    return o.reshape(*o.shape[:-2], h * hd) @ wo.reshape(h * hd, d)
+    return o.reshape(*o.shape[:-2], h * hd) @ cast(wo, o).reshape(h * hd, d)
+
+
+def _attend(q, k, v, cfg, mixer):
+    return flash_attention(
+        q, k, v, causal=(mixer != "enc"),
+        window=cfg.sliding_window if mixer == "local" else 0,
+        softcap=cfg.attn_softcap, q_chunk=cfg.attn_q_chunk,
+        k_chunk=cfg.attn_k_chunk, block_skip=cfg.flash_block_skip)
+
+
+def attn_train(x, p, cfg, mixer, positions):
+    """x: (B, S, d) -> (B, S, d): the JAX package's ``attn_train``, the
+    prefill's attention without the cache writes, differentiable."""
+    q, k, v = _project_qkv(x, p, cfg, positions)
+    return out_proj(_attend(q, k, v, cfg, mixer), p.wo)
 
 
 def attn_prefill(x, p, cfg, mixer, positions, k_cache, v_cache):
     """x: (B, S, d) -> (B, S, d); writes the prompt's keys and values into
     the layer's caches (B, Hkv, S_max, hd) in place."""
     q, k, v = _project_qkv(x, p, cfg, positions)
-    out = flash_attention(
-        q, k, v, causal=(mixer != "enc"),
-        window=cfg.sliding_window if mixer == "local" else 0,
-        softcap=cfg.attn_softcap, q_chunk=cfg.attn_q_chunk,
-        k_chunk=cfg.attn_k_chunk, block_skip=cfg.flash_block_skip)
+    out = _attend(q, k, v, cfg, mixer)
     s = x.shape[1]
     k_cache[:, :, :s] = k.transpose(1, 2)
     v_cache[:, :, :s] = v.transpose(1, 2)

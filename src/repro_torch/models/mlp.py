@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import weight
+from repro_torch.models.layers import cast, weight
 
 
 def _const(value, like):
@@ -91,10 +91,10 @@ class MLP(nn.Module):
 
 def mlp(x, p, cfg):
     if cfg.act in ("swiglu", "geglu"):
-        h = _act(x @ p.w_gate, cfg.act)
-        h.mul_(x @ p.w_up)            # in place: no third (tokens, ff) buffer
-        return h @ p.w_down
-    return _act(x @ p.w_in, "gelu") @ p.w_out
+        h = _act(x @ cast(p.w_gate, x), cfg.act)
+        h.mul_(x @ cast(p.w_up, x))   # in place: no third (tokens, ff) buffer
+        return h @ cast(p.w_down, x)
+    return _act(x @ cast(p.w_in, x), "gelu") @ cast(p.w_out, x)
 
 
 # ---------------------------------------------------------------------------

@@ -8,10 +8,23 @@ parameter tree: ``embed``, ``final_norm.scale``, ``frontend_proj``,
 ``layers.<i>.ln1.scale``, ``layers.<i>.mixer.wq`` (``.mixer.w_dkv`` for
 MLA, ``.mixer.in_proj`` for Mamba, ...), ``layers.<i>.ffn.w_gate`` (or
 ``.ffn.router``, ``.ffn.wg`` for MoE), ...; ``convert.params_from_jax``
-maps a JAX tree onto them.  Matrices and the embedding are stored in the
-compute dtype, the values JAX's per-use ``.astype(compute_dtype)`` of its
-float32 weights gives; norm scales, the MoE router, Mamba's ``A_log`` and
-the xLSTM gate biases and sLSTM recurrence stay float32, as JAX reads them.
+maps a JAX tree onto them.  For serving, matrices and the embedding are
+stored in the compute dtype, the values JAX's per-use
+``.astype(compute_dtype)`` of its float32 weights gives; norm scales, the
+MoE router, Mamba's ``A_log`` and the xLSTM gate biases and sLSTM
+recurrence stay float32, as JAX reads them.  For training
+(``param_dtype="float32"``, the attention family only: ``check_trainable``)
+every parameter is a float32 master and each use casts it to the compute
+dtype (``layers.cast``), as JAX does, so a master's gradient is the upcast
+compute-dtype gradient of that use, and the two uses of a tied embedding
+are two casts whose gradients sum in float32.
+
+``loss_and_metrics`` is the JAX package's: the embedding, every block's
+training forward (``Block.train_forward``; under ``cfg.remat == "block"``
+each pattern layer in ``torch.utils.checkpoint``, as JAX checkpoints its
+scanned groups), the final norm, the logits and a float32 cross entropy
+with label -1 masked, in ``cfg.ce_chunk`` chunks of the sequence where it
+is set.
 
 Every mixer (``full``, ``local``, ``global``, ``enc``, ``mla``, ``mamba``,
 ``mlstm``, ``slstm``), ffn (``mlp``, ``moe``, ``none``) and frontend
@@ -38,13 +51,14 @@ import dataclasses
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
 from repro_torch.models.config import ATTN_MIXERS as ATTN
 from repro_torch.models.config import FFNS, MIXERS, ModelConfig
-from repro_torch.models.layers import MLA, fill, weight
+from repro_torch.models.layers import MLA, cast, fill, weight
 from repro_torch.models.mlp import MLP, MoE, mlp
 from repro_torch.models.ssm import MLSTM, SLSTM, Mamba
 
@@ -69,6 +83,36 @@ def check_supported(cfg: ModelConfig) -> None:
         raise ValueError(f"{cfg.name}: an mla layer needs q_lora_rank and "
                          f"kv_lora_rank (got {cfg.q_lora_rank}, "
                          f"{cfg.kv_lora_rank})")
+
+
+TRAINABLE_MIXERS = ("full", "local", "global")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError unless every layer is an attention mixer
+    (``full``, ``local``, ``global``) with ffn ``mlp`` and there is no
+    frontend: the training the port has (qwen2.5-3b, stablelm-3b,
+    qwen3-14b, gemma2-27b).  The other mixers, ffn ``moe`` with its router
+    loss and the frontends' label padding are ROADMAP Queue 1 item 5b."""
+    check_supported(cfg)
+    other = sorted({(m, f) for m, f in cfg.layer_kinds
+                    if m not in TRAINABLE_MIXERS or f != "mlp"})
+    if other or cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: training of blocks {other} and frontend "
+            f"{cfg.frontend!r} is not ported yet (ROADMAP Queue 1 item 5b)")
+
+
+def _ce(logits, labels):
+    """JAX's ``_ce``: logits (..., V) upcast to float32, label -1 masked ->
+    (the summed negative log likelihood, the count of labels)."""
+    logits = logits.float()
+    mask = labels >= 0
+    safe = torch.where(mask, labels, 0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, safe[..., None], dim=-1)[..., 0]
+    nll = torch.where(mask, lse - gold, 0.0)
+    return nll.sum(), mask.sum(dtype=torch.int32)
 
 
 class Norm(nn.Module):
@@ -180,6 +224,13 @@ class Block(nn.Module):
             h = self.ln2_post(h)
         return x + h
 
+    def train_forward(self, x, positions):
+        """JAX's ``block_train`` for an attention mixer with an MLP: x (B,
+        S, d) -> (x, the router loss, 0 here)."""
+        h = L.attn_train(self.ln1(x), self.mixer, self.cfg, self.mixer_kind,
+                         positions)
+        return self._finish(x, h), torch.zeros((), device=x.device)
+
     def prefill(self, x, positions, st):
         """x: (B, S, d) -> (x, the layer's state after the sequence): an
         attention or MLA layer fills its caches in ``st`` in place and
@@ -231,32 +282,37 @@ class DecodeState:
 
 
 class Transformer(nn.Module):
-    """The serving model on ``device`` (the card unless the caller names
-    another).  With a ``generator`` the weights are random (JAX's init
-    shapes and scales, drawn from that generator on ``device``); without,
-    they are uninitialised, for ``load_state_dict``."""
+    """The model on ``device`` (the card unless the caller names another).
+    With a ``generator`` the weights are random (JAX's init shapes and
+    scales, drawn in float32 from that generator on ``device``); without,
+    they are uninitialised, for ``load_state_dict``.  ``param_dtype``
+    (default: the compute dtype, for serving) is the dtype the matrices are
+    stored in; ``"float32"`` gives the training model's masters."""
 
     def __init__(self, cfg: ModelConfig, *, device=None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 param_dtype: str | None = None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         dev = kops.resolve_device(device)
         self.dtype = getattr(torch, cfg.compute_dtype)
+        wdt = getattr(torch, param_dtype) if param_dtype else self.dtype
+        if wdt != self.dtype:
+            check_trainable(cfg)
         d = cfg.d_model
-        self.embed = weight((cfg.vocab, d), d ** -0.5, self.dtype, dev,
-                            generator)
+        self.embed = weight((cfg.vocab, d), d ** -0.5, wdt, dev, generator)
         if not cfg.tie_embeddings:
-            self.lm_head = weight((d, cfg.vocab), d ** -0.5, self.dtype,
-                                  dev, generator)
+            self.lm_head = weight((d, cfg.vocab), d ** -0.5, wdt, dev,
+                                  generator)
         if cfg.frontend != "none":
             fd = cfg.frontend_dim or d
-            self.frontend_proj = weight((fd, d), fd ** -0.5, self.dtype, dev,
+            self.frontend_proj = weight((fd, d), fd ** -0.5, wdt, dev,
                                         generator)
         self.final_norm = Norm(cfg, d, dev)
         n_prefix = len(cfg.prefix)
         self.layers = nn.ModuleList(
-            Block(cfg, kind, self.dtype, dev, generator, prefix=i < n_prefix)
+            Block(cfg, kind, wdt, dev, generator, prefix=i < n_prefix)
             for i, kind in enumerate(cfg.layer_kinds))
         # sqrt(d) rounded to the compute dtype, as the JAX package scales
         # (68.0 in bfloat16 for d = 4608)
@@ -276,11 +332,15 @@ class Transformer(nn.Module):
             if self.cfg.frontend == "none":
                 raise ValueError(f"{self.cfg.name} has no frontend for "
                                  f"frontend_embeds")
-            fe = torch.as_tensor(frontend_embeds, device=self.device)
-            parts.append(fe.to(self.dtype) @ self.frontend_proj)
+            fe = torch.as_tensor(frontend_embeds,
+                                 device=self.device).to(self.dtype)
+            parts.append(fe @ cast(self.frontend_proj, fe))
         if tokens is not None:
             tokens = torch.as_tensor(tokens, device=self.device)
-            parts.append(self.embed[tokens.long()])
+            # cast, then gather: the gather's backward accumulates repeated
+            # tokens in the compute dtype, as JAX's does
+            parts.append(L.gather_rows(self.embed.to(self.dtype),
+                                       tokens.long()))
         if not parts:
             raise ValueError("prefill needs tokens, frontend_embeds or both")
         x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
@@ -290,11 +350,54 @@ class Transformer(nn.Module):
 
     def _logits(self, x):
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        logits = x @ head
+        logits = x @ cast(head, x)
         fc = self.cfg.final_softcap
         if fc:
             logits = fc * torch.tanh(logits / fc)
         return logits
+
+    # ------------------------------------------------------------------
+    def backbone(self, x, positions):
+        """JAX's ``backbone``: every block's training forward, then the
+        final norm -> (x, the summed router loss).  Under ``cfg.remat ==
+        "block"`` each pattern layer's activations are recomputed in the
+        backward pass (JAX checkpoints each scanned pattern group; the
+        values are the same)."""
+        aux_total = torch.zeros((), device=x.device)
+        n_prefix = len(self.cfg.prefix)
+        for i, block in enumerate(self.layers):
+            if self.cfg.remat == "block" and i >= n_prefix:
+                x, aux = checkpoint(block.train_forward, x, positions,
+                                    use_reentrant=False)
+            else:
+                x, aux = block.train_forward(x, positions)
+            aux_total = aux_total + aux
+        return self.final_norm(x), aux_total
+
+    def loss_and_metrics(self, batch):
+        """JAX's ``loss_and_metrics``: batch {"tokens": (B, S), "labels":
+        (B, S)}, label -1 masked -> (loss, {"ce_loss", "router_aux",
+        "tokens"}), differentiable in the parameters."""
+        check_trainable(self.cfg)
+        x = self._embed(batch["tokens"])
+        b, s = x.shape[:2]
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=self.device).expand(b, s)
+        x, aux = self.backbone(x, positions)
+        labels = torch.as_tensor(batch["labels"], device=self.device)
+        c = min(self.cfg.ce_chunk, s) if self.cfg.ce_chunk else s
+        if s % c:
+            raise ValueError(f"sequence {s} is not a multiple of ce_chunk "
+                             f"{c}")
+        nll = torch.zeros((), device=self.device)
+        n = torch.zeros((), dtype=torch.int32, device=self.device)
+        for c0 in range(0, s, c):
+            nll_c, n_c = _ce(self._logits(x[:, c0:c0 + c]),
+                             labels[:, c0:c0 + c])
+            nll, n = nll + nll_c, n + n_c
+        loss = nll / torch.clamp(n, min=1)
+        total = loss + self.cfg.router_aux_coef * aux
+        return total, {"ce_loss": loss, "router_aux": aux, "tokens": n}
 
     def init_decode_state(self, batch: int, s_max: int) -> DecodeState:
         dev = self.device

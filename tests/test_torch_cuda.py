@@ -50,7 +50,10 @@ of the JAX package's bf16 flavours) against keys and values decompressed
 in float32 from the same caches; the ``sparse_topk_blocks`` gather route
 against the decode attention kernel at Gemma2-27B's decode shape with
 every block gathered; and xLSTM's chunkwise-parallel mLSTM against its
-per-token recurrence at full width.
+per-token recurrence at full width.  One train step of the reduced
+qwen2.5-3b model (float32 masters, remat on), rerun bit-equal; two steps'
+losses against the CPU's; and AdamW's update on the card from the CPU's
+inputs within 2 ulps of the CPU's.
 
 These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip.  Run
 them on a GPU machine with ``PYTHONPATH=src python -m pytest -q -m cuda
@@ -1576,3 +1579,125 @@ def test_chunked_mlstm_matches_the_recurrence(cuda):
     for got, want in ((h_c, h_s), *((st_c[k], st_s[k]) for k in "Cnm")):
         top = float(want.abs().max())
         assert float((got - want).abs().max()) <= 1e-5 * max(top, 1.0)
+
+
+def _train_setup(dtype, dev):
+    """Reduced qwen2.5-3b with float32 masters drawn on the CPU from seed
+    3 (so every device starts from the same values), AdamW's state, and a
+    batch of 2 x 128 tokens."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(configs.get_config("qwen2_5_3b", reduced=True),
+                              compute_dtype=dtype, remat="block")
+    src = Transformer(cfg, device="cpu", param_dtype="float32",
+                      generator=torch.Generator().manual_seed(3))
+    model = Transformer(cfg, device=dev, param_dtype="float32")
+    model.load_state_dict(src.state_dict())
+    model.requires_grad_(True)
+    state = adamw.init_state(dict(model.named_parameters()))
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, (2, 129))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(dev),
+             "labels": torch.from_numpy(toks[:, 1:]).to(dev)}
+    return cfg, model, state, batch
+
+
+def _one_step(cfg, model, state, batch, steps=1):
+    """``steps`` train steps on ``batch`` -> (parameters, m and v, each
+    step's metrics)."""
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import make_train_step
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=2,
+                                            total_steps=10))
+    metrics = []
+    for _ in range(steps):
+        _, state, m = step(model, state, batch)
+        metrics.append(m)
+    return ({k: p.detach().clone() for k, p in model.named_parameters()},
+            {k: {n: t.clone() for n, t in state[k].items()}
+             for k in ("m", "v")}, metrics)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_reruns_bit_equal(cuda, dtype):
+    """One train step of the reduced model on the card (remat on), run
+    twice from the same parameters and AdamW state: parameters, m, v and
+    the metrics bit-equal (the embedding's backward is deterministic)."""
+    runs = []
+    for _ in range(2):
+        runs.append(_one_step(*_train_setup(dtype, cuda)))
+    (p1, s1, m1), (p2, s2, m2) = runs
+    for k in p1:
+        assert torch.equal(p1[k], p2[k]), k
+        assert torch.equal(s1["m"][k], s2["m"][k]), k
+        assert torch.equal(s1["v"][k], s2["v"][k]), k
+    for k in m1[0]:
+        assert torch.equal(m1[0][k], m2[0][k]), k
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """The same two float32 steps on the card and on the CPU: each step's
+    loss within 1e-5 relative and grad norm within 1e-4 relative (the
+    float32 tolerances of the CPU tests against JAX; TF32 is off by
+    default).  The second step's loss is computed from the parameters the
+    card's AdamW wrote."""
+    cpu = _one_step(*_train_setup("float32", "cpu"), steps=2)[2]
+    gpu = _one_step(*_train_setup("float32", cuda), steps=2)[2]
+    for i, (g, c) in enumerate(zip(gpu, cpu)):
+        for key, tol in (("loss", 1e-5), ("ce_loss", 1e-5),
+                         ("grad_norm", 1e-4)):
+            a, b = float(g[key]), float(c[key])
+            assert abs(a - b) <= tol * abs(b), (i, key, a, b)
+        assert float(g["lr"]) == float(c["lr"]), i
+
+
+@pytest.mark.parametrize("clip", [1e9, 1.0])
+def test_adamw_on_the_card_matches_the_cpu(cuda, clip):
+    """``adamw.apply_updates`` on the card from the CPU's own inputs (the
+    reduced qwen2.5-3b's leaves, seeded numpy parameters, gradients and a
+    random state at step 3; the clip idle and active): parameters, m and v
+    within 2 float32 ulps of each leaf's largest magnitude of the CPU's
+    (the bound tests/test_torch_optim.py holds the CPU to JAX with), lr
+    equal, the grad norm within 1e-6 relative (each device orders a leaf's
+    sum of squares its own way).  This holds the card's 0-dim scalars, one
+    set a device, against the CPU's arithmetic."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim import adamw
+    cfg = configs.get_config("qwen2_5_3b", reduced=True)
+    shapes = {k: tuple(p.shape) for k, p in Transformer(
+        cfg, device="cpu", param_dtype="float32").named_parameters()}
+    rng = np.random.default_rng(11)
+
+    def draw(scale, positive=False):
+        out = {k: (rng.standard_normal(s) * scale).astype(np.float32)
+               for k, s in shapes.items()}
+        return {k: np.abs(x) for k, x in out.items()} if positive else out
+    p, g, m, v = draw(1.0), draw(0.3), draw(0.05), draw(0.01, True)
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=50,
+                            grad_clip=clip)
+    got = {}
+    for dev in ("cpu", cuda):
+        def on(tree):
+            return {k: torch.from_numpy(x.copy()).to(dev)
+                    for k, x in tree.items()}
+        state = {"m": on(m), "v": on(v),
+                 "step": torch.tensor(3, dtype=torch.int32)}
+        params, state, metrics = adamw.apply_updates(on(p), on(g), state,
+                                                     opt)
+        got[str(dev)] = ({"p": params, "m": state["m"], "v": state["v"]},
+                         metrics)
+    (card, mc), (host, mh) = got[str(cuda)], got["cpu"]
+    gn = float(mh["grad_norm"])
+    assert abs(float(mc["grad_norm"]) - gn) <= 1e-6 * gn
+    if clip < gn:
+        assert gn > 2 * clip            # the clip is active in this case
+    assert float(mc["lr"]) == float(mh["lr"])
+    for name in ("p", "m", "v"):
+        for k, want in host[name].items():
+            want = want.numpy()
+            err = np.abs(card[name][k].cpu().numpy().astype(np.float64)
+                         - want).max()
+            assert err <= 2 * np.spacing(np.abs(want).max()), (name, k)
