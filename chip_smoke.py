@@ -307,14 +307,56 @@ toolkit (``nvcc``).  Phases, each timed:
    same pipeline step.  The pipeline's set algebra stays on its host
    merge at 65,536 documents, so the phase launches none of the
    17 kernels, and a launch fails it.
+16. The rest of training after phase 15, each part alone on the card
+   (everything before it released), each printing its step ms p50,
+   tokens/s, peak memory and the 17 kernels' launches (none: a launch
+   fails it) beside the card's name and power limit; float32 masters,
+   bf16 compute, AdamW at lr 1e-4 after 1 warm-up step.
+   16a. Mixtral-8x7B (``configs/mixtral_8x7b.py``) at full width, 2 of
+   its 32 layers (d 4,096, 32 / 8 heads, 8 experts top-2 of 14,336,
+   window 4,096; 3,164,688,384 parameters, 50.6 GB of state): the port's
+   ``Trainer`` with its pipeline (65,536 documents, batch 1 of 4,096),
+   ``remat="block"``, 5 steps, then a sixth in a profiler window.
+   Printed: ``mfu`` (6 N_active a token, N_active every parameter but
+   the 6 experts a token is not routed to, plus causal attention, over
+   989 TFLOP/s), ``router_aux`` and each MoE layer's
+   ``dropped_fraction`` a step, the window's forward + backward and
+   optimizer split, idle share and top ops.  Checks: the first batch's
+   eval loss lower after the steps (and equal to the first step's own
+   loss before them); with remat on and off the loss and every gradient
+   leaf bit-equal, and both routers' gradients above 0.
+   16b. DeepSeek-V2 (``configs/deepseek_v2_236b.py``) at full width, its
+   dense prefix layer alone (MLA with q_lora 1,536 and kv_lora 512, 128
+   heads, ffn 12,288; 1,386,562,560 parameters, 22.2 GB): 3 train steps
+   on the pipeline's first batch of 4,096 tokens, whose loss must fall
+   over the steps (its eval loss after them below the first step's).  Two layers (85.7 GB) do not fit; the shared-expert MoE of
+   its pattern layers trains only in the CPU tests.
+   16c. HuBERT-xlarge (``configs/hubert_xlarge.py``) whole, 48 ``enc``
+   layers (945,912,320 parameters, 15.1 GB): 3 steps of
+   ``loss_and_metrics`` on one audio-stub batch, frontend embeddings
+   (1, 4,096, 512) bf16 and 4,096 labels over its 504 units from the
+   seed, no tokens; the loss must fall over the steps, as in 16b.
+   16d. One ``Block(("mamba", "mlp"))`` at Jamba-v0.1's width (d 4,096, di
+   8,192, ds 16, dt_rank 256, chunks of 128; float32 masters): forward
+   and backward at B 1, S 4,096 in bf16, its wall and device ms and peak
+   memory (the scan checkpoints each chunk); then in float32 at S 512 its
+   gradients through the chunked scan against those through the per-token
+   recurrence (``selective_scan_steps``), every leaf within 1e-4 of its
+   largest magnitude.  A whole Jamba period (212.7 GB) does not fit.
+   16e. xLSTM-350M (``configs/xlstm_350m.py``) whole, 24 mLSTM / sLSTM
+   layers (443,044,960 parameters, 7.1 GB): the ``Trainer`` at sequences
+   of 512 (cut from 4,096: the sLSTM runs token by token), 3 steps; the
+   first batch's eval loss must fall.
+   Qwen2-VL-72B (one layer, 54.1 GB) does not train on the card.
 
 Phases 10, 12, 13 and 14 share one serving driver (``_serve_phase``).
 
-Launch counts are set to 0 just before each of phases 3 to 15 (and each
-part of 11) and read just after it; a kernel that a phase's path runs and
-that launched no time there fails the script, and so does any launch in
-phases 13, 14 and 15, whose paths run none: their prefills, decode steps,
-checks, profiler windows, HuBERT's prefills and the training steps.  In
+Launch counts are set to 0 just before each of phases 3 to 16 (and each
+part of 11 and 16) and read just after it; a kernel that a phase's path
+runs and that launched no time there fails the script, and so does any
+launch in phases 13 to 16, whose paths run none: their prefills, decode
+steps, checks, profiler windows, HuBERT's prefills and the training
+steps.  In
 phases 10, 12, 13 and 14 the counts are also set to 0 around the lexicon
 constraint's build,
 whose launches are read apart.  Then one JSON line with every kernel's numbers,
@@ -4883,42 +4925,43 @@ TRAIN_RANGES = ("trainer.data", "train_step.forward_backward",
                 "train_step.optimizer")
 
 
-def _train_cfg(layers=0, **kw):
+def _train_cfg(layers=0, name="qwen2_5_3b", **kw):
     import dataclasses
 
     from repro_torch import configs
-    cfg = configs.get_config("qwen2_5_3b")
+    cfg = configs.get_config(name)
     return dataclasses.replace(cfg, **(dict(n_layers=layers) if layers
                                        else {}), **kw)
 
 
-def _train_opt(steps, lr=TRAIN_LR):
+def _train_opt(steps, lr=TRAIN_LR, warmup=5):
     from repro_torch.optim.adamw import AdamWConfig
-    return AdamWConfig(lr=lr, warmup_steps=5, total_steps=steps)
+    return AdamWConfig(lr=lr, warmup_steps=warmup, total_steps=steps)
 
 
-def _train_pipeline(cfg, dev):
-    """The launcher's pipeline: 65,536 documents, batch 1 of TRAIN_SEQ."""
+def _train_pipeline(cfg, dev, seq=TRAIN_SEQ):
+    """The launcher's pipeline: 65,536 documents, batch 1 of ``seq``."""
     from repro_torch.data.pipeline import RoaringDataPipeline
-    return RoaringDataPipeline(n_docs=TRAIN_DOCS, seq_len=TRAIN_SEQ,
+    return RoaringDataPipeline(n_docs=TRAIN_DOCS, seq_len=seq,
                                batch_size=1, vocab=cfg.vocab, seed=0,
                                device=dev)
 
 
 def _trainer(cfg, dev, seed, ckpt_dir, steps, ckpt_every=10 ** 9,
-             async_ckpt=True, lr=TRAIN_LR):
+             async_ckpt=True, lr=TRAIN_LR, warmup=5, seq=TRAIN_SEQ):
     """The launcher's trainer over ``_train_pipeline``, float32 masters
     from ``seed``."""
     from repro_torch.train.trainer import Trainer
-    return Trainer(cfg, _train_opt(steps, lr), _train_pipeline(cfg, dev),
-                   ckpt_dir, ckpt_every=ckpt_every, async_ckpt=async_ckpt,
-                   seed=seed, device=dev)
+    return Trainer(cfg, _train_opt(steps, lr, warmup),
+                   _train_pipeline(cfg, dev, seq), ckpt_dir,
+                   ckpt_every=ckpt_every, async_ckpt=async_ckpt, seed=seed,
+                   device=dev)
 
 
-def _batches(cfg, dev, n):
+def _batches(cfg, dev, n, seq=TRAIN_SEQ):
     """The first ``n`` batches a trainer of ``cfg`` draws (a twin of its
     pipeline), on the card."""
-    pipe = _train_pipeline(cfg, dev)
+    pipe = _train_pipeline(cfg, dev, seq)
     out = []
     for _ in range(n):
         b = pipe.next_batch()
@@ -4927,14 +4970,15 @@ def _batches(cfg, dev, n):
     return out
 
 
-def _remat_check(dev, seed, batch):
-    """TRAIN_CHECK_LAYERS layers at full width from the same seed, with
-    remat on and off: the loss and every gradient leaf compared bit for
-    bit; the leaves that differ named with their largest difference."""
+def _remat_check(dev, seed, batch, name="qwen2_5_3b"):
+    """TRAIN_CHECK_LAYERS layers of ``name`` at full width from the same
+    seed, with remat on and off: the loss and every gradient leaf compared
+    bit for bit; the leaves that differ named with their largest
+    difference; each leaf's gradient norm with remat on."""
     from repro_torch.models.transformer import Transformer
     out = {}
     for remat in ("block", "none"):
-        cfg = _train_cfg(TRAIN_CHECK_LAYERS, remat=remat)
+        cfg = _train_cfg(TRAIN_CHECK_LAYERS, name, remat=remat)
         model = Transformer(cfg, device=dev, param_dtype="float32",
                             generator=torch.Generator(dev).manual_seed(seed))
         model.requires_grad_(True)
@@ -4952,7 +4996,10 @@ def _remat_check(dev, seed, batch):
         out["none"]
     differ = {k: float((g_on[k] - g).abs().max())
               for k, g in g_off.items() if not torch.equal(g_on[k], g)}
+    router_norms = {k: float(g.norm()) for k, g in g_on.items()
+                    if k.endswith("ffn.router")}
     return dict(layers=TRAIN_CHECK_LAYERS, leaves=len(g_off),
+                router_norms=router_norms,
                 loss_equal=bool(torch.equal(l_on, l_off)),
                 loss=float(l_on), differ=differ, remat_s=s_on,
                 no_remat_s=s_off)
@@ -5168,6 +5215,422 @@ def phase_training(dev, seed, failures, steps=TRAIN_STEPS):
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the rest of training on the card
+# ---------------------------------------------------------------------------
+
+MOE_TRAIN_STEPS = 5           # 16a's steps (Mixtral-8x7B, 2 of 32 layers)
+FAMILY_STEPS = 3              # 16b, 16c and 16e
+FAMILY_LR = 1e-4              # every sub-phase, 1 warm-up step
+XLSTM_TRAIN_SEQ = 512         # 16e: cut from 4,096 (the sLSTM's host loop)
+MAMBA_CHECK_SEQ = 512         # 16d: the recurrence check's sequence
+MAMBA_GRAD_TOL = 1e-4         # 16d: of each leaf's largest magnitude
+STATE_BYTES = 16              # float32 parameter, gradient, m and v
+
+
+def _card_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+
+
+def _step_stats(hist, seq):
+    """Step ms p50 / p99 past the first step, and tokens/s at the p50."""
+    ms = [h["sec"] * 1e3 for h in hist[1:]] or [hist[0]["sec"] * 1e3]
+    p50, p99 = (float(np.percentile(ms, q)) for q in (50, 99))
+    return dict(step_ms=ms, step_p50_ms=p50, step_p99_ms=p99,
+                tokens_per_s=seq / (p50 / 1e3))
+
+
+def _family_report(label, res, failures):
+    """Log a sub-phase's common numbers and apply check 1 (finite losses
+    and norms, every norm above 0) and the launch check."""
+    hist = res["history"]
+    finite = all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                 and h["grad_norm"] > 0 for h in hist)
+    log(f"  {label}: {res['card']}; {res['params']} float32 master "
+        f"parameters ({res['params'] * STATE_BYTES / 1e9:.1f} GB of state), "
+        f"init {res['init_s']:.1f} s; losses "
+        f"{[round(h['loss'], 5) for h in hist]}, grad norms "
+        f"{[round(h['grad_norm'], 4) for h in hist]}; step ms "
+        f"{[round(x, 1) for x in res['step_ms']]}, p50 "
+        f"{res['step_p50_ms']:.1f}, {res['tokens_per_s']:.0f} tokens/s; "
+        f"peak {res['peak_bytes']} bytes; kernel launches "
+        f"{res['launches'] or 'none'}")
+    if not finite:
+        failures.append(f"{label}: a non-finite loss or grad norm, or a "
+                        f"zero norm: {hist}")
+    if res["launches"]:
+        failures.append(f"{label}: a kernel launched on a path that runs "
+                        f"none: {res['launches']}")
+
+
+def _train_fixed(cfg, dev, seed, batch, steps):
+    """``steps`` train steps of a fresh model of ``cfg`` (float32 masters
+    from ``seed``) on one fixed ``batch``, AdamW at FAMILY_LR after one
+    warm-up step -> the history, the batch's eval loss after, the
+    parameter count and the init seconds."""
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_eval_step, make_train_step
+    t = time.perf_counter()
+    model = Transformer(cfg, device=dev, param_dtype="float32",
+                        generator=torch.Generator(dev).manual_seed(seed))
+    model.requires_grad_(True)
+    state = adamw.init_state(dict(model.named_parameters()))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(p.numel() for p in model.parameters())
+    step = make_train_step(cfg, _train_opt(steps, FAMILY_LR, warmup=1))
+    hist = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, state, m = step(model, state, batch)
+        loss = float(m["loss"])
+        hist.append({"loss": loss, "grad_norm": float(m["grad_norm"]),
+                     "lr": float(m["lr"]),
+                     "sec": time.perf_counter() - t})
+    after = float(make_eval_step(cfg)(model, batch)["loss"])
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return hist, after, n_params, init_s
+
+
+def _falls(hist, after):
+    """The fixed batch's loss falls over the steps: its eval loss after
+    the last step is below the first step's loss (taken before any
+    update)."""
+    return after < hist[0]["loss"]
+
+
+def _phase16a_mixtral(dev, seed, failures, steps):
+    """16a: Mixtral-8x7B at full width, 2 of its 32 layers, through the
+    port's ``Trainer`` (see the module docstring)."""
+    import tempfile
+
+    from repro_torch.models.mlp import MoE
+    from repro_torch.train.train_step import make_eval_step
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = _train_cfg(TRAIN_CHECK_LAYERS, "mixtral_8x7b")
+    card = _card_line()
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        tr = _trainer(cfg, dev, seed, tmp, steps, lr=FAMILY_LR, warmup=1)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        n_params = sum(p.numel() for p in tr.params.values())
+        dropped = []
+        hooks = [b.ffn.register_forward_hook(
+            lambda mod, inp, out: dropped.append(out[1]["dropped_fraction"]))
+            for b in tr.model.layers if isinstance(b.ffn, MoE)]
+        eval_step = make_eval_step(cfg)
+        first = _batches(cfg, dev, 1)[0]
+        before = float(eval_step(tr.model, first)["loss"])
+        dropped.clear()
+        per_step = []
+        for _ in range(steps):
+            tr.train(1, log_every=10 ** 9)
+            # the forward's calls; remat's recompute calls them again
+            per_step.append([float(d) for d in dropped[:len(hooks)]])
+            dropped.clear()
+        hist = list(tr.history)
+        after = float(eval_step(tr.model, first)["loss"])
+        window = _traced("Mixtral training step", lambda: tr.train(
+            1, log_every=10 ** 9), dev, ranges=TRAIN_RANGES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        for h in hooks:
+            h.remove()
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = _all_counts()
+    res = dict(card=card, layers=cfg.n_layers, params=n_params,
+               init_s=init_s, history=hist, peak_bytes=peak,
+               launches=launches, **_step_stats(hist, TRAIN_SEQ))
+    # model FLOPs: 6 N_active a token (N_active: every parameter but the
+    # experts a token is not routed to) plus causal attention, as phase 15
+    per_expert = 3 * cfg.d_model * cfg.moe_d_ff
+    n_active = n_params - cfg.n_layers * (cfg.n_experts - cfg.moe_top_k) \
+        * per_expert
+    flops_step = (6 * n_active + 6 * cfg.n_layers * TRAIN_SEQ * cfg.n_heads
+                  * cfg.hd) * TRAIN_SEQ
+    mfu = flops_step / (res["step_p50_ms"] / 1e3) / BF16_DENSE_FLOPS
+    opt_bytes = 28 * n_params
+    split_ms = {k: v / 1e3 for k, v in window["range_us"].items()}
+    idle = window["idle_share"]
+    res.update(n_active=n_active, flops_per_step=flops_step, mfu=mfu,
+               optimizer_bound_ms=opt_bytes / HBM_BYTES_PER_S * 1e3,
+               window={k: window[k] for k in (
+                   "range_us", "idle_share", "busy_us", "wall_us",
+                   "complete", "top_kernels")},
+               dropped_fraction=per_step,
+               router_aux=[h["router_aux"] for h in hist],
+               eval_loss=(before, after))
+    _family_report("16a Mixtral-8x7B", res, failures)
+    log(f"  16a: {cfg.n_layers} of 32 layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} / {cfg.n_kv_heads} heads, {cfg.n_experts} experts "
+        f"top-{cfg.moe_top_k} of {cfg.moe_d_ff}, window "
+        f"{cfg.sliding_window}; batch 1 x {TRAIN_SEQ}, lr {FAMILY_LR:g}, "
+        f"remat {cfg.remat!r}; router_aux a step "
+        f"{[round(x, 5) for x in res['router_aux']]}, dropped_fraction a "
+        f"step and layer {[[round(x, 4) for x in d] for d in per_step]}; "
+        f"{n_active} parameters a token reads, "
+        f"{flops_step / 1e12:.1f} TFLOP a step: mfu {mfu:.4f}; first "
+        f"batch's loss {before:.5f} before, {after:.5f} after {steps} steps")
+    log(f"  16a profiler window (complete {window['complete']}): wall "
+        f"{window['wall_us'] / 1e3:.1f} ms, device "
+        f"{window['busy_us'] / 1e3:.1f} ms, idle "
+        f"{'null' if idle is None else f'{idle:.4f}'}; forward + backward "
+        f"{split_ms['train_step.forward_backward']:.1f} ms, optimizer "
+        f"{split_ms['train_step.optimizer']:.1f} ms (bound "
+        f"{res['optimizer_bound_ms']:.1f} ms), data "
+        f"{split_ms['trainer.data']:.3f} ms; top device ops "
+        f"{[(n[:60], round(us / 1e3, 2)) for n, us in window['top_kernels']]}")
+    if not after < before:
+        failures.append(f"16a: the first batch's loss did not fall: "
+                        f"{before} -> {after}")
+    if before != hist[0]["loss"]:
+        failures.append(f"16a: the twin pipeline's first batch is not the "
+                        f"trainer's: {before} against {hist[0]['loss']}")
+    remat = _remat_check(dev, seed, first, "mixtral_8x7b")
+    res["remat"] = remat
+    log(f"  16a remat on vs off, {remat['layers']} layers: loss equal "
+        f"{remat['loss_equal']}, {remat['leaves'] - len(remat['differ'])} "
+        f"of {remat['leaves']} gradient leaves bit-equal, differing "
+        f"{remat['differ'] or 'none'}; router gradient norms "
+        f"{remat['router_norms']}; {remat['remat_s']:.2f} / "
+        f"{remat['no_remat_s']:.2f} s")
+    if not remat["loss_equal"] or remat["differ"]:
+        failures.append(f"16a: remat on and off differ: {remat}")
+    if len(remat["router_norms"]) != cfg.n_layers or not all(
+            np.isfinite(v) and v > 0 for v in remat["router_norms"].values()):
+        failures.append(f"16a: a router's gradient is zero or not finite: "
+                        f"{remat['router_norms']}")
+    more = _all_counts()
+    if more:
+        failures.append(f"16a: a kernel launched in the remat check: {more}")
+    return res
+
+
+def _phase16b_deepseek(dev, seed, failures, steps):
+    """16b: DeepSeek-V2's dense prefix layer (MLA + MLP) at full width, 3
+    steps on one fixed batch of 4,096 tokens."""
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = _train_cfg(1, "deepseek_v2_236b")
+    assert cfg.layer_kinds == (("mla", "mlp"),)
+    first = _batches(cfg, dev, 1)[0]
+    hist, after, n_params, init_s = _train_fixed(cfg, dev, seed, first,
+                                                 steps)
+    res = dict(card=_card_line(), layers=1, params=n_params, init_s=init_s,
+               history=hist, after=after, falls=_falls(hist, after),
+               peak_bytes=torch.cuda.max_memory_allocated(dev),
+               launches=_all_counts(), **_step_stats(hist, TRAIN_SEQ))
+    _family_report("16b DeepSeek-V2 (1 of 60 layers)", res, failures)
+    log(f"  16b: MLA q_lora {cfg.q_lora_rank}, kv_lora {cfg.kv_lora_rank}, "
+        f"{cfg.n_heads} heads, ffn {cfg.dense_d_ff}; the fixed batch's loss "
+        f"after {steps} steps {after:.5f}; falls over the steps "
+        f"{res['falls']}")
+    if not res["falls"]:
+        failures.append(f"16b: the fixed batch's loss did not fall: "
+                        f"{hist}, {after}")
+    return res
+
+
+def _phase16c_hubert(dev, seed, failures, steps):
+    """16c: HuBERT-xlarge whole on an audio-stub batch (no tokens)."""
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = _train_cfg(0, "hubert_xlarge")
+    gen = torch.Generator(dev).manual_seed(seed + 16)
+    batch = {"frontend_embeds": torch.randn(
+                 (1, TRAIN_SEQ, cfg.frontend_dim), generator=gen,
+                 device=dev).to(torch.bfloat16),
+             "labels": torch.randint(0, cfg.vocab, (1, TRAIN_SEQ),
+                                     generator=gen, device=dev)}
+    hist, after, n_params, init_s = _train_fixed(cfg, dev, seed, batch,
+                                                 steps)
+    res = dict(card=_card_line(), layers=cfg.n_layers, params=n_params,
+               init_s=init_s, history=hist, after=after,
+               falls=_falls(hist, after),
+               peak_bytes=torch.cuda.max_memory_allocated(dev),
+               launches=_all_counts(), **_step_stats(hist, TRAIN_SEQ))
+    _family_report("16c HuBERT-xlarge (48 layers)", res, failures)
+    log(f"  16c: {cfg.n_layers} enc layers, d {cfg.d_model}; batch of "
+        f"frontend_embeds (1, {TRAIN_SEQ}, {cfg.frontend_dim}) bf16 and "
+        f"{TRAIN_SEQ} labels over {cfg.vocab} units; the batch's loss after "
+        f"{steps} steps {after:.5f}; falls over the steps {res['falls']}")
+    if not res["falls"]:
+        failures.append(f"16c: the fixed batch's loss did not fall: "
+                        f"{hist}, {after}")
+    return res
+
+
+def _steps_scan(xi, dt, bmat, cmat, a_log, chunk, out_dtype=None):
+    """``selective_scan``'s signature over the per-token recurrence."""
+    from repro_torch.models import ssm
+    y, h = ssm.selective_scan_steps(xi, dt, bmat, cmat, a_log)
+    return y.to(out_dtype or xi.dtype), h
+
+
+def _mamba_block(cfg, dev, seed):
+    from repro_torch.models.transformer import Block
+    blk = Block(cfg, ("mamba", "mlp"), torch.float32, dev,
+                torch.Generator(dev).manual_seed(seed))
+    return blk.requires_grad_(True)
+
+
+def _mamba_grads(blk, x, cot):
+    pos = torch.arange(x.shape[1], dtype=torch.int32,
+                       device=x.device).expand(x.shape[0], -1)
+    out, _ = blk.train_forward(x, pos)
+    return torch.autograd.grad(out, [x, *blk.parameters()], cot)
+
+
+def _phase16d_mamba(dev, seed, failures):
+    """16d: one Block(("mamba", "mlp")) at Jamba-v0.1's width, float32
+    masters: forward and backward at B 1, S 4,096 in bf16 (device ms,
+    peak memory); then in float32 at S 512 its gradients through the
+    chunked scan against the per-token recurrence."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.models import ssm
+    _reset_counts()
+    full = _train_cfg(0, "jamba_v01_52b")
+    gen = torch.Generator(dev).manual_seed(seed + 17)
+    blk = _mamba_block(full, dev, seed)
+    n_params = sum(p.numel() for p in blk.parameters())
+    x = torch.randn((1, TRAIN_SEQ, full.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16).requires_grad_(True)
+    cot = torch.randn(x.shape, generator=gen, device=dev).to(torch.bfloat16)
+    _mamba_grads(blk, x, cot)                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t = time.perf_counter()
+    grads = _mamba_grads(blk, x, cot)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    del grads
+    dev_ms = _device_ms(lambda: _mamba_grads(blk, x, cot), 2)
+    del blk, x, cot
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the recurrence check, float32 compute at S 512
+    cfg32 = dataclasses.replace(full, compute_dtype="float32")
+    blk = _mamba_block(cfg32, dev, seed)
+    x = torch.randn((1, MAMBA_CHECK_SEQ, full.d_model), generator=gen,
+                    device=dev).requires_grad_(True)
+    cot = torch.randn(x.shape, generator=gen, device=dev)
+    got = _mamba_grads(blk, x, cot)
+    with mock.patch.object(ssm, "selective_scan", _steps_scan):
+        want = _mamba_grads(blk, x, cot)
+    names = ["x", *(n for n, _ in blk.named_parameters())]
+    errs = {n: float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+            for n, g, w in zip(names, got, want)}
+    worst = max(errs, key=errs.get)
+    del blk, x, cot, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = dict(card=_card_line(), d=full.d_model,
+               di=full.ssm_expand * full.d_model, ds=full.ssm_d_state,
+               chunk=full.ssm_chunk, params=n_params, seq=TRAIN_SEQ,
+               fwd_bwd_wall_ms=wall_ms, fwd_bwd_device_ms=dev_ms,
+               tokens_per_s=TRAIN_SEQ / (wall_ms / 1e3), peak_bytes=peak,
+               layer_peak_bytes=peak - base, finite=finite,
+               check_seq=MAMBA_CHECK_SEQ, grad_errors=errs,
+               worst=(worst, errs[worst]), launches=_all_counts())
+    log(f"  16d Jamba-v0.1's Mamba block ((mamba, mlp), d {res['d']}, di "
+        f"{res['di']}, ds {res['ds']}, chunk {res['chunk']}; {n_params} "
+        f"float32 masters): {res['card']}; forward + backward at 1 x "
+        f"{TRAIN_SEQ} in bf16: wall {wall_ms:.1f} ms, device {dev_ms:.1f} "
+        f"ms, {res['tokens_per_s']:.0f} tokens/s; peak {peak} bytes, "
+        f"{peak - base} above the layer's weights and inputs; finite "
+        f"{finite}; gradients at S {MAMBA_CHECK_SEQ} in float32, chunked "
+        f"scan against the per-token recurrence: worst leaf {worst} "
+        f"{errs[worst]:.3g} of its largest magnitude (limit "
+        f"{MAMBA_GRAD_TOL:g}); kernel launches {res['launches'] or 'none'}")
+    if not finite:
+        failures.append("16d: a non-finite gradient at S 4,096")
+    if errs[worst] > MAMBA_GRAD_TOL:
+        failures.append(f"16d: the chunked scan's gradients differ from the "
+                        f"recurrence's: {errs}")
+    if res["launches"]:
+        failures.append(f"16d: a kernel launched on a path that runs none: "
+                        f"{res['launches']}")
+    return res
+
+
+def _phase16e_xlstm(dev, seed, failures, steps):
+    """16e: xLSTM-350M whole through the ``Trainer`` at sequences of 512."""
+    import tempfile
+
+    from repro_torch.train.train_step import make_eval_step
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = _train_cfg(0, "xlstm_350m")
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        tr = _trainer(cfg, dev, seed, tmp, steps, lr=FAMILY_LR, warmup=1,
+                      seq=XLSTM_TRAIN_SEQ)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        n_params = sum(p.numel() for p in tr.params.values())
+        eval_step = make_eval_step(cfg)
+        first = _batches(cfg, dev, 1, XLSTM_TRAIN_SEQ)[0]
+        before = float(eval_step(tr.model, first)["loss"])
+        hist = tr.train(steps, log_every=10 ** 9)
+        after = float(eval_step(tr.model, first)["loss"])
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    res = dict(card=_card_line(), layers=cfg.n_layers, params=n_params,
+               init_s=init_s, history=hist, eval_loss=(before, after),
+               peak_bytes=torch.cuda.max_memory_allocated(dev),
+               launches=_all_counts(), **_step_stats(hist, XLSTM_TRAIN_SEQ))
+    _family_report("16e xLSTM-350M (24 layers)", res, failures)
+    log(f"  16e: batch 1 x {XLSTM_TRAIN_SEQ} (cut from {TRAIN_SEQ}), mLSTM "
+        f"chunks of {cfg.xlstm_chunk}, the sLSTM token by token; first "
+        f"batch's loss {before:.5f} before, {after:.5f} after {steps} steps")
+    if not after < before:
+        failures.append(f"16e: the first batch's loss did not fall: "
+                        f"{before} -> {after}")
+    if before != hist[0]["loss"]:
+        failures.append(f"16e: the twin pipeline's first batch is not the "
+                        f"trainer's: {before} against {hist[0]['loss']}")
+    return res
+
+
+def phase_training_families(dev, seed, failures, steps=MOE_TRAIN_STEPS):
+    """Phase 16: the rest of training on the card, each sub-phase alone
+    (see the module docstring).  ``steps``: 16a's step count."""
+    out, secs = {}, {}
+    for key, fn, args in (
+            ("16a", _phase16a_mixtral, (steps,)),
+            ("16b", _phase16b_deepseek, (FAMILY_STEPS,)),
+            ("16c", _phase16c_hubert, (FAMILY_STEPS,)),
+            ("16d", _phase16d_mamba, ()),
+            ("16e", _phase16e_xlstm, (FAMILY_STEPS,))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        out[key] = fn(dev, seed, failures, *args)
+        secs[key] = time.perf_counter() - t
+        log(f"  phase {key}: {secs[key]:.1f} s")
+    launches = {}
+    for res in out.values():
+        for k, v in res["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return dict(out, seconds=secs, launches=launches)
+
+
+# ---------------------------------------------------------------------------
 
 def _build_all():
     """Build every kernel source at once, one nvcc each, in parallel.
@@ -5318,7 +5781,7 @@ def _kernel_line(main_path, sim, cases, topk_cases, max_err, topk_err,
              jamba_shape={k: jamba_case[k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                  "max_abs_err", "shape")})]
-    # launches in phases 13, 14 and 15 (``later``: the counts by kernel),
+    # launches in phases 13 to 16 (``later``: the counts by kernel),
     # whose model paths run no kernel of the port
     count_key = {"similarity_score": "score", "similarity_select": "select",
                  "similarity_score_ids": "score_ids",
@@ -5502,6 +5965,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     training = phase("15 (Qwen2.5-3B training at full width and depth)",
                      phase_training, dev, args.seed, failures)
+    # phase 16 runs alone on the card too, each part after the last has
+    # released its model
+    gc.collect()
+    torch.cuda.empty_cache()
+    families = phase("16 (the rest of training: Mixtral-8x7B, DeepSeek-V2, "
+                     "HuBERT-xlarge, Jamba's Mamba block, xLSTM-350M)",
+                     phase_training_families, dev, args.seed, failures)
 
     kernels = _kernel_line(main_path, sim, cases, topk_cases, max_err,
                            topk_err, pair_cases, pair_err, pairwise,
@@ -5510,7 +5980,8 @@ def main() -> int:
                            ids_err, sharded, bsa_cases, bsa_err, serving,
                            jamba, {"13": deepseek["launches"],
                                    "14": xlstm["launches"],
-                                   "15": training["launches"]})
+                                   "15": training["launches"],
+                                   "16": families["launches"]})
     REPORT.parent.mkdir(exist_ok=True)
     REPORT.write_text(json.dumps(dict(
         card=card, builds=builds, kernel_cases=cases,
@@ -5521,6 +5992,7 @@ def main() -> int:
         ids_cases=ids_cases, sharded=sharded, cold_start=cold,
         bsa_cases=bsa_cases, serving=serving, jamba=jamba,
         deepseek=deepseek, xlstm_hubert=xlstm, training=training,
+        training_families=families,
         bsa_launches_per_phase=bsa_per_phase,
         kernels=kernels["kernels"],
         phases_s=phases, failures=failures,

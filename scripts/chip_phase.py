@@ -11,10 +11,12 @@ The phase's kernels build at first use, the phase runs once, and its cases
 JSON line, with the card's name and power limit; ``--out`` also writes
 them to a file.  Phases: 2, 2b, 2c, 2d, 2e, 2f, 2g (see ``chip_smoke.py``),
 the serving phases 10 (Gemma2-27B), 12 (Jamba-v0.1), 13 (DeepSeek-V2)
-and 14 (xLSTM-350M and a HuBERT-xlarge prefill), and the training phase 15
+and 14 (xLSTM-350M and a HuBERT-xlarge prefill), the training phase 15
 (Qwen2.5-3B; ``--steps`` sets its step count, 5 by default as in
-``chip_smoke.py``), each in a tree that has it, which print their
-end-to-end numbers in place of cases.
+``chip_smoke.py``) and the parts of phase 16 (16a Mixtral-8x7B, 16b
+DeepSeek-V2, 16c HuBERT-xlarge, 16d Jamba's Mamba block, 16e xLSTM-350M;
+``--steps`` sets the step count of all but 16d), each in a tree that has
+it, which print their end-to-end numbers in place of cases.
 
 Timing two trees on one card, in turns (parent, change, change, parent),
 takes one process per run, since each tree has its own ``repro_torch``:
@@ -40,7 +42,11 @@ PHASES = {"2": "phase_kernels", "2b": "phase_topk_kernels",
           "2e": "phase_section4_kernels", "2f": "phase_ids_kernels",
           "2g": "phase_bsa_kernel", "10": "phase_serving",
           "12": "phase_jamba", "13": "phase_deepseek",
-          "14": "phase_xlstm_hubert", "15": "phase_training"}
+          "14": "phase_xlstm_hubert", "15": "phase_training",
+          "16a": "_phase16a_mixtral", "16b": "_phase16b_deepseek",
+          "16c": "_phase16c_hubert", "16d": "_phase16d_mamba",
+          "16e": "_phase16e_xlstm"}
+STEPPED = ("15", "16a", "16b", "16c", "16e")
 KEYS = ("case", "kernel", "rows", "equal", "ms", "plain_ms", "library_ms",
         "bound_ms", "bound_by", "event_ms")
 SERVING_KEYS = ("prefill_s", "decode_p50_ms", "decode_p99_ms",
@@ -57,7 +63,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out")
     ap.add_argument("--steps", type=int,
-                    help="phase 15's training steps (its default: 5)")
+                    help="the training steps of phase 15 (default 5), 16a "
+                         "(5), 16b, 16c or 16e (3)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -71,18 +78,28 @@ def main() -> int:
                           text=True, timeout=60, check=True).stdout.strip()
     failures: list[str] = []
     t = time.perf_counter()
-    kw = {"steps": args.steps} if args.steps is not None else {}
-    if kw and args.phase != "15":
-        ap.error("--steps is phase 15's")
-    out = getattr(smoke, PHASES[args.phase])(torch.device("cuda"), args.seed,
-                                             failures, **kw)
+    if args.steps is not None and args.phase not in STEPPED:
+        ap.error(f"--steps is for phases {STEPPED}")
+    fn = getattr(smoke, PHASES[args.phase])
+    dev = torch.device("cuda")
+    if args.phase.startswith("16"):
+        steps = args.steps if args.steps is not None else (
+            smoke.MOE_TRAIN_STEPS if args.phase == "16a"
+            else smoke.FAMILY_STEPS)
+        out = fn(dev, args.seed, failures,
+                 *(() if args.phase == "16d" else (steps,)))
+    else:
+        kw = {"steps": args.steps} if args.steps is not None else {}
+        out = fn(dev, args.seed, failures, **kw)
     from repro_torch.kernels import _build
     ptxas = {name: [ln.strip() for ln in log.splitlines() if "Used" in ln]
              for name, log in _build.build_logs.items()}
     rep = dict(root=str(root), phase=args.phase, card=card,
                seconds=time.perf_counter() - t, failures=failures,
                ptxas=ptxas)
-    if args.phase == "15":                      # the training phase
+    if args.phase.startswith("16"):             # a part of phase 16
+        rep["training"] = out
+    elif args.phase == "15":                    # the training phase
         rep["training"] = dict({k: out.get(k) for k in TRAINING_KEYS},
                                window={k: out["window"][k] for k in (
                                    "range_us", "idle_share", "busy_us",
@@ -96,7 +113,7 @@ def main() -> int:
         cases = out[0] if isinstance(out, tuple) else out
         rep["cases"] = [{k: c.get(k) for k in KEYS if k in c}
                         for c in cases]
-    line = json.dumps(rep)
+    line = json.dumps(rep, default=str)
     print(line)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

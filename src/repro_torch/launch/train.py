@@ -8,8 +8,8 @@ Roaring data pipeline, checkpoints and resume.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
         --reduced --device cpu --steps 20
 
-It trains the attention family (qwen2.5-3b, stablelm-3b, qwen3-14b,
-gemma2-27b; ``models.transformer.check_trainable``).  The JAX launcher's
+It trains every config the repo ships (``--arch`` any of the ten, or its
+alias), on tokens from the pipeline.  The JAX launcher's
 ``--distributed`` (``jax.distributed``) has no counterpart here (ROADMAP
 Queue 1 item 7).  Checkpoints go to ``--ckpt`` (by default a directory
 under the system's temporary directory).
@@ -53,7 +53,7 @@ def main(argv=None):
                  device=args.device)
     if args.resume and tr.maybe_resume():
         print(f"resumed at step {tr.step}")
-    tr.train(args.steps, log_every=10)
+    return tr.train(args.steps, log_every=10)
 
 
 if __name__ == "__main__":

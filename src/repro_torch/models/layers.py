@@ -11,9 +11,11 @@ bfloat16 ``torch.matmul`` would round the result), softmax statistics are
 float32, and the probabilities drop to the value dtype for the PV product as
 they do there.  The sharding notes (``ctx.constrain``) are no-ops on one
 device and are dropped.  Parameters are the attributes of the module ``p``
-(``models.transformer.Attention``, ``MLA``), stored in the compute dtype;
-norm scales stay float32.  ``weight`` and ``fill`` make every module's
-parameters.
+(``models.transformer.Attention``, ``MLA``), stored in the compute dtype
+for serving and as float32 masters for training, and read through
+``cast``; norm scales stay float32.  ``weight`` and ``fill`` make every
+module's parameters.  ``attn_train`` and ``mla_train`` are the training
+forms of the two prefills (the same attention, no cache writes).
 """
 
 from __future__ import annotations
@@ -458,12 +460,12 @@ class MLA(torch.nn.Module):
 def _heads(x, w):
     """einsum("...k,khn->...hn") in x's dtype: x (..., k), w (k, H, n)."""
     k, h, n = w.shape
-    return (x @ w.reshape(k, h * n)).reshape(*x.shape[:-1], h, n)
+    return (x @ cast(w, x).reshape(k, h * n)).reshape(*x.shape[:-1], h, n)
 
 
 def _mla_q(x, p, cfg, positions):
     """x (B, S, d) -> q_nope (B, S, H, nope), q_rope (B, S, H, rope)."""
-    cq = rms_norm(x @ p.w_dq, p.q_ln, cfg.norm_eps)
+    cq = rms_norm(x @ cast(p.w_dq, x), p.q_ln, cfg.norm_eps)
     q = _heads(cq, p.w_uq)
     q_rope = apply_rope(q[..., cfg.qk_nope_dim:], positions, cfg.rope_theta)
     return q[..., :cfg.qk_nope_dim], q_rope
@@ -472,19 +474,18 @@ def _mla_q(x, p, cfg, positions):
 def _mla_ckv(x, p, cfg, positions):
     """x (B, S, d) -> the compressed cache rows: ckv (B, S, kv_lora), normed,
     and k_rope (B, S, rope), one rotary key shared by every head."""
-    dkv = x @ p.w_dkv
+    dkv = x @ cast(p.w_dkv, x)
     kl = cfg.kv_lora_rank
     ckv = rms_norm(dkv[..., :kl], p.kv_ln, cfg.norm_eps)
     k_rope = apply_rope(dkv[..., None, kl:], positions, cfg.rope_theta)
     return ckv, k_rope[:, :, 0]
 
 
-def mla_prefill(x, p, cfg, positions, ckv_cache, kr_cache):
-    """x: (B, S, d) -> (B, S, d) through the decompressed attention (keys
-    and values expanded per head from ckv, causal flash attention with
-    qk width nope + rope and v width v_head); writes the prompt's ckv and
-    k_rope into the caches (B, S_max, kv_lora) / (B, S_max, rope) in
-    place, as JAX's ``_mixer_prefill`` fills them."""
+def _mla_attend(x, p, cfg, positions):
+    """x: (B, S, d) -> (the attention output (B, S, d), ckv, k_rope)
+    through the decompressed attention: keys and values expanded per head
+    from ckv, causal flash attention with qk width nope + rope and v width
+    v_head (JAX's ``mla_train``)."""
     b, s, _ = x.shape
     h = cfg.n_heads
     q_nope, q_rope = _mla_q(x, p, cfg, positions)
@@ -497,9 +498,24 @@ def mla_prefill(x, p, cfg, positions, ckv_cache, kr_cache):
         scale=(cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5,
         q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk,
         block_skip=cfg.flash_block_skip)
+    return out_proj(out, p.wo), ckv, k_rope
+
+
+def mla_train(x, p, cfg, positions):
+    """x: (B, S, d) -> (B, S, d): the JAX package's ``mla_train``, the
+    prefill's attention without the cache writes, differentiable."""
+    return _mla_attend(x, p, cfg, positions)[0]
+
+
+def mla_prefill(x, p, cfg, positions, ckv_cache, kr_cache):
+    """x: (B, S, d) -> (B, S, d) through ``mla_train``'s attention; writes
+    the prompt's ckv and k_rope into the caches (B, S_max, kv_lora) / (B,
+    S_max, rope) in place, as JAX's ``_mixer_prefill`` fills them."""
+    out, ckv, k_rope = _mla_attend(x, p, cfg, positions)
+    s = x.shape[1]
     ckv_cache[:, :s] = ckv
     kr_cache[:, :s] = k_rope
-    return out_proj(out, p.wo)
+    return out
 
 
 def _mla_scores(q_c, q_rope, ckv32, kr, kv_len, cfg):

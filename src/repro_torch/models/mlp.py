@@ -7,7 +7,8 @@ dtype.  ``MoE`` holds the JAX keys ``router`` (d, E), ``wg`` and ``wu``
 (E, d, ff), ``wd`` (E, ff, d) and, where ``cfg.n_shared_experts`` is set,
 ``shared.w_gate`` / ``w_up`` / ``w_down``; the router stays float32 (JAX
 routes with ``p["router"].astype(float32)`` on float32 inputs), the rest is
-stored in the compute dtype.
+stored in the compute dtype for serving, as float32 masters for training,
+and read through ``layers.cast``.
 
 MoE dispatches (``cfg.moe_dispatch``):
 
@@ -21,6 +22,16 @@ MoE dispatches (``cfg.moe_dispatch``):
                  capacity are dropped, as in JAX, and counted in
                  ``dropped_fraction``.  At decode with B = 4, k = 2 and
                  E = 16 the capacity is one token an expert.
+
+Under autograd the scatter dispatch differentiates as JAX's
+``.at[dst].set`` and ``take_along_axis`` do: a bucket row's gradient goes
+back to the token that wrote it, the spare row of dropped choices is cut
+off before the experts run and gives none, and the gather back adds only
+a dropped choice's zero to row 0, so its backward's sums do not depend on
+their order (remat on and off stay bit-equal).  The router's gradient
+comes through the top-k weights and the load-balance loss's mean
+probabilities; the expert counts come from the top-k indices and carry
+none.
 
 The JAX package dispatches within data-parallel groups
 (``repro.dist.ctx.dp_axes()``), which outside a JAX mesh is one group.  The
@@ -160,9 +171,9 @@ def _routing(x2, p, cfg):
 
 def _expert_ffn(xe, p):
     """xe: (E, C, d) -> (E, C, d) through each expert's SwiGLU."""
-    h = silu(torch.bmm(xe, p.wg))
-    h.mul_(torch.bmm(xe, p.wu))
-    return torch.bmm(h, p.wd)
+    h = silu(torch.bmm(xe, cast(p.wg, xe)))
+    h.mul_(torch.bmm(xe, cast(p.wu, xe)))
+    return torch.bmm(h, cast(p.wd, xe))
 
 
 def moe(x, p, cfg):
@@ -191,16 +202,16 @@ def moe(x, p, cfg):
         slot = flat_e * cap + pos
         # dropped choices write the spare last row, which is cut off
         buckets = x2.new_zeros((e * cap + 1, d))
-        buckets[torch.where(keep, slot, e * cap)] = x2.repeat_interleave(
-            k, dim=0)
+        buckets[torch.where(keep, slot, e * cap)] = x2[:, None].expand(
+            t, k, d).reshape(t * k, d)
         dropped = 1.0 - keep.float().mean()
         ye = _expert_ffn(buckets[:-1].view(e, cap, d), p).view(e * cap, d)
         yk = ye[torch.where(keep, slot, 0)] * keep[:, None].to(x.dtype)
         y2 = (yk.view(t, k, d) * w[..., None]).sum(dim=1)
     if cfg.n_shared_experts:
         sp = p.shared
-        hs = silu(x2 @ sp.w_gate) * (x2 @ sp.w_up)
-        y2 = y2 + hs @ sp.w_down
+        hs = silu(x2 @ cast(sp.w_gate, x2)) * (x2 @ cast(sp.w_up, x2))
+        y2 = y2 + hs @ cast(sp.w_down, x2)
     metrics = {"router_aux": aux, "dropped_fraction": dropped,
                "expert_idx": idx.reshape(b, s, k)}
     return y2.reshape(b, s, d), metrics

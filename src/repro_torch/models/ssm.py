@@ -15,7 +15,11 @@ place of JAX's ``associative_scan``: the same recurrence, another
 association order, so the float32 results agree to rounding, not to the
 bit.  The decode state is (``conv`` (B, dc - 1, di) in the compute dtype,
 ``h`` (B, di, ds) float32); ``mamba_decode`` returns new tensors and never
-writes the state it is given.
+writes the state it is given.  Under autograd each chunk's scan runs in
+``torch.utils.checkpoint``: the doubling keeps 2 log2(chunk) tensors of
+(B, chunk, di, ds) float32 alive for its backward (0.9 GB a chunk at
+Jamba's width), so only the carried h (B, di, ds) is kept between chunks
+and one chunk's scan is recomputed at a time in the backward pass.
 
 ``MLSTM`` (matrix memory) holds ``up`` (d, 2 di), ``wq`` / ``wk`` / ``wv``
 (di, h, dh), ``wi`` / ``wf`` (di, h), ``down`` (di, d) in the compute
@@ -34,6 +38,15 @@ token by token.  The float32 gates are PyTorch's fused ``F.logsigmoid``
 and ``torch.sigmoid``, within 2.3e-7 relative of ``jax.nn``'s (measured;
 XLA expands them into several ops): the sLSTM runs them once a token a
 layer, so its op count sets the prefill's time.
+
+Training reads every matrix through ``layers.cast`` (a no-op for the
+serving model, whose matrices are stored in the compute dtype; a cast of
+the float32 master under training), as JAX writes ``p[...].astype(dt)``;
+``A_log``, the xLSTM gate biases and norm scale, and the sLSTM's ``r``
+and ``b`` are read in float32, as there.  The per-token loops collect
+their outputs in a list and stack them once: a slice write into a
+preallocated tensor is, under autograd, a node whose backward copies the
+whole gradient, once a token.
 """
 
 from __future__ import annotations
@@ -42,8 +55,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.layers import fill, param, rms_norm, weight
+from repro_torch.models.layers import cast, fill, param, rms_norm, weight
 from repro_torch.models.mlp import gelu_tanh, silu
 
 
@@ -119,7 +133,8 @@ def _scan_chunk(a, bx, h0):
 
 
 def _dt(proj, p, dt_rank):
-    return softplus(proj[..., :dt_rank] @ p.dt_proj + p.dt_bias)
+    return softplus(proj[..., :dt_rank] @ cast(p.dt_proj, proj)
+                    + cast(p.dt_bias, proj))
 
 
 def scan_inputs(x, p, cfg):
@@ -129,38 +144,46 @@ def scan_inputs(x, p, cfg):
     all in x's dtype."""
     di, dt_rank = mamba_dims(cfg)
     ds = cfg.ssm_d_state
-    xz = x @ p.in_proj
+    xz = x @ cast(p.in_proj, x)
     xi_raw, z = xz[..., :di], xz[..., di:]
-    xi = silu(causal_conv(xi_raw, p.conv_w, p.conv_b)[0])
-    proj = xi @ p.x_proj
+    xi = silu(causal_conv(xi_raw, cast(p.conv_w, x), cast(p.conv_b, x))[0])
+    proj = xi @ cast(p.x_proj, x)
     return (xi_raw, z, xi, _dt(proj, p, dt_rank),
             proj[..., dt_rank:dt_rank + ds], proj[..., dt_rank + ds:])
+
+
+def _chunk_scan(h, a, dt, xi, bmat, cmat):
+    """One chunk of the selective scan from h (B, di, ds): y (B, T, di)
+    float32 and the chunk's last h."""
+    dt32 = dt.float()
+    abar = torch.exp(dt32[..., None] * a)                     # (B,T,di,ds)
+    bx = (dt32 * xi.float())[..., None] * bmat.float()[:, :, None, :]
+    h_all = _scan_chunk(abar, bx, h)
+    del abar, bx
+    y = torch.einsum("btds,bts->btd", h_all, cmat.float())
+    return y, h_all[:, -1].clone()
 
 
 def selective_scan(xi, dt, bmat, cmat, a_log, chunk, out_dtype=None):
     """The chunked selective scan from a zero state: y (B, S, di) in
     ``out_dtype`` (xi's by default) and the final h (B, di, ds) float32.
     Each chunk of ``chunk`` tokens runs ``_scan_chunk`` in float32 and
-    hands its last h to the next."""
+    hands its last h to the next; under autograd each chunk is
+    checkpointed (see the module docstring)."""
     b, s, di = xi.shape
     a = -torch.exp(a_log.float())                             # (di, ds)
     h = torch.zeros((b, di, a.shape[1]), dtype=torch.float32,
                     device=xi.device)
-    y = torch.empty((b, s, di), dtype=out_dtype or xi.dtype,
-                    device=xi.device)
+    ys = []
     for c0 in range(0, s, chunk):
         sl = slice(c0, c0 + chunk)
-        dt32 = dt[:, sl].float()
-        abar = torch.exp(dt32[..., None] * a)                 # (B,T,di,ds)
-        bx = (dt32 * xi[:, sl].float())[..., None] \
-            * bmat[:, sl].float()[:, :, None, :]
-        h_all = _scan_chunk(abar, bx, h)
-        del abar, bx
-        y[:, sl] = torch.einsum("btds,bts->btd", h_all,
-                                cmat[:, sl].float()).to(y.dtype)
-        h = h_all[:, -1].clone()
-        del h_all
-    return y, h
+        args = (h, a, dt[:, sl], xi[:, sl], bmat[:, sl], cmat[:, sl])
+        if torch.is_grad_enabled():
+            y, h = checkpoint(_chunk_scan, *args, use_reentrant=False)
+        else:
+            y, h = _chunk_scan(*args)
+        ys.append(y.to(out_dtype or xi.dtype))
+    return torch.cat(ys, dim=1), h
 
 
 def selective_scan_steps(xi, dt, bmat, cmat, a_log):
@@ -171,14 +194,14 @@ def selective_scan_steps(xi, dt, bmat, cmat, a_log):
     a = -torch.exp(a_log.float())
     h = torch.zeros((b, di, a.shape[1]), dtype=torch.float32,
                     device=xi.device)
-    y = torch.empty((b, s, di), dtype=torch.float32, device=xi.device)
+    ys = []
     for t in range(s):
         dt32 = dt[:, t].float()
         h = torch.exp(dt32[..., None] * a) * h \
             + (dt32 * xi[:, t].float())[..., None] \
             * bmat[:, t].float()[:, None, :]
-        y[:, t] = torch.einsum("bds,bs->bd", h, cmat[:, t].float())
-    return y, h
+        ys.append(torch.einsum("bds,bs->bd", h, cmat[:, t].float()))
+    return torch.stack(ys, dim=1), h
 
 
 def mamba_train(x, p, cfg, return_state=False):
@@ -192,9 +215,9 @@ def mamba_train(x, p, cfg, return_state=False):
                          f"{chunk}")
     xi_raw, z, xi, dt, bmat, cmat = scan_inputs(x, p, cfg)
     y, h = selective_scan(xi, dt, bmat, cmat, p.A_log, chunk)
-    y = y + xi * p.D
+    y = y + xi * cast(p.D, xi)
     y = y * silu(z)
-    out = y @ p.out_proj
+    out = y @ cast(p.out_proj, y)
     if return_state:
         # the conv state carries the last dc - 1 pre-conv activations (a
         # copy: a view would keep all of xz alive)
@@ -215,11 +238,11 @@ def mamba_decode(x_tok, p, cfg, conv, h):
     h)): an O(1) update into new tensors."""
     di, dt_rank = mamba_dims(cfg)
     ds = cfg.ssm_d_state
-    xz = x_tok[:, None, :] @ p.in_proj
+    xz = x_tok[:, None, :] @ cast(p.in_proj, x_tok)
     xi, z = xz[..., :di], xz[..., di:]
-    xi, conv = causal_conv(xi, p.conv_w, p.conv_b, conv)
+    xi, conv = causal_conv(xi, cast(p.conv_w, xi), cast(p.conv_b, xi), conv)
     xi = silu(xi)[:, 0]                                       # (B, di)
-    proj = xi @ p.x_proj
+    proj = xi @ cast(p.x_proj, xi)
     dt32 = _dt(proj, p, dt_rank).float()
     bvec = proj[..., dt_rank:dt_rank + ds].float()
     cvec = proj[..., dt_rank + ds:].float()
@@ -228,9 +251,9 @@ def mamba_decode(x_tok, p, cfg, conv, h):
     bx = (dt32 * xi.float())[..., None] * bvec[:, None, :]
     h = abar * h + bx
     y = torch.einsum("bds,bs->bd", h, cvec).to(x_tok.dtype)
-    y = y + xi * p.D
+    y = y + xi * cast(p.D, xi)
     y = y * silu(z[:, 0])
-    return y @ p.out_proj, (conv, h)
+    return y @ cast(p.out_proj, y), (conv, h)
 
 
 # ---------------------------------------------------------------------------
@@ -296,11 +319,12 @@ def mlstm_inputs(xi, p, cfg):
     _, h, dh = _xlstm_dims(cfg)
 
     def heads(w):                          # einsum("btd,dhk->bthk")
-        return (xi @ w.reshape(di, h * dh)).reshape(b, t, h, dh).float()
+        return (xi @ cast(w, xi).reshape(di, h * dh)).reshape(
+            b, t, h, dh).float()
 
     q, k, v = heads(p.wq), heads(p.wk) * dh ** -0.5, heads(p.wv)
-    i_pre = (xi @ p.wi).float() + p.bi
-    f_pre = (xi @ p.wf).float() + p.bf
+    i_pre = (xi @ cast(p.wi, xi)).float() + p.bi
+    f_pre = (xi @ cast(p.wf, xi)).float() + p.bf
     return q, k, v, i_pre, f_pre
 
 
@@ -308,11 +332,12 @@ def mlstm_steps(q, k, v, i_pre, f_pre, state):
     """The per-token recurrence from ``state`` over q, k, v (B, S, h, dh)
     and the gate inputs (B, S, h): (h (B, S, h, dh) float32, the final
     state)."""
-    hs = torch.empty_like(q)
+    hs = []
     for t in range(q.shape[1]):
-        state, hs[:, t] = mlstm_step(state, q[:, t], k[:, t], v[:, t],
-                                     i_pre[:, t], f_pre[:, t])
-    return hs, state
+        state, h_t = mlstm_step(state, q[:, t], k[:, t], v[:, t],
+                                i_pre[:, t], f_pre[:, t])
+        hs.append(h_t)
+    return torch.stack(hs, dim=1), state
 
 
 def mlstm_chunked(q, k, v, i_pre, f_pre, state, chunk):
@@ -331,7 +356,7 @@ def mlstm_chunked(q, k, v, i_pre, f_pre, state, chunk):
     C0, n0, m0 = state["C"], state["n"], state["m"]
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=q.device))[None, :, :, None]
-    hs = torch.empty_like(q)
+    hs = []
     for c0 in range(0, s, chunk):
         sl = slice(c0, c0 + chunk)
         qt, kt, vt, it = q[:, sl], k[:, sl], v[:, sl], i_pre[:, sl]
@@ -349,7 +374,7 @@ def mlstm_chunked(q, k, v, i_pre, f_pre, state, chunk):
                + torch.einsum("btjh,bjhd->bthd", expD, kt))
         den = torch.maximum(torch.abs((n_t * qt).sum(dim=-1)),
                             torch.exp(-m))
-        hs[:, sl] = h_num / den[..., None]
+        hs.append(h_num / den[..., None])
         # the chunk-end state (t = L - 1)
         m_new = m[:, -1]
         wC = torch.exp(m0 + Fc[:, -1] - m_new)                # (B, h)
@@ -358,7 +383,7 @@ def mlstm_chunked(q, k, v, i_pre, f_pre, state, chunk):
             "bjhv,bjhd->bhvd", wj[..., None] * vt, kt)
         n0 = wC[..., None] * n0 + torch.einsum("bjh,bjhd->bhd", wj, kt)
         m0 = m_new
-    return hs, {"C": C0, "n": n0, "m": m0}
+    return torch.cat(hs, dim=1), {"C": C0, "n": n0, "m": m0}
 
 
 def mlstm_train(x, p, cfg, return_state=False):
@@ -367,7 +392,7 @@ def mlstm_train(x, p, cfg, return_state=False):
     recurrence."""
     b, s, _ = x.shape
     di = cfg.ssm_expand * cfg.d_model
-    xz = x @ p.up
+    xz = x @ cast(p.up, x)
     xi, z = xz[..., :di], xz[..., di:]
     q, k, v, i_pre, f_pre = mlstm_inputs(xi, p, cfg)
     state = mlstm_init_state(cfg, b, x.device)
@@ -377,7 +402,7 @@ def mlstm_train(x, p, cfg, return_state=False):
     else:
         hs, state = mlstm_steps(q, k, v, i_pre, f_pre, state)
     hs = rms_norm(hs.reshape(b, s, di).to(x.dtype), p.ln, cfg.norm_eps)
-    out = (hs * silu(z)) @ p.down
+    out = (hs * silu(z)) @ cast(p.down, hs)
     return (out, state) if return_state else out
 
 
@@ -385,13 +410,13 @@ def mlstm_decode(x_tok, p, cfg, state):
     """x_tok: (B, d) -> (out (B, d), the new state)."""
     b = x_tok.shape[0]
     di = cfg.ssm_expand * cfg.d_model
-    xz = x_tok[:, None, :] @ p.up
+    xz = x_tok[:, None, :] @ cast(p.up, x_tok)
     xi, z = xz[..., :di], xz[:, 0, di:]
     q, k, v, i_pre, f_pre = mlstm_inputs(xi, p, cfg)
     state, h = mlstm_step(state, q[:, 0], k[:, 0], v[:, 0], i_pre[:, 0],
                           f_pre[:, 0])
     hs = rms_norm(h.reshape(b, di).to(x_tok.dtype), p.ln, cfg.norm_eps)
-    return (hs * silu(z)) @ p.down, state
+    return (hs * silu(z)) @ cast(p.down, hs), state
 
 
 class SLSTM(nn.Module):
@@ -440,14 +465,15 @@ def slstm_step(p, state, wx):
 def _slstm_wx(x, p):
     """einsum("...d,dghk->...ghk") in x's dtype."""
     d, g, h, dh = p.w.shape
-    return (x @ p.w.reshape(d, g * h * dh)).reshape(*x.shape[:-1], g, h, dh)
+    return (x @ cast(p.w, x).reshape(d, g * h * dh)).reshape(
+        *x.shape[:-1], g, h, dh)
 
 
 def _slstm_out(hs, p):
     """The post up/down projection (factor 4/3, GeLU-gated) in hs's dtype."""
-    u = hs @ p.up
+    u = hs @ cast(p.up, hs)
     ff = u.shape[-1] // 2
-    return (gelu_tanh(u[..., :ff]) * u[..., ff:]) @ p.down
+    return (gelu_tanh(u[..., :ff]) * u[..., ff:]) @ cast(p.down, hs)
 
 
 def slstm_train(x, p, cfg, return_state=False):
@@ -456,11 +482,11 @@ def slstm_train(x, p, cfg, return_state=False):
     b, s, d = x.shape
     wx = _slstm_wx(x, p).float()                            # (B, S, 4, h, dh)
     state = slstm_init_state(cfg, b, x.device)
-    hs = torch.empty(wx.shape[:2] + wx.shape[3:], dtype=torch.float32,
-                     device=x.device)
+    hs = []
     for t in range(s):
-        state, hs[:, t] = slstm_step(p, state, wx[:, t])
-    out = _slstm_out(hs.reshape(b, s, d).to(x.dtype), p)
+        state, h_t = slstm_step(p, state, wx[:, t])
+        hs.append(h_t)
+    out = _slstm_out(torch.stack(hs, dim=1).reshape(b, s, d).to(x.dtype), p)
     return (out, state) if return_state else out
 
 

@@ -13,18 +13,27 @@ stored in the compute dtype, the values JAX's per-use
 ``.astype(compute_dtype)`` of its float32 weights gives; norm scales, the
 MoE router, Mamba's ``A_log`` and the xLSTM gate biases and sLSTM
 recurrence stay float32, as JAX reads them.  For training
-(``param_dtype="float32"``, the attention family only: ``check_trainable``)
-every parameter is a float32 master and each use casts it to the compute
-dtype (``layers.cast``), as JAX does, so a master's gradient is the upcast
-compute-dtype gradient of that use, and the two uses of a tied embedding
-are two casts whose gradients sum in float32.
+(``param_dtype="float32"``, every config) every parameter is a float32
+master and each use casts it to the compute dtype (``layers.cast``), as
+JAX does, so a master's gradient is the upcast compute-dtype gradient of
+that use, and the two uses of a tied embedding are two casts whose
+gradients sum in float32.
 
-``loss_and_metrics`` is the JAX package's: the embedding, every block's
-training forward (``Block.train_forward``; under ``cfg.remat == "block"``
-each pattern layer in ``torch.utils.checkpoint``, as JAX checkpoints its
-scanned groups), the final norm, the logits and a float32 cross entropy
-with label -1 masked, in ``cfg.ce_chunk`` chunks of the sequence where it
-is set.
+``loss_and_metrics`` is the JAX package's: the frontend embeddings and
+the tokens embedded, every block's training forward
+(``Block.train_forward``: the mixer's training form, then the ffn, which
+for ``moe`` also gives the layer's router loss), the final norm, the
+logits and a float32 cross entropy with label -1 masked, in
+``cfg.ce_chunk`` chunks of the sequence where it is set, plus
+``cfg.router_aux_coef`` times the summed router loss.  Labels shorter than
+the sequence are left-padded with -1: the frontend tokens carry none.
+
+Remat: under ``cfg.remat == "block"`` each pattern layer runs in
+``torch.utils.checkpoint``.  JAX checkpoints each scanned pattern group
+instead (8 layers for Jamba, 2 for xLSTM); both recompute the same
+forward, so the values are the same, and one layer at a time keeps the
+recompute's memory to one block's.  The prefix layers are not
+checkpointed, as in JAX.
 
 Every mixer (``full``, ``local``, ``global``, ``enc``, ``mla``, ``mamba``,
 ``mlstm``, ``slstm``), ffn (``mlp``, ``moe``, ``none``) and frontend
@@ -83,24 +92,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise ValueError(f"{cfg.name}: an mla layer needs q_lora_rank and "
                          f"kv_lora_rank (got {cfg.q_lora_rank}, "
                          f"{cfg.kv_lora_rank})")
-
-
-TRAINABLE_MIXERS = ("full", "local", "global")
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError unless every layer is an attention mixer
-    (``full``, ``local``, ``global``) with ffn ``mlp`` and there is no
-    frontend: the training the port has (qwen2.5-3b, stablelm-3b,
-    qwen3-14b, gemma2-27b).  The other mixers, ffn ``moe`` with its router
-    loss and the frontends' label padding are ROADMAP Queue 1 item 5b."""
-    check_supported(cfg)
-    other = sorted({(m, f) for m, f in cfg.layer_kinds
-                    if m not in TRAINABLE_MIXERS or f != "mlp"})
-    if other or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: training of blocks {other} and frontend "
-            f"{cfg.frontend!r} is not ported yet (ROADMAP Queue 1 item 5b)")
 
 
 def _ce(logits, labels):
@@ -207,29 +198,41 @@ class Block(nn.Module):
         return ssm.slstm_init_state(cfg, batch, device)
 
     def _finish(self, x, h):
-        """Residual add of the mixer output, then the ffn half."""
+        """Residual add of the mixer output, then the ffn half -> (x, the
+        MoE's router loss, None for any other ffn)."""
         if self.cfg.post_block_norms:
             h = self.ln1_post(h)
         x = x + h
+        aux = None
         if self.ffn_kind == "none":
-            return x
+            return x, aux
         h = self.ln2(x)
         if self.ffn_kind == "moe":
             # tokens (B, d) at decode go through as (B, 1, d), as in JAX
-            h = self.ffn(h.reshape(x.shape[0], -1, x.shape[-1]))[0].reshape(
-                x.shape)
+            h, metrics = self.ffn(h.reshape(x.shape[0], -1, x.shape[-1]))
+            h, aux = h.reshape(x.shape), metrics["router_aux"]
         else:
             h = mlp(h, self.ffn, self.cfg)
         if self.cfg.post_block_norms:
             h = self.ln2_post(h)
-        return x + h
+        return x + h, aux
 
     def train_forward(self, x, positions):
-        """JAX's ``block_train`` for an attention mixer with an MLP: x (B,
-        S, d) -> (x, the router loss, 0 here)."""
-        h = L.attn_train(self.ln1(x), self.mixer, self.cfg, self.mixer_kind,
-                         positions)
-        return self._finish(x, h), torch.zeros((), device=x.device)
+        """JAX's ``block_train``: x (B, S, d) -> (x, the router loss)."""
+        cfg, kind, p = self.cfg, self.mixer_kind, self.mixer
+        h = self.ln1(x)
+        if kind in ATTN:
+            h = L.attn_train(h, p, cfg, kind, positions)
+        elif kind == "mla":
+            h = L.mla_train(h, p, cfg, positions)
+        elif kind == "mamba":
+            h = ssm.mamba_train(h, p, cfg)
+        elif kind == "mlstm":
+            h = ssm.mlstm_train(h, p, cfg)
+        else:
+            h = ssm.slstm_train(h, p, cfg)
+        x, aux = self._finish(x, h)
+        return x, torch.zeros((), device=x.device) if aux is None else aux
 
     def prefill(self, x, positions, st):
         """x: (B, S, d) -> (x, the layer's state after the sequence): an
@@ -248,7 +251,7 @@ class Block(nn.Module):
             h, st = ssm.mlstm_train(h, p, cfg, return_state=True)
         else:
             h, st = ssm.slstm_train(h, p, cfg, return_state=True)
-        return self._finish(x, h), st
+        return self._finish(x, h)[0], st
 
     def decode(self, x, pos, st, block_mask_words, backend):
         """x: (B, d) -> (x, the layer's next state): the same dict for an
@@ -269,7 +272,7 @@ class Block(nn.Module):
             h, st = ssm.mlstm_decode(h, p, cfg, st)
         else:
             h, st = ssm.slstm_decode(h, p, cfg, st)
-        return self._finish(x, h), st
+        return self._finish(x, h)[0], st
 
 
 @dataclasses.dataclass
@@ -298,8 +301,6 @@ class Transformer(nn.Module):
         dev = kops.resolve_device(device)
         self.dtype = getattr(torch, cfg.compute_dtype)
         wdt = getattr(torch, param_dtype) if param_dtype else self.dtype
-        if wdt != self.dtype:
-            check_trainable(cfg)
         d = cfg.d_model
         self.embed = weight((cfg.vocab, d), d ** -0.5, wdt, dev, generator)
         if not cfg.tie_embeddings:
@@ -361,8 +362,7 @@ class Transformer(nn.Module):
         """JAX's ``backbone``: every block's training forward, then the
         final norm -> (x, the summed router loss).  Under ``cfg.remat ==
         "block"`` each pattern layer's activations are recomputed in the
-        backward pass (JAX checkpoints each scanned pattern group; the
-        values are the same)."""
+        backward pass (see the module docstring)."""
         aux_total = torch.zeros((), device=x.device)
         n_prefix = len(self.cfg.prefix)
         for i, block in enumerate(self.layers):
@@ -375,16 +375,23 @@ class Transformer(nn.Module):
         return self.final_norm(x), aux_total
 
     def loss_and_metrics(self, batch):
-        """JAX's ``loss_and_metrics``: batch {"tokens": (B, S), "labels":
-        (B, S)}, label -1 masked -> (loss, {"ce_loss", "router_aux",
-        "tokens"}), differentiable in the parameters."""
-        check_trainable(self.cfg)
-        x = self._embed(batch["tokens"])
+        """JAX's ``loss_and_metrics``: batch {"tokens": (B, S)} and/or
+        {"frontend_embeds": (B, F, frontend_dim)}, which go first, and
+        "labels" (B, L), L <= F + S, left-padded with -1 to F + S; label -1
+        masked -> (loss, {"ce_loss", "router_aux", "tokens"}),
+        differentiable in the parameters."""
+        x = self._embed(batch.get("tokens"), batch.get("frontend_embeds"))
         b, s = x.shape[:2]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=self.device).expand(b, s)
         x, aux = self.backbone(x, positions)
         labels = torch.as_tensor(batch["labels"], device=self.device)
+        pad = s - labels.shape[1]
+        if pad < 0:
+            raise ValueError(f"{labels.shape[1]} labels for a sequence of "
+                             f"{s}")
+        if pad:               # the frontend tokens carry no labels
+            labels = torch.nn.functional.pad(labels, (pad, 0), value=-1)
         c = min(self.cfg.ce_chunk, s) if self.cfg.ce_chunk else s
         if s % c:
             raise ValueError(f"sequence {s} is not a multiple of ce_chunk "

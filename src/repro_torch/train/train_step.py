@@ -26,8 +26,12 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig):
         params = dict(model.named_parameters())
         with record_function("train_step.forward_backward"):
             loss, metrics = model.loss_and_metrics(batch)
+            # a leaf the batch does not read (the token embedding under a
+            # batch of frontend embeddings alone) gets a gradient of 0, as
+            # JAX gives it
             grads = dict(zip(params, torch.autograd.grad(
-                loss, list(params.values()))))
+                loss, list(params.values()), allow_unused=True,
+                materialize_grads=True)))
         with record_function("train_step.optimizer"):
             _, opt_state, opt_metrics = adamw.apply_updates(
                 params, grads, opt_state, opt_cfg)

@@ -1,9 +1,12 @@
 """The training loop: data -> step -> metrics -> checkpoints, with resume
 and the pipeline's state; the port of the JAX package's
 ``repro/train/trainer.py``, on the card unless the caller names another
-device.  Runs on the CPU with reduced configs (``launch/train.py --reduced
---device cpu``).  The batch's draw and upload is the profiler range
-``trainer.data``; the step's are ``train_step``'s."""
+device.  It trains every config the repo ships, on tokens and labels, as
+the JAX package's trainer does (a frontend's embeddings go through
+``Transformer.loss_and_metrics`` directly), and runs on the CPU with
+reduced configs (``launch/train.py --reduced --device cpu``).  The batch's
+draw and upload is the profiler range ``trainer.data``; the step's are
+``train_step``'s."""
 
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ from torch.profiler import record_function
 
 from repro_torch.data.pipeline import RoaringDataPipeline
 from repro_torch.kernels.ops import resolve_device
-from repro_torch.models.transformer import Transformer, check_trainable
+from repro_torch.models.transformer import Transformer
 from repro_torch.optim import adamw
 from repro_torch.train import train_step as TS
 from repro_torch.train.checkpoint import CheckpointManager
@@ -32,7 +35,6 @@ class Trainer:
                  pipeline: RoaringDataPipeline,
                  ckpt_dir: str, ckpt_every: int = 50,
                  async_ckpt: bool = True, seed: int = 0, *, device=None):
-        check_trainable(cfg)
         self.cfg = cfg
         self.opt_cfg = opt_cfg
         self.pipeline = pipeline
@@ -102,6 +104,7 @@ class Trainer:
             rec = {"step": self.step, "loss": loss,
                    "grad_norm": float(metrics["grad_norm"]),
                    "lr": float(metrics["lr"]),
+                   "router_aux": float(metrics["router_aux"]),
                    "sec": time.monotonic() - t0}
             self.history.append(rec)
             if self.step % log_every == 0:

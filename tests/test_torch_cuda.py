@@ -52,8 +52,10 @@ against the decode attention kernel at Gemma2-27B's decode shape with
 every block gathered; and xLSTM's chunkwise-parallel mLSTM against its
 per-token recurrence at full width.  One train step of the reduced
 qwen2.5-3b model (float32 masters, remat on), rerun bit-equal; two steps'
-losses against the CPU's; and AdamW's update on the card from the CPU's
-inputs within 2 ulps of the CPU's.
+losses against the CPU's; the same for the other families' reduced models
+(Mixtral, DeepSeek-V2, a two-layer Jamba pattern, xLSTM with either mLSTM
+form, HuBERT on an audio batch); and AdamW's update on the card from the
+CPU's inputs within 2 ulps of the CPU's.
 
 These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip.  Run
 them on a GPU machine with ``PYTHONPATH=src python -m pytest -q -m cuda
@@ -1581,26 +1583,50 @@ def test_chunked_mlstm_matches_the_recurrence(cuda):
         assert float((got - want).abs().max()) <= 1e-5 * max(top, 1.0)
 
 
-def _train_setup(dtype, dev):
-    """Reduced qwen2.5-3b with float32 masters drawn on the CPU from seed
-    3 (so every device starts from the same values), AdamW's state, and a
-    batch of 2 x 128 tokens."""
+# the other families' reduced configs: (arch, overrides, batch kind, S);
+# the Jamba case is a two-layer pattern at the reduced widths, four chunks
+# of its scan, as in tests/test_torch_train_moe.py
+FAMILY_CASES = {
+    "mixtral": ("mixtral_8x7b", {}, "tokens", 128),
+    "deepseek": ("deepseek_v2_236b", {}, "tokens", 128),
+    "jamba2": ("jamba_v01_52b", dict(
+        n_layers=2, pattern=(("mamba", "moe"), ("global", "mlp")),
+        ssm_chunk=32), "tokens", 128),
+    "xlstm-steps": ("xlstm_350m", dict(xlstm_chunk=0), "tokens", 64),
+    "xlstm-chunked": ("xlstm_350m", dict(xlstm_chunk=16), "tokens", 64),
+    "hubert": ("hubert_xlarge", {}, "audio", 64),
+}
+
+
+def _train_setup(dtype, dev, case=("qwen2_5_3b", {}, "tokens", 128)):
+    """A reduced model (reduced qwen2.5-3b by default, or a
+    ``FAMILY_CASES`` entry) with float32 masters drawn on the CPU from
+    seed 3 (so every device starts from the same values), AdamW's state,
+    and a batch of 2 sequences of S: tokens, or for an audio case S
+    frontend embeddings and no tokens."""
     import dataclasses
 
     from repro_torch import configs
     from repro_torch.models.transformer import Transformer
     from repro_torch.optim import adamw
-    cfg = dataclasses.replace(configs.get_config("qwen2_5_3b", reduced=True),
-                              compute_dtype=dtype, remat="block")
+    arch, kw, kind, s = case
+    cfg = dataclasses.replace(configs.get_config(arch, reduced=True),
+                              compute_dtype=dtype, remat="block", **kw)
     src = Transformer(cfg, device="cpu", param_dtype="float32",
                       generator=torch.Generator().manual_seed(3))
     model = Transformer(cfg, device=dev, param_dtype="float32")
     model.load_state_dict(src.state_dict())
     model.requires_grad_(True)
     state = adamw.init_state(dict(model.named_parameters()))
-    toks = np.random.default_rng(4).integers(0, cfg.vocab, (2, 129))
-    batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(dev),
-             "labels": torch.from_numpy(toks[:, 1:]).to(dev)}
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab, (2, s + 1))
+    if kind == "audio":
+        batch = {"frontend_embeds": torch.from_numpy(rng.standard_normal(
+                     (2, s, cfg.frontend_dim)).astype(np.float32)).to(dev),
+                 "labels": torch.from_numpy(toks[:, 1:]).to(dev)}
+    else:
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(dev),
+                 "labels": torch.from_numpy(toks[:, 1:]).to(dev)}
     return cfg, model, state, batch
 
 
@@ -1651,6 +1677,45 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
             a, b = float(g[key]), float(c[key])
             assert abs(a - b) <= tol * abs(b), (i, key, a, b)
         assert float(g["lr"]) == float(c["lr"]), i
+
+
+@pytest.mark.parametrize("case", list(FAMILY_CASES))
+def test_family_train_step_reruns_bit_equal(cuda, case):
+    """One bf16 train step of each family's reduced model on the card
+    (remat on), run twice from the same parameters and AdamW state:
+    parameters, m, v and the metrics bit-equal.  The MoE dispatch's
+    gather back adds only the zeros of dropped choices to its one repeated
+    row, and the routing counts add one constant, so their atomics give
+    the same sums in any order."""
+    runs = []
+    for _ in range(2):
+        runs.append(_one_step(*_train_setup("bfloat16", cuda,
+                                            FAMILY_CASES[case])))
+    (p1, s1, m1), (p2, s2, m2) = runs
+    for k in p1:
+        assert torch.equal(p1[k], p2[k]), k
+        assert torch.equal(s1["m"][k], s2["m"][k]), k
+        assert torch.equal(s1["v"][k], s2["v"][k]), k
+    for k in m1[0]:
+        assert torch.equal(m1[0][k], m2[0][k]), k
+
+
+@pytest.mark.parametrize("case", list(FAMILY_CASES))
+def test_family_train_step_on_the_card_matches_the_cpu(cuda, case):
+    """The same float32 step of each family's reduced model on the card
+    and on the CPU: its loss and router loss within 1e-5 relative and
+    grad norm within 1e-4 relative, as for qwen2.5-3b above.  One step:
+    a second one starts from parameters AdamW moved by about lr wherever
+    a gradient is float32 noise, so its grad norm carries the two
+    devices' rounding apart (xLSTM's second step: 3.8e-4 relative between
+    card and CPU; on the CPU alone its chunked and per-token mLSTM, equal
+    in exact arithmetic, give second-step norms 2.1e-4 apart)."""
+    cpu = _one_step(*_train_setup("float32", "cpu", FAMILY_CASES[case]))[2]
+    gpu = _one_step(*_train_setup("float32", cuda, FAMILY_CASES[case]))[2]
+    for key, tol in (("loss", 1e-5), ("ce_loss", 1e-5),
+                     ("router_aux", 1e-5), ("grad_norm", 1e-4)):
+        a, b = float(gpu[0][key]), float(cpu[0][key])
+        assert abs(a - b) <= tol * abs(b), (key, a, b)
 
 
 @pytest.mark.parametrize("clip", [1e9, 1.0])

@@ -40,9 +40,7 @@ import repro.configs as JC
 from repro.models import transformer as JT
 from repro_torch import configs as C
 from repro_torch.convert import params_from_jax
-from repro_torch.models.transformer import (
-    Transformer, check_trainable,
-)
+from repro_torch.models.transformer import Transformer
 from test_torch_hybrid import _exact
 
 B, S = 2, 128
@@ -189,21 +187,3 @@ def test_serving_weights_stay_in_the_compute_dtype(jax_cases):
         a = serve.loss_and_metrics(batch)[0]
         b = _model(c["pc"], c["params"]).loss_and_metrics(batch)[0]
     assert torch.equal(a, b)
-
-
-@pytest.mark.parametrize("arch", ["qwen2_5_3b", "stablelm_3b", "qwen3_14b",
-                                  "gemma2_27b"])
-def test_check_trainable_accepts_the_attention_family(arch):
-    for reduced in (True, False):
-        check_trainable(C.get_config(arch, reduced=reduced))
-
-
-@pytest.mark.parametrize("arch", ["jamba_v01_52b", "mixtral_8x7b",
-                                  "deepseek_v2_236b", "xlstm_350m",
-                                  "hubert_xlarge", "qwen2_vl_72b"])
-def test_check_trainable_refuses_the_rest(arch):
-    cfg = C.get_config(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        check_trainable(cfg)
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        Transformer(cfg, device="cpu", param_dtype="float32")
