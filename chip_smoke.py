@@ -348,15 +348,30 @@ toolkit (``nvcc``).  Phases, each timed:
    of 512 (cut from 4,096: the sLSTM runs token by token), 3 steps; the
    first batch's eval loss must fall.
    Qwen2-VL-72B (one layer, 54.1 GB) does not train on the card.
+17. The dry run held against the card, after phase 16: for 17a
+   Qwen2.5-3B whole (phase 15's config) and 17b Mixtral-8x7B at 2 layers
+   (16a's), ``launch.dryrun.trace_cell`` traces one train step at batch 1
+   x 4,096 on meta tensors on the host (``ShapeSpec(..., 4096, 1,
+   "train")``), then the same step runs once on the card from fresh
+   float32 masters and AdamW state (``remat="block"``).  The predicted
+   peak (argument + temp bytes) must be within 10% of the measured
+   ``max_memory_allocated`` above what was allocated before the model.
+   Printed beside it: the trace's seconds and ops, its counted FLOPs and
+   bytes next to phase 15's ``mfu`` numerator (6 N_active a token plus
+   causal attention) and 6 N D, its roofline terms, what was live at the
+   traced peak by the op that made it, the counted bytes by op, the
+   step's seconds, the card's ``total_memory`` and
+   ``launch.mesh.HBM_BYTES``.  The trace launches none of the 17 kernels,
+   nor does the step.
 
 Phases 10, 12, 13 and 14 share one serving driver (``_serve_phase``).
 
-Launch counts are set to 0 just before each of phases 3 to 16 (and each
+Launch counts are set to 0 just before each of phases 3 to 17 (and each
 part of 11 and 16) and read just after it; a kernel that a phase's path
 runs and that launched no time there fails the script, and so does any
-launch in phases 13 to 16, whose paths run none: their prefills, decode
-steps, checks, profiler windows, HuBERT's prefills and the training
-steps.  In
+launch in phases 13 to 17, whose paths run none: their prefills, decode
+steps, checks, profiler windows, HuBERT's prefills, the training steps
+and the dry run's traces.  In
 phases 10, 12, 13 and 14 the counts are also set to 0 around the lexicon
 constraint's build,
 whose launches are read apart.  Then one JSON line with every kernel's numbers,
@@ -5630,6 +5645,118 @@ def phase_training_families(dev, seed, failures, steps=MOE_TRAIN_STEPS):
     return dict(out, seconds=secs, launches=launches)
 
 
+CALIBRATION_TOL = 0.10        # phase 17: |predicted - measured| / measured
+
+
+def _calibrate(label, cfg, dev, seed, failures):
+    """Phase 17's check of one config: the dry run's trace (meta tensors,
+    on the host) of one train step at batch 1 x TRAIN_SEQ, then the same
+    step on the card from fresh float32 masters and AdamW state; the
+    predicted peak (argument + temp bytes) against the bytes the step
+    allocated at its peak above what was allocated before the model."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+    spec = ShapeSpec(f"train_1x{TRAIN_SEQ}", TRAIN_SEQ, 1, "train")
+    t = time.perf_counter()
+    res = trace_cell(cfg, spec)
+    trace_s = time.perf_counter() - t
+    launched = _all_counts()
+    mem = res["memory"]
+    predicted = mem["argument_bytes"] + mem["temp_bytes"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(dev).manual_seed(seed)
+    model = Transformer(cfg, device=dev, param_dtype=cfg.param_dtype,
+                        generator=gen)
+    model.requires_grad_(True)
+    state = adamw.init_state(dict(model.named_parameters()))
+    batch = {k: torch.randint(0, cfg.vocab, (1, TRAIN_SEQ), generator=gen,
+                              device=dev, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    n_params = sum(p.numel() for p in model.parameters())
+    step = make_train_step(cfg, adamw.AdamWConfig())
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, state, m = step(model, state, batch)
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t
+    measured = torch.cuda.max_memory_allocated(dev) - base
+    del model, state, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    err = (predicted - measured) / measured
+    flops = res["analysis"]["flops"]
+    # phase 15's mfu numerator: 6 N a token (N_active for an MoE) plus
+    # causal attention, 6 L S H hd
+    n_active = n_params - (cfg.n_layers * (cfg.n_experts - cfg.moe_top_k)
+                           * 3 * cfg.d_model * cfg.moe_d_ff
+                           if cfg.n_experts else 0)
+    mfu_flops = (6 * n_active + 6 * cfg.n_layers * TRAIN_SEQ * cfg.n_heads
+                 * cfg.hd) * TRAIN_SEQ
+    out = dict(label=label, arch=cfg.name, layers=cfg.n_layers,
+               params=n_params, trace_s=trace_s, ops=res["ops"],
+               argument_bytes=mem["argument_bytes"],
+               temp_bytes=mem["temp_bytes"], predicted_peak=predicted,
+               measured_peak=measured, allocated_before=base,
+               peak_error=err, counted_flops=flops,
+               counted_bytes=res["analysis"]["bytes"],
+               transcendentals=res["analysis"]["transcendentals"],
+               model_flops=res["roofline"]["model_flops_global"],
+               mfu_flops=mfu_flops, roofline=res["roofline"],
+               step_s=step_s, loss=loss, trace_launches=launched,
+               peak=res["peak"], bytes_by_op=res["bytes_by_op"])
+    log(f"  {label} {cfg.name}, {cfg.n_layers} layers, batch 1 x "
+        f"{TRAIN_SEQ}, remat {cfg.remat!r}: trace {trace_s:.1f} s, "
+        f"{res['ops']} ops; predicted peak {predicted} bytes (arguments "
+        f"{mem['argument_bytes']} + temp {mem['temp_bytes']}), measured "
+        f"max_memory_allocated {measured} above {base} before: error "
+        f"{err:+.4f} (limit {CALIBRATION_TOL}); counted {flops:.6e} FLOPs, "
+        f"{res['analysis']['bytes']:.6e} bytes, against the mfu's "
+        f"{mfu_flops:.6e} (ratio {flops / mfu_flops:.4f}) and 6 N D "
+        f"{out['model_flops']:.6e}; roofline compute "
+        f"{res['roofline']['compute_s'] * 1e3:.1f} ms, memory "
+        f"{res['roofline']['memory_s'] * 1e3:.1f} ms; one step on the card "
+        f"{step_s:.2f} s, loss {loss:.5f}")
+    log(f"  {label} at the traced peak (reached by {res['peak']['op']}), "
+        f"live GB by the op that made them: "
+        f"{[(k, round(v / 1e9, 3)) for k, v in list(res['peak']['by_op'].items())[:8]]}; "
+        f"counted GB by op: {[(k, round(v / 1e9, 1)) for k, v in list(res['bytes_by_op'].items())[:8]]}")
+    if not abs(err) <= CALIBRATION_TOL:
+        failures.append(f"17 {label}: predicted peak {predicted} is "
+                        f"{err:+.4f} off the measured {measured}")
+    if not np.isfinite(loss):
+        failures.append(f"17 {label}: the step's loss is {loss}")
+    return out
+
+
+def phase_dryrun_calibration(dev, seed, failures):
+    """Phase 17: the dry run's predicted peak memory held against the
+    card's, for Qwen2.5-3B whole (17a, phase 15's shape) and Mixtral-8x7B
+    at 2 layers (17b, phase 16a's)."""
+    from repro_torch.launch.mesh import HBM_BYTES
+    _reset_counts()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    card = _card_line()
+    log(f"  {card}; total_memory {total} bytes (launch.mesh.HBM_BYTES "
+        f"{HBM_BYTES})")
+    out = dict(card=card, total_memory=total)
+    for key, cfg in (("17a", _train_cfg()),
+                     ("17b", _train_cfg(TRAIN_CHECK_LAYERS,
+                                        "mixtral_8x7b"))):
+        out[key] = _calibrate(key, cfg, dev, seed, failures)
+    out["launches"] = _all_counts()
+    if out["launches"]:
+        failures.append(f"17: a kernel launched: {out['launches']}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 def _build_all():
@@ -5781,7 +5908,7 @@ def _kernel_line(main_path, sim, cases, topk_cases, max_err, topk_err,
              jamba_shape={k: jamba_case[k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                  "max_abs_err", "shape")})]
-    # launches in phases 13 to 16 (``later``: the counts by kernel),
+    # launches in phases 13 to 17 (``later``: the counts by kernel),
     # whose model paths run no kernel of the port
     count_key = {"similarity_score": "score", "similarity_select": "select",
                  "similarity_score_ids": "score_ids",
@@ -5972,6 +6099,11 @@ def main() -> int:
     families = phase("16 (the rest of training: Mixtral-8x7B, DeepSeek-V2, "
                      "HuBERT-xlarge, Jamba's Mamba block, xLSTM-350M)",
                      phase_training_families, dev, args.seed, failures)
+    # phase 17 after phase 16 has released its models
+    gc.collect()
+    torch.cuda.empty_cache()
+    calibration = phase("17 (the dry run's peak memory against the card's)",
+                        phase_dryrun_calibration, dev, args.seed, failures)
 
     kernels = _kernel_line(main_path, sim, cases, topk_cases, max_err,
                            topk_err, pair_cases, pair_err, pairwise,
@@ -5981,7 +6113,8 @@ def main() -> int:
                            jamba, {"13": deepseek["launches"],
                                    "14": xlstm["launches"],
                                    "15": training["launches"],
-                                   "16": families["launches"]})
+                                   "16": families["launches"],
+                                   "17": calibration["launches"]})
     REPORT.parent.mkdir(exist_ok=True)
     REPORT.write_text(json.dumps(dict(
         card=card, builds=builds, kernel_cases=cases,
@@ -5992,7 +6125,7 @@ def main() -> int:
         ids_cases=ids_cases, sharded=sharded, cold_start=cold,
         bsa_cases=bsa_cases, serving=serving, jamba=jamba,
         deepseek=deepseek, xlstm_hubert=xlstm, training=training,
-        training_families=families,
+        training_families=families, dryrun_calibration=calibration,
         bsa_launches_per_phase=bsa_per_phase,
         kernels=kernels["kernels"],
         phases_s=phases, failures=failures,

@@ -15,7 +15,8 @@ and 14 (xLSTM-350M and a HuBERT-xlarge prefill), the training phase 15
 (Qwen2.5-3B; ``--steps`` sets its step count, 5 by default as in
 ``chip_smoke.py``) and the parts of phase 16 (16a Mixtral-8x7B, 16b
 DeepSeek-V2, 16c HuBERT-xlarge, 16d Jamba's Mamba block, 16e xLSTM-350M;
-``--steps`` sets the step count of all but 16d), each in a tree that has
+``--steps`` sets the step count of all but 16d) and phase 17 (the dry
+run's predicted peak memory against the card's), each in a tree that has
 it, which print their end-to-end numbers in place of cases.
 
 Timing two trees on one card, in turns (parent, change, change, parent),
@@ -45,7 +46,7 @@ PHASES = {"2": "phase_kernels", "2b": "phase_topk_kernels",
           "14": "phase_xlstm_hubert", "15": "phase_training",
           "16a": "_phase16a_mixtral", "16b": "_phase16b_deepseek",
           "16c": "_phase16c_hubert", "16d": "_phase16d_mamba",
-          "16e": "_phase16e_xlstm"}
+          "16e": "_phase16e_xlstm", "17": "phase_dryrun_calibration"}
 STEPPED = ("15", "16a", "16b", "16c", "16e")
 KEYS = ("case", "kernel", "rows", "equal", "ms", "plain_ms", "library_ms",
         "bound_ms", "bound_by", "event_ms")
@@ -97,8 +98,8 @@ def main() -> int:
     rep = dict(root=str(root), phase=args.phase, card=card,
                seconds=time.perf_counter() - t, failures=failures,
                ptxas=ptxas)
-    if args.phase.startswith("16"):             # a part of phase 16
-        rep["training"] = out
+    if args.phase.startswith("16") or args.phase == "17":
+        rep["training"] = out                   # a part of 16, or 17
     elif args.phase == "15":                    # the training phase
         rep["training"] = dict({k: out.get(k) for k in TRAINING_KEYS},
                                window={k: out["window"][k] for k in (

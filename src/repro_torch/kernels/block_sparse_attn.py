@@ -18,8 +18,12 @@ ascending order, so a call launches two kernels (one when P = 1).
 plain versions of the two steps.
 
 On a CUDA tensor :func:`decode_attention` launches the kernel or raises; on
-a CPU tensor it takes the plain version.  ``launches`` counts calls that
-launch (CPU calls and B = 0 do not count).
+a CPU tensor it takes the plain version; on meta tensors (the dry run's
+shapes without storage) it gives the output's shape and charges the
+kernel's work to an active ``launch.op_analysis.OpAnalysis`` as a dense
+upper bound: every K/V row, since a meta mask and ``kv_len`` have no
+values.  ``launches`` counts calls that launch (CPU calls, meta calls and
+B = 0 do not count).
 """
 
 from __future__ import annotations
@@ -202,8 +206,27 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.block_sparse_attention_decode(
             q, k, v, block_mask_words, kv_len, block_size=block_size,
             sm_scale=sm_scale, softcap=softcap)
+    if q.device.type == "meta":
+        return _meta_shape(q, k, v, block_mask_words, kv_len)
     return _launch(q, k, v, block_mask_words, kv_len, block_size, sm_scale,
                    softcap, splits)[0]
+
+
+def _meta_shape(q, k, v, block_mask_words, kv_len):
+    """The kernel's shape rule on meta tensors: an empty (B, H, D) output,
+    and the kernel's work charged as a dense upper bound (every K/V row
+    read once; QK and PV products over every position; one exp a
+    score)."""
+    from repro_torch.launch.op_analysis import charge
+    b, h, d = q.shape
+    s = k.shape[2]
+    out = torch.empty_like(q)
+    charge("decode_attention (dense upper bound)",
+           flops=4.0 * b * h * s * d,
+           bytes=float(sum(t.numel() * t.element_size() for t in (
+               q, k, v, block_mask_words, kv_len, out))),
+           transcendentals=float(b * h * s))
+    return out
 
 
 def decode_attention_with_partials(

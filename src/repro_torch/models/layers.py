@@ -68,7 +68,10 @@ class _GatherRows(torch.autograd.Function):
     JAX package's gather, and it is the same on every run and device (the
     CPU's accumulating ``index_put_``, which ``table[ids]`` differentiates
     through, adds repeats in parallel).  The rounds are as many as the
-    most repeated id's count; one host sync reads their sizes."""
+    most repeated id's count; one host sync reads their sizes.  Meta
+    tensors (the dry run) have no sizes to read: there one ``index_add_``
+    adds every row, the bytes of all the rounds together, since the
+    rounds partition the rows."""
 
     @staticmethod
     def forward(ctx, table, ids):
@@ -91,6 +94,8 @@ class _GatherRows(torch.autograd.Function):
         sid, order = sid[by_round], order[by_round]
         out = torch.zeros((ctx.rows, g.shape[1]), dtype=g.dtype,
                           device=g.device)
+        if g.device.type == "meta":
+            return out.index_add_(0, sid, g[order]), None
         start = 0
         for n in torch.bincount(rank).tolist():
             out.index_add_(0, sid[start:start + n],

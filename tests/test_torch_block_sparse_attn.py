@@ -185,15 +185,21 @@ def test_ops_routes_by_device_and_backend(rng):
 
 
 def test_kernel_route_does_not_fall_back_to_cpu():
-    """On a tensor that is neither on the CPU nor a GPU the wrapper raises
-    instead of computing the plain version."""
+    """On a tensor that is neither on the CPU nor a GPU the wrapper never
+    computes the plain version: on meta tensors (the dry run's) it gives
+    the output's shape on meta and launches nothing, and the entry point
+    without a meta shape rule raises."""
     meta = dict(device="meta")
     q = torch.zeros((2, 4, 32), **meta)
     k = torch.zeros((2, 2, 256, 32), **meta)
     words = torch.zeros((2, 1), dtype=torch.int32, **meta)
     kvl = torch.zeros(2, dtype=torch.int32, **meta)
+    n0 = bsa.launches
+    out = bsa.decode_attention(q, k, k, words, kvl)
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert out.dtype == q.dtype and bsa.launches == n0
     with pytest.raises(ValueError, match="CUDA"):
-        bsa.decode_attention(q, k, k, words, kvl)
+        bsa.decode_attention_with_partials(q, k, k, words, kvl)
 
 
 def _split_case(rng, dtype):
