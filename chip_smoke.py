@@ -364,12 +364,41 @@ toolkit (``nvcc``).  Phases, each timed:
    ``launch.mesh.HBM_BYTES``.  The trace launches none of the 17 kernels,
    nor does the step.
 
+18. The device mesh (``dist.ctx``, ``dist.sharding``, ``launch.mesh``):
+   18a, after phase 17, the sharded train step: ``torchrun``'s
+   environment for a world of one (``RANK`` 0, ``WORLD_SIZE`` 1, a free
+   ``MASTER_PORT``), an NCCL process group and ``launch.mesh.
+   make_local_mesh()`` = (1, 1) on the card; Qwen2.5-3B whole at phase
+   15's batch and seed, every parameter, AdamW moment and batch leaf a
+   DTensor placed by the rules (``train_step.shard_train_state``), two
+   steps, held against two plain steps from the same masters: each
+   step's loss and gradient norm bit-equal (every shard is the whole
+   tensor); the step ms of both and the host time the DTensor dispatch
+   adds.  18b, beside it, in child processes (each its own fake 256- or
+   512-rank process group, ``launch.dryrun --mesh single|multi``): the
+   dry run of ``qwen2_5_3b-train_4k`` and ``mixtral_8x7b-decode_32k`` on
+   the (16, 16) and (2, 16, 16) production meshes; each cell's per-device
+   peak, its fit in one card, its collective bytes by kind and its
+   dominant term printed, and its per-device argument bytes held against
+   the sum of the local shard sizes the rules give.  18c: ``python -m
+   repro_torch.launch.train --distributed --arch qwen2.5-3b --reduced``
+   for 2 steps under a world of one must exit 0 (the trainer raises on a
+   non-finite loss).  18d, right after phase 9, on its index: a share of
+   phase 4's similarity queries and of phase 3's boolean classes over a
+   ``WideMesh`` of (card, CPU, card, CPU) -- one slab a shard on its own
+   device, the rows a launch reads from another device gathered to it --
+   each equal to the single-device answer, and a warm pass of them
+   uploading no row; the rows gathered across devices a query printed.  The CPU shards run the plain versions, since
+   the caller named that device.  No kernel is new: 18a-c launch none of
+   the 17 (a launch fails them); 18d launches phase 9's on its card
+   shards.
+
 Phases 10, 12, 13 and 14 share one serving driver (``_serve_phase``).
 
-Launch counts are set to 0 just before each of phases 3 to 17 (and each
-part of 11 and 16) and read just after it; a kernel that a phase's path
-runs and that launched no time there fails the script, and so does any
-launch in phases 13 to 17, whose paths run none: their prefills, decode
+Launch counts are set to 0 just before each of phases 3 to 18 (and each
+part of 11, 16 and 18) and read just after it; a kernel that a phase's
+path runs and that launched no time there fails the script, and so does
+any launch in phases 13 to 17 and 18a-c, whose paths run none: their prefills, decode
 steps, checks, profiler windows, HuBERT's prefills, the training steps
 and the dry run's traces.  In
 phases 10, 12, 13 and 14 the counts are also set to 0 around the lexicon
@@ -5758,6 +5787,321 @@ def phase_dryrun_calibration(dev, seed, failures):
 
 
 # ---------------------------------------------------------------------------
+# phase 18: the device mesh
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 2                # 18a: plain and sharded steps from one start
+MESH_CELLS = (("qwen2_5_3b", "train_4k"), ("mixtral_8x7b", "decode_32k"))
+MESH_NAMES = {"single": ((16, 16), ("data", "model")),
+              "multi": ((2, 16, 16), ("pod", "data", "model"))}
+MESH_LIMIT_S = 900            # 18b's children
+DISTINCT_SIM = 4              # 18d: phase 4's queries, evenly spaced
+DISTINCT_BOOL = 4             # 18d: phase 3's queries of each class
+
+
+class _MeshShape:
+    """A mesh's axis names and shape, for the sharding rules' shard
+    sizes without a process group."""
+
+    def __init__(self, shape, axes):
+        self.axis_names = axes
+        self.devices = np.empty(shape, object)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _world_of_one() -> dict:
+    """torchrun's environment for a world of one."""
+    return dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+
+
+def _full(x) -> float:
+    from repro_torch.dist import ctx as dctx
+    return float(x.full_tensor() if dctx.is_dtensor(x) else x)
+
+
+def _mesh_steps(cfg, dev, seed, batch, mesh):
+    """MESH_STEPS train steps of fresh float32 masters of ``cfg`` from
+    ``seed`` on ``batch``: plain, or with every leaf placed on ``mesh``
+    by the rules.  -> (history, {"named": parameter specs naming a mesh
+    axis, "leaves": leaves placed, "dtensor_params"})."""
+    from repro_torch.dist import sharding as SH
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TS
+    model = Transformer(cfg, device=dev, param_dtype=cfg.param_dtype,
+                        generator=torch.Generator(dev).manual_seed(seed))
+    model.requires_grad_(True)
+    state = adamw.init_state(dict(model.named_parameters()))
+    placed = dict(named=0, leaves=0, dtensor_params=0)
+    if mesh is not None:
+        params = dict(model.named_parameters())
+        specs = SH.param_shardings(params, mesh)
+        placed["named"] = sum(any(e is not None for e in s.spec)
+                              for _, s in SH.leaves_with_path(specs))
+        state, batch = TS.shard_train_state(model, state, dict(batch), mesh)
+        placed["leaves"] = 3 * len(params) + len(batch)
+        placed["dtensor_params"] = sum(hasattr(p, "placements")
+                                       for p in model.parameters())
+    step = TS.make_train_step(cfg, _train_opt(MESH_STEPS, warmup=1))
+    hist = []
+    for _ in range(MESH_STEPS):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        _, state, m = step(model, state, batch)
+        loss, gn = _full(m["loss"]), _full(m["grad_norm"])
+        torch.cuda.synchronize(dev)
+        hist.append(dict(loss=loss, grad_norm=gn,
+                         ms=(time.perf_counter() - t) * 1e3))
+    del model, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return hist, placed
+
+
+def _phase18a_sharded_step(dev, seed, failures):
+    """18a: the sharded train step on an NCCL group of one against the
+    plain step (see the module docstring)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    cfg = _train_cfg()
+    batch = _batches(cfg, dev, 1)[0]
+    os.environ.update(_world_of_one())
+    card = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.set_device(card)
+    dist.init_process_group("nccl", device_id=card)
+    try:
+        mesh = make_local_mesh()
+        plain, _ = _mesh_steps(cfg, dev, seed, batch, None)
+        sharded, placed = _mesh_steps(cfg, dev, seed, batch, mesh)
+    finally:
+        dist.destroy_process_group()
+    equal = all(a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+                for a, b in zip(plain, sharded))
+    added = sharded[-1]["ms"] - plain[-1]["ms"]
+    log(f"  18a {cfg.name} whole ({cfg.n_layers} layers), batch 1 x "
+        f"{TRAIN_SEQ}, mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} on "
+        f"NCCL: {placed['leaves']} leaves placed, "
+        f"{placed['dtensor_params']} DTensor parameters, {placed['named']} "
+        f"parameter specs naming an axis; losses plain "
+        f"{[h['loss'] for h in plain]} sharded "
+        f"{[h['loss'] for h in sharded]}; grad norms plain "
+        f"{[h['grad_norm'] for h in plain]} sharded "
+        f"{[h['grad_norm'] for h in sharded]}; bit-equal {equal}; step ms "
+        f"plain {[round(h['ms'], 1) for h in plain]} sharded "
+        f"{[round(h['ms'], 1) for h in sharded]}; DTensor dispatch adds "
+        f"{added:.1f} ms a step ({added / plain[-1]['ms']:+.1%})")
+    if not equal:
+        failures.append(f"18a: the sharded step differs from the plain "
+                        f"one: {plain} vs {sharded}")
+    if not placed["dtensor_params"]:
+        failures.append("18a: no parameter was a DTensor")
+    return dict(arch=cfg.name, layers=cfg.n_layers, seq=TRAIN_SEQ,
+                mesh=list(mesh.shape), plain=plain, sharded=sharded,
+                bit_equal=equal, added_host_ms=added, **placed)
+
+
+def _start_dryruns(tmp):
+    """18b's children: one ``launch.dryrun`` a (cell, mesh), started at
+    once, at a lower priority than the card's phase beside them."""
+    procs = {}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for arch, shape in MESH_CELLS:
+        for name in MESH_NAMES:
+            log_path = Path(tmp) / f"{arch}-{shape}-{name}.log"
+            procs[(arch, shape, name)] = (subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--mesh", name,
+                 "--out", str(tmp)], cwd=ROOT, env=env,
+                stdout=open(log_path, "w"), stderr=subprocess.STDOUT,
+                preexec_fn=lambda: os.nice(10)), log_path,
+                time.perf_counter())
+    return procs
+
+
+def _phase18b_dryruns(procs, tmp, failures):
+    """18b: wait for the children, read each cell's result and hold its
+    per-device argument bytes against the rules' shard sizes."""
+    from repro_torch import configs
+    from repro_torch.launch.dryrun import shard_bytes
+    from repro_torch.launch.mesh import HBM_BYTES
+    out = {}
+    for (arch, shape, name), (proc, log_path, t0) in procs.items():
+        try:
+            rc = proc.wait(timeout=max(1.0, MESH_LIMIT_S - (
+                time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "timeout"
+        secs = time.perf_counter() - t0
+        tag = f"{arch}-{shape}-{name}"
+        path = Path(tmp) / f"{tag}.json"
+        res = json.loads(path.read_text()) if path.is_file() else {}
+        if rc != 0 or "memory" not in res:
+            tail = log_path.read_text()[-1500:] if log_path.is_file() \
+                else ""
+            failures.append(f"18b {tag}: exit {rc}, "
+                            f"{res.get('error', 'no result')}; {tail}")
+            log(f"  {failures[-1]}")
+            out[tag] = dict(rc=rc, seconds=secs, error=res.get("error"))
+            continue
+        cfg = configs.get_config(arch)
+        want = shard_bytes(cfg, shape, _MeshShape(*MESH_NAMES[name]))
+        mem, r = res["memory"], res["roofline"]
+        peak = mem["argument_bytes"] + mem["temp_bytes"]
+        coll = {k: v for k, v in res["collectives"].items() if k != "total"}
+        log(f"  18b {tag} ({res['mesh']}, {res['chips']} cards): trace "
+            f"{res['compile_s']} s ({secs:.1f} s with start-up), "
+            f"{res['ops']} ops; per device argument {mem['argument_bytes']} "
+            f"bytes (rules' shards {want}), temp {mem['temp_bytes']}, peak "
+            f"{peak} ({peak / 1e9:.2f} GB, fits {HBM_BYTES / 1e9:.2f} GB: "
+            f"{peak <= HBM_BYTES}); collective bytes {coll} in "
+            f"{res.get('collective_calls')} calls; compute "
+            f"{r['compute_s']:.4e} s, memory {r['memory_s']:.4e} s, "
+            f"collective {r['collective_s']:.4e} s: {r['dominant']}")
+        if mem["argument_bytes"] != want:
+            failures.append(f"18b {tag}: argument bytes "
+                            f"{mem['argument_bytes']} != the rules' {want}")
+            log(f"  {failures[-1]}")
+        out[tag] = dict(rc=rc, seconds=secs, mesh=res["mesh"],
+                        chips=res["chips"], trace_s=res["compile_s"],
+                        ops=res["ops"], memory=mem, rules_bytes=want,
+                        peak=peak, fits=peak <= HBM_BYTES,
+                        collectives=res["collectives"],
+                        collective_calls=res.get("collective_calls"),
+                        roofline=r)
+    return out
+
+
+def _phase18c_launcher(tmp, failures):
+    """18c: the train launcher with ``--distributed`` under a world of
+    one, 2 steps of the reduced Qwen2.5-3B on the card."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **_world_of_one())
+    cmd = [sys.executable, "-m", "repro_torch.launch.train",
+           "--distributed", "--arch", "qwen2.5-3b", "--reduced", "--steps",
+           "2", "--ckpt", str(Path(tmp) / "ckpt")]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    secs = time.perf_counter() - t
+    log(f"  18c {' '.join(cmd[1:])}: exit {proc.returncode} in "
+        f"{secs:.1f} s")
+    if proc.returncode != 0:
+        failures.append(f"18c: the launcher exited {proc.returncode}: "
+                        f"{proc.stderr[-2000:]}")
+    return dict(cmd=cmd[1:], rc=proc.returncode, seconds=secs)
+
+
+def phase_device_mesh(dev, seed, failures):
+    """Phase 18a-c (18d runs after phase 9, on its index): see the module
+    docstring."""
+    import tempfile
+    from repro_torch.dist import ctx as dctx
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = _start_dryruns(tmp)
+        try:
+            _reset_counts()                 # the mesh path starts here
+            step = _phase18a_sharded_step(dev, seed, failures)
+            launcher = _phase18c_launcher(tmp, failures)
+            launches = _all_counts()        # and ends here
+        finally:
+            dryruns = _phase18b_dryruns(procs, tmp, failures)
+    if launches:
+        failures.append(f"18: a kernel launched: {launches}")
+    if dctx.current_mesh() is not None:
+        failures.append("18: a mesh stayed current")
+    return {"18a": step, "18b": dryruns, "18c": launcher,
+            "launches": launches}
+
+
+def phase_distinct_shards(dev, ctx, sim_cases, failures):
+    """18d: phase 9's index over a ``WideMesh`` of (card, CPU, card, CPU);
+    see the module docstring."""
+    from repro_torch.core import aggregate
+    from repro_torch.dist import WideMesh
+    from repro_torch.kernels import segment_ops as so
+    from repro_torch.kernels import topk_ops as tk
+    index = ctx["index"]
+    cpu = torch.device("cpu")
+    mesh = WideMesh([dev, cpu, dev, cpu])
+    _reset_counts()                         # the distinct-device path
+    t = time.perf_counter()
+    shards = index.arena.shard_slabs(mesh)
+    shards.sync()
+    slabs_s = time.perf_counter() - t
+    on_card = [int(b.numel() * 4) for b in shards._bufs]
+
+    def gathered():
+        return sum(st.rows_gathered for st in shards.stats)
+
+    cases = [c for c in sim_cases if not c["term"].startswith("unknown")]
+    cases = cases[::max(1, len(cases) // DISTINCT_SIM)][:DISTINCT_SIM]
+    wrong, rows, ms = 0, [], []
+    for c in cases:
+        g0 = gathered()
+        t = time.perf_counter()
+        got = index.similar(c["term"], c["k"], c["metric"], mesh=mesh)
+        ms.append((time.perf_counter() - t) * 1e3)
+        rows.append(gathered() - g0)
+        wrong += not _same_sim(got, c["answer"])
+    bool_wrong, bool_rows = 0, {}
+    for cls in CLASSES:
+        plans = [_plan(index, cls, q)
+                 for q in ctx["traffic"][cls][:DISTINCT_BOOL]]
+        g0 = gathered()
+        outs = aggregate.execute_plans(plans, mesh=mesh)
+        bool_rows[cls] = (gathered() - g0) / max(1, len(plans))
+        bool_wrong += sum(not np.array_equal(_to_packed(g), w) for g, w in
+                          zip(outs, ctx["answers"][cls]))
+    # warm: the boolean queries and the cheapest similarity query again
+    # upload no row (the first pass may patch a row an earlier phase edited)
+    up0 = sum(st.rows_uploaded for st in shards.stats)
+    cheap = cases[int(np.argmin(rows))]
+    wrong += not _same_sim(index.similar(cheap["term"], cheap["k"],
+                                         cheap["metric"], mesh=mesh),
+                           cheap["answer"])
+    for cls in CLASSES:
+        again = [_plan(index, cls, q)
+                 for q in ctx["traffic"][cls][:DISTINCT_BOOL]]
+        bool_wrong += sum(
+            not np.array_equal(_to_packed(g), w) for g, w in zip(
+                aggregate.execute_plans(again, mesh=mesh),
+                ctx["answers"][cls]))
+    warm = sum(st.rows_uploaded for st in shards.stats) - up0
+    launches = {**dict(tk.launches_by_stage),
+                "segment_reduce": so.launches}
+    log(f"  18d {mesh}: slabs {on_card} bytes, built in {slabs_s:.2f} s; "
+        f"{len(cases)} similar(mesh=) queries, wrong {wrong}, p50 "
+        f"{np.percentile(ms, 50):.1f} ms, rows gathered across devices a "
+        f"query {rows}; {DISTINCT_BOOL} execute_plans(mesh=) queries of "
+        f"each class, wrong {bool_wrong}, rows gathered a query "
+        f"{bool_rows}; rows uploaded by a warm pass {warm}; launches "
+        f"{launches}")
+    if wrong or bool_wrong:
+        failures.append(f"18d: {wrong} similarity and {bool_wrong} boolean "
+                        f"answers differ from the single-device answers")
+    if warm:
+        failures.append(f"18d: a warm pass uploaded {warm} rows")
+    if not sum(rows) or not any(bool_rows.values()):
+        failures.append(f"18d: no query gathered a row across devices: "
+                        f"{rows} {bool_rows}")
+    if min(launches[k] for k in (*IDS_STAGES, "segment_reduce")) == 0:
+        failures.append(f"18d: a card shard launched no kernel {launches}")
+    return dict(mesh=str(mesh), slab_bytes=on_card, slabs_s=slabs_s,
+                sim_queries=len(cases), sim_wrong=wrong,
+                sim_rows_gathered=rows, sim_ms=ms, bool_wrong=bool_wrong,
+                bool_rows_gathered=bool_rows, rows_uploaded=warm,
+                launches=launches)
+
+
+# ---------------------------------------------------------------------------
 
 def _build_all():
     """Build every kernel source at once, one nvcc each, in parallel.
@@ -5908,8 +6252,8 @@ def _kernel_line(main_path, sim, cases, topk_cases, max_err, topk_err,
              jamba_shape={k: jamba_case[k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                  "max_abs_err", "shape")})]
-    # launches in phases 13 to 17 (``later``: the counts by kernel),
-    # whose model paths run no kernel of the port
+    # launches in phases 13 to 18 (``later``: the counts by kernel), whose
+    # paths run no kernel of the port but 18d's card shards
     count_key = {"similarity_score": "score", "similarity_select": "select",
                  "similarity_score_ids": "score_ids",
                  "topk_merge": "select_ids"}
@@ -6045,6 +6389,8 @@ def main() -> int:
         "6 / 7 / 8 / 9: " + "  ".join(
             f"{k} " + " / ".join(str(p.get(k)) for p in per_phase)
             for k in (*CONVERT_KERNELS, *SECTION4_KERNELS)))
+    distinct = phase("18d (arena shards on distinct devices)",
+                     phase_distinct_shards, dev, ctx, sim_cases, failures)
     cold = phase("11 (cold start and ingest at real scale)",
                  phase_cold_start, dev, ctx, sim_cases, args.seed, failures)
     cold_launches = {k: sum(cold[i]["launches"].get(k, 0) for i in
@@ -6105,6 +6451,14 @@ def main() -> int:
     calibration = phase("17 (the dry run's peak memory against the card's)",
                         phase_dryrun_calibration, dev, args.seed, failures)
 
+    # phase 18 after phase 17 has released its models
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh18 = phase("18 (the device mesh: the sharded train step, the "
+                   "production meshes' dry run, the launcher)",
+                   phase_device_mesh, dev, args.seed, failures)
+    mesh18["18d"] = distinct
+
     kernels = _kernel_line(main_path, sim, cases, topk_cases, max_err,
                            topk_err, pair_cases, pair_err, pairwise,
                            convert_cases, convert_err, tensor,
@@ -6114,7 +6468,9 @@ def main() -> int:
                                    "14": xlstm["launches"],
                                    "15": training["launches"],
                                    "16": families["launches"],
-                                   "17": calibration["launches"]})
+                                   "17": calibration["launches"],
+                                   "18": mesh18["launches"],
+                                   "18d": distinct["launches"]})
     REPORT.parent.mkdir(exist_ok=True)
     REPORT.write_text(json.dumps(dict(
         card=card, builds=builds, kernel_cases=cases,
@@ -6126,6 +6482,7 @@ def main() -> int:
         bsa_cases=bsa_cases, serving=serving, jamba=jamba,
         deepseek=deepseek, xlstm_hubert=xlstm, training=training,
         training_families=families, dryrun_calibration=calibration,
+        device_mesh=mesh18,
         bsa_launches_per_phase=bsa_per_phase,
         kernels=kernels["kernels"],
         phases_s=phases, failures=failures,

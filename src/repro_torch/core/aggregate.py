@@ -659,7 +659,9 @@ def _shard_reduce_arena(arena, seg_rows: list[list], seg_sizes: list[int],
     (``ShardSlabs.assembled``; ids cross to the card, never container
     words) and its cold rows from a small staged block whose row 0 is
     zero, so ``table[pos] | staged[sidx]`` selects each slot's one real
-    row.  A cold slot's position is 0, the arena's reserved zero row."""
+    row.  A cold slot's position is 0, the arena's reserved zero row.
+    Where the shards sit on distinct devices each shard's resident rows
+    are gathered to its device first (``ShardSlabs.gather``)."""
     shards = arena.shard_slabs(mesh)
     devices = mesh.devices
     ids, wts, starts = _shard_plan(seg_sizes, len(devices), op, seg_weights)
@@ -668,31 +670,39 @@ def _shard_reduce_arena(arena, seg_rows: list[list], seg_sizes: list[int],
     flat = [r for rows in seg_rows for r in rows]
     pos = np.zeros(len(flat), np.int64)
     sidx = np.zeros(len(flat), np.int64)
+    rid = np.full(len(flat), -1, np.int64)      # resident slots' row ids
     host: list[np.ndarray] = []
-    res_slots, res_ids = [], []
     for i, r in enumerate(flat):
         if isinstance(r, np.ndarray):
             sidx[i] = 1 + len(host)         # staged row 0: reserved zero
             host.append(r)
         else:
-            res_slots.append(i)
-            res_ids.append(r)
-    if res_slots:
-        pos[res_slots] = shards.positions(res_ids)
-    staged = None                           # one block: one device
+            rid[i] = r
+    res = rid >= 0
+    if res.any() and not shards.distinct:
+        pos[res] = shards.positions(rid[res])
+    hb = None
     if host:
         hb = np.zeros((1 + len(host), 1024), np.uint64)
         hb[1:] = np.stack(host)
-        staged = torch.from_numpy(hb.view(np.int32).reshape(-1, WORDS)) \
-            .to(shards.device)
+        hb = torch.from_numpy(hb.view(np.int32).reshape(-1, WORDS))
         arena.stats.host_rows_staged += len(host)
     for st in shards.stats:
         st.device_gathers += 1
-    table = shards.assembled()
+    # one device: every shard reads the one buffer and one staged block;
+    # distinct devices: each shard's rows gathered to it (ShardSlabs.gather)
+    table = None if shards.distinct else shards.assembled()
+    staged = None if hb is None or shards.distinct else hb.to(shards.device)
     partials = []
-    for dev, ids_d, w_d, st_d in zip(devices, ids, wts, starts):
+    for d, (dev, ids_d, w_d, st_d) in enumerate(zip(devices, ids, wts,
+                                                    starts)):
         sel = np.asarray(ids_d, np.int64)
-        pos_t, sidx_t, w_t, st_t = _upload(dev, pos[sel], sidx[sel], w_d,
+        pos_d = pos[sel]
+        if shards.distinct:
+            mine = np.flatnonzero(res[sel])
+            table, pos_d[mine] = shards.gather(rid[sel[mine]], dev, d)
+            staged = None if hb is None else hb.to(dev)
+        pos_t, sidx_t, w_t, st_t = _upload(dev, pos_d, sidx[sel], w_d,
                                            st_d)
         jmax = _jmax(st_d)
         if staged is None:

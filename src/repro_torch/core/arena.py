@@ -74,6 +74,15 @@ class ArenaStats:
 
 
 @dataclasses.dataclass
+class ShardStats(ArenaStats):
+    """A shard's :class:`ArenaStats`, and ``rows_gathered``: rows its
+    launches read from slabs on other devices (:meth:`ShardSlabs.gather`;
+    0 where every shard sits on one device)."""
+
+    rows_gathered: int = 0      # rows that crossed from another shard
+
+
+@dataclasses.dataclass
 class _Entry:
     """Per-registered-bitmap directory entry (strong refs keep ``id``
     keys valid for the arena's lifetime)."""
@@ -325,7 +334,9 @@ class BitmapArena:
         later calls return the same :class:`ShardSlabs`, whose
         slabs take the host's edits shard by shard (only shards owning
         dirty rows patch).  Another mesh rebuilds.  ``mesh=None`` reads
-        the installed mesh (``dist.ctx.resolve_wide``)."""
+        the installed mesh (``dist.ctx.resolve_wide``).  Shards may sit on
+        one device (one buffer) or on distinct ones (one slab each; see
+        :class:`ShardSlabs`)."""
         from repro_torch.dist import ctx
         mesh, size, _ = ctx.resolve_wide(mesh)
         if mesh is None:
@@ -353,11 +364,17 @@ class ShardSlabs:
       so pad slots and cold rows point at it as in the JAX package.  (A
       shard's own slab has no such row: its local row 0 is global row
       ``s``, which holds data on every shard ``s >= 1``.)
-    * Every shard of the mesh must sit on one device (S slabs on one card,
-      or on the CPU): a shard's rows can then be read by every other
-      shard's launch.  Shards on distinct devices would need a
-      cross-device gather of the rows they read, which is not ported;
-      ``BitmapArena.shard_slabs`` raises for such a mesh.
+    * Where every shard of the mesh sits on one device (S slabs on one
+      card, or on the CPU), a shard's rows can be read by every other
+      shard's launch in place.  Where the shards sit on distinct devices
+      (``distinct``), shard ``s``'s slab is its own ``(cap_s, WORDS)``
+      buffer on ``mesh.devices[s]``, as the JAX package places one slab a
+      device, and a launch reads the rows it needs through
+      :meth:`gather`: each owner selects its rows on its own device, the
+      selection crosses to the launch's device (``.to``), and the rows
+      that crossed are counted in the reading shard's
+      ``stats[s].rows_gathered``.  A shard on the meta device holds no
+      rows: such a mesh raises.
     * Host edits batch into one out-of-place patch of the buffer; only
       shards owning dirty rows take rows, and a slab handed out earlier
       keeps its contents (copy-on-write).  Growth pads each shard on the
@@ -370,28 +387,32 @@ class ShardSlabs:
     """
 
     def __init__(self, arena: BitmapArena, mesh, size: int):
-        devices = set(mesh.devices)
-        if len(devices) != 1:
-            raise NotImplementedError(
-                f"per-shard arena slabs need every shard on one device; "
-                f"the mesh spans {sorted(map(str, devices))}")
+        self.distinct = len(set(mesh.devices)) > 1
+        if self.distinct and any(d.type == "meta" for d in mesh.devices):
+            raise ValueError(
+                f"per-shard arena slabs on distinct devices hold rows on "
+                f"each; the mesh has a meta device "
+                f"({sorted(map(str, set(mesh.devices)))})")
         self.arena = arena
         self.mesh = mesh
         self.size = int(size)
         self.device = mesh.devices[0]
         self.cap_s = 0
         self._buf: torch.Tensor | None = None    # (S * cap_s, WORDS) int32
+        self._bufs: list[torch.Tensor] | None = None  # distinct: one a shard
         self._pending: set[int] = set()      # global rows dirty since flush
-        self.stats = [ArenaStats() for _ in range(self.size)]
+        self.stats = [ShardStats() for _ in range(self.size)]
 
     def note_many(self, ids) -> None:
         """Mark global rows dirty (the arena calls this on host edits)."""
-        if self._buf is not None:
+        if self._buf is not None or self._bufs is not None:
             self._pending.update(int(r) for r in ids)
 
     def _ensure(self) -> None:
         """Build the slabs at first use; afterwards grow them (zero rows
         on the device) and flush pending rows (one out-of-place patch)."""
+        if self.distinct:
+            return self._ensure_distinct()
         S = self.size
         host = self.arena._host
         need = -(-host.shape[0] // S)
@@ -426,6 +447,71 @@ class ShardSlabs:
                 self.stats[s].rows_patched += int(n)
             self._pending.clear()
 
+    def _ensure_distinct(self) -> None:
+        """:meth:`_ensure` for shards on distinct devices: shard ``s``'s
+        slab on ``mesh.devices[s]``, grown and patched there alone."""
+        S = self.size
+        host = self.arena._host
+        need = -(-host.shape[0] // S)
+        if self._bufs is None:
+            self._bufs = []
+            for s, dev in enumerate(self.mesh.devices):
+                block = np.zeros((need, 1024), np.uint64)
+                rows_s = host[s::S]
+                block[: rows_s.shape[0]] = rows_s
+                self.stats[s].rows_uploaded += max(
+                    0, -(-(self.arena._n - s) // S))
+                self._bufs.append(torch.from_numpy(
+                    block.view(np.int32).reshape(-1, WORDS)).to(dev))
+            self.cap_s = need
+            self._pending.clear()
+            return
+        if need > self.cap_s:
+            for s, buf in enumerate(self._bufs):
+                grown = torch.zeros((need, WORDS), dtype=torch.int32,
+                                    device=buf.device)
+                grown[: self.cap_s] = buf
+                self._bufs[s] = grown
+            self.cap_s = need
+        if self._pending:
+            rids = np.array(sorted(self._pending), np.int64)
+            for s in np.unique(rids % S):
+                mine = rids[rids % S == s]
+                rows = torch.from_numpy(np.ascontiguousarray(
+                    host[mine]).view(np.int32).reshape(len(mine), WORDS))
+                dev = self.mesh.devices[s]
+                self._bufs[s] = self._bufs[s].index_put(
+                    (torch.from_numpy(mine // S).to(dev),), rows.to(dev))
+                self.stats[s].rows_uploaded += len(mine)
+                self.stats[s].rows_patched += len(mine)
+            self._pending.clear()
+
+    def gather(self, ids, device, reader: int):
+        """Rows of global ids ``ids`` for a launch on ``device`` by shard
+        ``reader``, from slabs on distinct devices: -> (a ``(1 + U,
+        WORDS)`` int32 table on ``device`` whose row 0 is zero and whose
+        other rows are the U distinct ids' rows, the position of each id
+        in it (numpy int64)).  Each owner selects its rows on its own
+        device; the rows that cross to ``device`` from another are counted
+        in ``stats[reader].rows_gathered``."""
+        self._ensure()
+        ids = np.asarray(ids, np.int64)
+        uniq, inv = np.unique(ids, return_inverse=True)
+        at = np.zeros(uniq.size, np.int64)
+        parts = [torch.zeros((1, WORDS), dtype=torch.int32, device=device)]
+        n = 1
+        for s in np.unique(uniq % self.size):
+            sel = np.flatnonzero(uniq % self.size == s)
+            owner = self.mesh.devices[s]
+            rows = self._bufs[s].index_select(
+                0, torch.from_numpy(uniq[sel] // self.size).to(owner))
+            parts.append(rows.to(device))
+            if owner != device:
+                self.stats[reader].rows_gathered += int(sel.size)
+            at[sel] = n + np.arange(sel.size)
+            n += sel.size
+        return torch.cat(parts), at[inv.reshape(-1)]
+
     def positions(self, ids) -> np.ndarray:
         """Positions of global rows ``ids`` in :meth:`assembled`:
         ``(r % S) * cap_s + r // S``, the JAX package's numbers (numpy;
@@ -436,17 +522,24 @@ class ShardSlabs:
 
     def assembled(self) -> torch.Tensor:
         """The ``(S * cap_s, WORDS)`` int32 buffer of every shard's slab,
-        flushed; index it with :meth:`positions`."""
+        flushed; index it with :meth:`positions`.  On distinct devices the
+        slabs are joined on the mesh's first device (a copy: the sharded
+        paths read through :meth:`gather` instead)."""
         self._ensure()
+        if self.distinct:
+            return torch.cat([b.to(self.device) for b in self._bufs])
         return self._buf
 
     def shard_slab(self, s: int) -> torch.Tensor:
         """Shard ``s``'s ``(cap_s, WORDS)`` int32 slab (a view), flushed."""
         self._ensure()
+        if self.distinct:
+            return self._bufs[s]
         return self._buf[s * self.cap_s:(s + 1) * self.cap_s]
 
     def sync(self) -> None:
-        """Flush every shard and wait for the device."""
+        """Flush every shard and wait for its device."""
         self._ensure()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in set(self.mesh.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)

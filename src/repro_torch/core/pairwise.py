@@ -924,11 +924,16 @@ class SimilarityEngine:
         if _is_member(query):
             s, e = int(self.starts[query]), int(self.starts[query + 1])
             if s < e:
-                pos = shards.positions(self.row_ids[s:e])
+                if shards.distinct:
+                    table, pos = shards.gather(self.row_ids[s:e],
+                                               shards.device, 0)
+                else:
+                    table = shards.assembled()
+                    pos = shards.positions(self.row_ids[s:e])
                 out.index_copy_(
                     0, torch.from_numpy(self.row_col[s:e].astype(np.int64))
                     .to(shards.device),
-                    shards.assembled().index_select(
+                    table.index_select(
                         0, torch.from_numpy(pos).to(shards.device)))
             return out
         cols, rows = self._bitmap_rows(query)
@@ -978,7 +983,9 @@ class SimilarityEngine:
             starts = np.zeros(slots + 1, np.int64)
             starts[1: cs.size + 1] = np.cumsum(lens)
             starts[cs.size + 1:] = starts[cs.size]
-            pos = shards.positions(self.row_ids[ridx])
+            # distinct devices: the row ids, gathered at launch time
+            pos = self.row_ids[ridx] if shards.distinct else \
+                shards.positions(self.row_ids[ridx])
             out.append((int(cs.size), int(ridx.size), np.concatenate(
                 [pos, self.row_col[ridx], starts, gidx, cards]).astype(
                     np.int32)))
@@ -992,18 +999,23 @@ class SimilarityEngine:
         k-lists are gathered on the merge device (the mesh's first) and
         one labelled select merges them.  Ties go to the lowest global
         candidate index at both selects, so the answer is the
-        single-device route's."""
+        single-device route's.  Where the shards sit on distinct devices
+        each shard's survivor rows are gathered to it first
+        (``ShardSlabs.gather``)."""
         shards = self._arena.shard_slabs(self._mesh)
         plan = self._plan_sharded(self._query_words(query), qc, k, metric,
                                   exclude, shards)
         q_words = self._query_words_dev_sharded(query, shards)
-        table = shards.assembled()
+        table = None if shards.distinct else shards.assembled()
         for st in shards.stats:
             st.device_gathers += 1
         merge = self._mesh.devices[0]
         ex = -1 if exclude is None else exclude
         lists = []
-        for (n_valid, r, ints), dev in zip(plan, self._mesh.devices):
+        for d, ((n_valid, r, ints), dev) in enumerate(zip(
+                plan, self._mesh.devices)):
+            if shards.distinct:       # the shard's rows gathered to it
+                table, ints[:r] = shards.gather(ints[:r], dev, d)
             ints = torch.from_numpy(ints).to(dev)      # one copy a shard
             slots = (ints.shape[0] - 2 * r - 1) // 3
             pos, col, starts, gidx, cards = ints.split(

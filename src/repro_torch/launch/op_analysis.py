@@ -50,8 +50,20 @@ Ops with no tensor on the traced device (the optimizer's host scalars)
 are not counted.  A kernel wrapper that cannot run on meta tensors gives
 their output shape and charges its own work with :func:`charge`; the
 block-sparse decode attention (row 17) does, as a dense upper bound,
-since on meta the mask is unknown.  Collectives: one card has none, so
-their counts are 0.
+since on meta the mask is unknown.
+
+Under a device mesh (DTensor arguments) the counts are one device's.
+The mode sees each op first with DTensor arguments, the global op; it
+declines it (``NotImplemented``), so DTensor dispatches it with the mode
+still active, and the mode then counts what DTensor runs on the local
+shards: the local op, and the collectives DTensor issues to redistribute
+its operands (``_c10d_functional`` ops).  A collective's operand bytes
+count under the JAX package's name for it (``all_reduce`` as
+"all-reduce", ``all_gather_into_tensor`` "all-gather",
+``reduce_scatter_tensor`` "reduce-scatter", ``all_to_all_single``
+"all-to-all"), not in ``bytes``; its output is live memory as any op's.
+The global ops DTensor runs on fake tensors to propagate shapes are not
+counted.  One card has no collectives: there their counts are 0.
 
     with OpAnalysis(device="meta") as oa:
         oa.pin(params, batch)
@@ -87,9 +99,38 @@ _WRITE_ONLY = {"fill", "zero", "full", "zeros", "ones", "full_like",
                "zeros_like", "ones_like", "new_zeros", "new_ones",
                "new_full", "scalar_tensor", "arange"}
 _GATHER = {"index", "index_select", "gather", "embedding"}
+# DTensor's functional collectives: op name -> the JAX package's name
+_COLLECTIVE_OPS = {"all_reduce": "all-reduce",
+                   "all_reduce_coalesced": "all-reduce",
+                   "all_gather_into_tensor": "all-gather",
+                   "all_gather_into_tensor_coalesced": "all-gather",
+                   "reduce_scatter_tensor": "reduce-scatter",
+                   "reduce_scatter_tensor_coalesced": "reduce-scatter",
+                   "all_to_all_single": "all-to-all"}
+_FREE_COLLECTIVE = {"wait_tensor", "_wrap_tensor_autograd"}
 _SCATTER_INPLACE = {"index_put_", "_index_put_impl_", "index_add_",
                     "index_copy_", "scatter_", "scatter_add_",
                     "scatter_reduce_"}
+
+
+def _dtensor_type():
+    """DTensor's class where ``torch.distributed.tensor`` is loaded, else
+    None (no DTensor can exist then)."""
+    import sys
+    mod = sys.modules.get("torch.distributed.tensor")
+    return None if mod is None else mod.DTensor
+
+
+def local_tensor(t):
+    """A DTensor's local shard; any other value as it is."""
+    dt = _dtensor_type()
+    return t._local_tensor if dt is not None and isinstance(t, dt) else t
+
+
+def _in_fake_mode() -> bool:
+    """True while DTensor propagates shapes on fake tensors."""
+    return any(type(m).__name__ == "FakeTensorMode"
+               for m in _get_current_dispatch_mode_stack())
 
 
 def alloc_bytes(nbytes: int) -> int:
@@ -209,6 +250,8 @@ class OpAnalysis(TorchDispatchMode):
         self.transcendentals = 0.0
         self.ops = 0
         self.bytes_by_op: dict[str, float] = {}
+        self.collectives = {c: 0.0 for c in COLLECTIVES}
+        self.collective_calls = 0
         self.charged: dict[str, dict] = {}
         self.argument_bytes = 0
         self.live_bytes = 0
@@ -229,7 +272,7 @@ class OpAnalysis(TorchDispatchMode):
         """Count the tensors of ``trees`` (nested dicts, lists and tuples)
         as the step's arguments: live throughout, each
         storage once.  Returns the argument bytes."""
-        for t in tree_flatten(trees)[0]:
+        for t in map(local_tensor, tree_flatten(trees)[0]):
             if self._on_device(t):
                 st = t.untyped_storage()
                 key = st._cdata
@@ -302,6 +345,15 @@ class OpAnalysis(TorchDispatchMode):
                 self.bytes - before
 
     def _count_work(self, func, name, args, ins, outs) -> None:
+        if func.namespace == "_c10d_functional":
+            kind = _COLLECTIVE_OPS.get(name)
+            if kind is not None:
+                self.collectives[kind] += sum(_nbytes(t) for t in ins)
+                self.collective_calls += 1
+            elif name not in _FREE_COLLECTIVE:
+                raise NotImplementedError(f"collective {func} is not "
+                                          f"counted")
+            return
         base = name.rstrip("_")
         if name in _MATMUL:
             self.flops += 2.0 * outs[0].numel() * _contracting(name, args)
@@ -349,6 +401,11 @@ class OpAnalysis(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        dt = _dtensor_type()
+        if dt is not None and any(issubclass(t, dt) for t in types):
+            return NotImplemented       # DTensor runs it; local ops come back
+        if _in_fake_mode():
+            return func(*args, **kwargs)
         if self.device.type == "meta":
             out = self._run(func, args, kwargs)
         else:
@@ -367,14 +424,17 @@ class OpAnalysis(TorchDispatchMode):
         return out
 
     def result(self) -> dict:
-        """``hlo_analysis.analyze_text``'s keys (collectives 0), and the
+        """``hlo_analysis.analyze_text``'s keys (collective operand bytes
+        by kind, 0 off a mesh), the collectives issued, and the
         memory: argument bytes, the peak of live bytes, temp bytes (the
         peak less the arguments), and at the peak the op whose output
         reached it and the live bytes by the op that made them; and the
         bytes by op."""
         out = {"flops": self.flops, "bytes": self.bytes,
                "transcendentals": self.transcendentals,
-               **{c: 0.0 for c in COLLECTIVES}, "collective_total": 0.0,
+               **self.collectives,
+               "collective_total": sum(self.collectives.values()),
+               "collective_calls": self.collective_calls,
                "ops": self.ops, "argument_bytes": self.argument_bytes,
                "peak_bytes": self.peak_bytes,
                "temp_bytes": self.peak_bytes - self.argument_bytes,

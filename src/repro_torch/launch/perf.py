@@ -5,10 +5,17 @@ package's ``launch/perf.py``, for one H100.
     PYTHONPATH=src python -m repro_torch.launch.perf --arch xlstm-350m \\
         --shape train_4k --set xlstm_chunk=64 --tag chunked_mlstm
 
-The baseline is the dry run's JSON of the same cell
-(``--baseline``/``<arch>-<shape>.json``, ``launch.dryrun``'s name); the
-result goes to ``--out``/``<arch>-<shape>-<tag>.json``.  The JAX
-package's ``--multi-pod`` has no counterpart: the port has one card.
+    PYTHONPATH=src python -m repro_torch.launch.perf --arch qwen3-14b \\
+        --shape train_4k --mesh single --tag base
+
+The baseline is the dry run's JSON of the same cell and mesh
+(``--baseline``/``<arch>-<shape>[-single|-multi].json``,
+``launch.dryrun``'s name); the result goes to
+``--out``/``<arch>-<shape>[-single|-multi]-<tag>.json``.  ``--mesh``
+traces one card (``1``, the default) or one device of a production mesh
+(``single``: 16 x 16; ``multi``: 2 x 16 x 16, which the JAX package's
+``--multi-pod`` names and which ``--multi-pod`` names here too), on the
+fake process-group backend as ``launch.dryrun`` does.
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ import json
 import os
 
 from repro_torch import configs as C
-from repro_torch.launch.dryrun import trace_cell
+from repro_torch.launch.dryrun import production_mesh, trace_cell
 
 
 def main(argv=None):
@@ -32,7 +39,11 @@ def main(argv=None):
     ap.add_argument("--tag", required=True)
     ap.add_argument("--baseline", default="results/dryrun")
     ap.add_argument("--out", default="results/perf")
+    ap.add_argument("--mesh", default="1", choices=["1", "single", "multi"])
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the (2, 16, 16) mesh: --mesh multi")
     args = ap.parse_args(argv)
+    mesh_name = "multi" if args.multi_pod else args.mesh
 
     cfg = C.get_config(args.arch)
     overrides = {}
@@ -47,13 +58,21 @@ def main(argv=None):
 
     os.makedirs(args.out, exist_ok=True)
     arch_key = C.ALIASES.get(args.arch, args.arch)
-    tag = f"{arch_key}-{args.shape}-{args.tag}"
-    res = trace_cell(cfg, args.shape)
+    suffix = "" if mesh_name == "1" else f"-{mesh_name}"
+    tag = f"{arch_key}-{args.shape}{suffix}-{args.tag}"
+    mesh = None if mesh_name == "1" else production_mesh(mesh_name)
+    try:
+        res = trace_cell(cfg, args.shape, mesh=mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
     res["overrides"] = overrides
     with open(os.path.join(args.out, tag + ".json"), "w") as f:
         json.dump(res, f, indent=1)
 
-    base_path = os.path.join(args.baseline, f"{arch_key}-{args.shape}.json")
+    base_path = os.path.join(args.baseline,
+                             f"{arch_key}-{args.shape}{suffix}.json")
     r = res["roofline"]
     print(f"\n=== {tag} ===")
     if os.path.exists(base_path):

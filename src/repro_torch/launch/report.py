@@ -1,11 +1,15 @@
 """Render the dry run's tables from results/dryrun/*.json: the port of
-the JAX package's ``launch/report.py``, for one H100.
+the JAX package's ``launch/report.py``, for H100s.
 
     PYTHONPATH=src python -m repro_torch.launch.report results/dryrun
 
 The dry-run and roofline tables are the JAX package's, read from the same
-keys; ``fit_section`` adds what one card needs to know: whether the
-cell's predicted peak (argument + temp bytes) fits the card's memory
+keys, with its mesh column ("1" for one card, "16x16" or "2x16x16" for a
+production mesh; every number is one device's) and its roofline table's
+``single_only`` (the 16 x 16 mesh's cells, named without their
+``-single``); ``fit_section`` adds
+what each card needs to know: whether the cell's predicted peak
+(argument + temp bytes) fits one card's memory
 (``launch.mesh.HBM_BYTES``), and the seconds each trace took.  The JAX
 package's ``--reanalyze`` re-reads saved HLO; the port saves none.
 """
@@ -64,7 +68,8 @@ def improvement_note(d):
 
 
 def dryrun_section(cells):
-    out = ["### Dry-run results (per cell, one H100)", "",
+    out = ["### Dry-run results (per cell, one H100 per device of its "
+           "mesh)", "",
            "| cell | mesh | status | compile | arg bytes/dev | temp "
            "bytes/dev | HLO GFLOPs/dev | coll bytes/dev | collectives |",
            "|---|---|---|---|---|---|---|---|---|"]
@@ -93,17 +98,22 @@ def dryrun_section(cells):
     return "\n".join(out)
 
 
-def roofline_section(cells):
-    out = ["### Roofline terms (one H100, per device)", "",
+def roofline_section(cells, single_only=False):
+    """The JAX package's roofline table; ``single_only`` keeps the
+    16 x 16 mesh's cells (``-single``) under their cell names, as the JAX
+    package's report does by default."""
+    out = ["### Roofline terms (one H100 per device, H100 peaks)", "",
            "| arch x shape | compute | memory | collective | dominant | "
            "MODEL_FLOPS/HLO | note |",
            "|---|---|---|---|---|---|---|"]
     for name, d in cells:
         if "roofline" not in d:
             continue
+        if single_only and not name.endswith("-single"):
+            continue
         r = d["roofline"]
         out.append(
-            f"| {name} | {fmt_s(r['compute_s'])} "
+            f"| {name.replace('-single', '')} | {fmt_s(r['compute_s'])} "
             f"| {fmt_s(r['memory_s'])} | {fmt_s(r['collective_s'])} "
             f"| **{r['dominant']}** | {r['model_to_hlo_flops']:.2f} "
             f"| {improvement_note(d)} |")
@@ -113,21 +123,22 @@ def roofline_section(cells):
 def fit_section(cells):
     """Each traced cell's predicted peak against one card's memory, its
     two roofline terms, and its trace seconds."""
-    out = [f"### Memory fit and roofline (one H100, {HBM_BYTES / 1e9:.2f} "
+    out = [f"### Memory fit and roofline (per H100, {HBM_BYTES / 1e9:.2f} "
            f"GB)", "",
-           "| cell | arg GB | temp GB | peak GB | fits | compute | memory "
-           "| dominant | MODEL/HLO | trace s |",
-           "|---|---|---|---|---|---|---|---|---|---|"]
+           "| cell | mesh | arg GB | temp GB | peak GB | fits | compute "
+           "| memory | collective | dominant | MODEL/HLO | trace s |",
+           "|---|---|---|---|---|---|---|---|---|---|---|---|"]
     for name, d in cells:
         if "roofline" not in d:
             continue
         m, r = d["memory"], d["roofline"]
         peak = m["argument_bytes"] + m["temp_bytes"]
         out.append(
-            f"| {name} | {m['argument_bytes'] / 1e9:.2f} "
+            f"| {name} | {d['mesh']} | {m['argument_bytes'] / 1e9:.2f} "
             f"| {m['temp_bytes'] / 1e9:.2f} | {peak / 1e9:.2f} "
             f"| {'yes' if peak <= HBM_BYTES else 'no'} "
             f"| {fmt_s(r['compute_s'])} | {fmt_s(r['memory_s'])} "
+            f"| {fmt_s(r['collective_s'])} "
             f"| {r['dominant']} | {r['model_to_hlo_flops']:.2f} "
             f"| {d['compile_s']} |")
     return "\n".join(out)

@@ -8,11 +8,18 @@ Roaring data pipeline, checkpoints and resume.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
         --reduced --device cpu --steps 20
 
+    torchrun --nproc-per-node 8 -m repro_torch.launch.train \
+        --distributed --arch qwen2.5-3b --steps 8
+
 It trains every config the repo ships (``--arch`` any of the ten, or its
-alias), on tokens from the pipeline.  The JAX launcher's
-``--distributed`` (``jax.distributed``) has no counterpart here (ROADMAP
-Queue 1 item 7).  Checkpoints go to ``--ckpt`` (by default a directory
-under the system's temporary directory).
+alias), on tokens from the pipeline.  ``--distributed`` does what the JAX
+launcher's (``jax.distributed.initialize()``) does: it joins the process
+group that ``torchrun``'s environment describes (``nccl`` on the card,
+``gloo`` on the CPU), takes the card ``cuda:$LOCAL_RANK``, and destroys
+the group at exit; each process then trains as one would alone (the JAX
+``Trainer`` adds no data-parallel gradient sync, and neither does this).
+Checkpoints go to ``--ckpt`` (by default a directory under the system's
+temporary directory).
 """
 
 from __future__ import annotations
@@ -36,8 +43,27 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--distributed", action="store_true",
+                    help="join torchrun's process group (RANK, "
+                         "WORLD_SIZE, MASTER_ADDR, MASTER_PORT, "
+                         "LOCAL_RANK)")
     args = ap.parse_args(argv)
+    if not args.distributed:
+        return _train(args)
+    import torch
+    import torch.distributed as dist
+    cuda = args.device.startswith("cuda")
+    if cuda:
+        args.device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+        torch.cuda.set_device(args.device)
+    dist.init_process_group("nccl" if cuda else "gloo")
+    try:
+        return _train(args)
+    finally:
+        dist.destroy_process_group()
 
+
+def _train(args):
     from repro_torch import configs as C
     from repro_torch.data.pipeline import RoaringDataPipeline
     from repro_torch.optim.adamw import AdamWConfig

@@ -9,8 +9,8 @@ arithmetic: every product that JAX runs with
 ``preferred_element_type=float32`` upcasts both sides to float32 here (a
 bfloat16 ``torch.matmul`` would round the result), softmax statistics are
 float32, and the probabilities drop to the value dtype for the PV product as
-they do there.  The sharding notes (``ctx.constrain``) are no-ops on one
-device and are dropped.  Parameters are the attributes of the module ``p``
+they do there.  The sharding notes (``ctx.constrain``) are kept: they
+redistribute DTensors under a device mesh and are identities off it.  Parameters are the attributes of the module ``p``
 (``models.transformer.Attention``, ``MLA``), stored in the compute dtype
 for serving and as float32 masters for training, and read through
 ``cast``; norm scales stay float32.  ``weight`` and ``fill`` make every
@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.dist import ctx
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import block_mask_bits
 
@@ -105,8 +106,11 @@ class _GatherRows(torch.autograd.Function):
 
 
 def gather_rows(table, ids):
-    """``table[ids]`` (ids int64) with a deterministic backward."""
-    return _GatherRows.apply(table, ids)
+    """``table[ids]`` (ids int64) with a deterministic backward.  Under a
+    device mesh its data-dependent backward (a sort, ``bincount``, host
+    round sizes) has no DTensor sharding strategy: the table and ids are
+    replicated for it (``ctx.local_map``)."""
+    return ctx.local_map(_GatherRows.apply, (table, {}), (ids, {}))
 
 
 # ---------------------------------------------------------------------------
@@ -196,14 +200,37 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     qr = q.reshape(b, nq, qc, hkv, g, d)
     kr = k.reshape(b, nk, kc, hkv, d)
     vr = v.reshape(b, nk, kc, hkv, dv)
+    # keep attention tiles tensor-parallel under a mesh (the JAX package's
+    # constraints; identities off the mesh)
+    dp = ctx.dp_axes()
+    plan = ctx.attn_head_plan(hkv, g, qc)
+    qdims, kdims, cdims = {0: dp}, {0: dp}, {0: dp}  # carry (b, hkv, g, qc)
+    if plan == "hkv":
+        qdims[3] = kdims[3] = cdims[1] = "model"
+    elif plan == "g":
+        qdims[4] = cdims[2] = "model"
+    elif plan == "qc":
+        qdims[2] = cdims[3] = "model"
+    if plan != "auto":
+        # "auto" leaves the head sharding to the projections, as JAX does;
+        # the fresh carry (which GSPMD would shard by its use) keeps the
+        # batch sharding
+        qr = ctx.constrain(qr, qdims)
+        kr = ctx.constrain(kr, kdims)
+        vr = ctx.constrain(vr, kdims)
     qi, kj = _block_pairs(nq, qc, nk, kc, causal, window, block_skip)
     qpos_in = torch.arange(qc, device=q.device)
     kpos_in = torch.arange(kc, device=q.device)
-    out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
+    # a DTensor output is joined from its blocks (no slice writes into a
+    # sharded buffer); a plain one is written in place
+    sharded = ctx.is_dtensor(q)
+    out = None if sharded else torch.empty((b, s, h, dv), dtype=q.dtype,
+                                           device=q.device)
+    blocks = []
     for i in range(nq):
-        m = torch.full((b, hkv, g, qc), _NEG, device=q.device)
-        l = torch.zeros((b, hkv, g, qc), device=q.device)
-        acc = torch.zeros((b, hkv, g, qc, dv), device=q.device)
+        m = ctx.full((b, hkv, g, qc), _NEG, q, cdims)
+        l = ctx.full((b, hkv, g, qc), 0.0, q, cdims)
+        acc = ctx.full((b, hkv, g, qc, dv), 0.0, q, cdims)
         qb = qr[:, i].float()
         for j in kj[qi == i].tolist():
             sc = torch.einsum("bqhgd,bkhd->bhgqk", qb,
@@ -231,9 +258,12 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
         o = acc / torch.where(l > 0, l, 1.0)[..., None]
         o = torch.where((l > 0)[..., None], o, 0.0)
         # (b, hkv, g, qc, dv) -> (b, qc, h, dv)
-        out[:, i * qc:(i + 1) * qc] = o.permute(0, 3, 1, 2, 4).reshape(
-            b, qc, h, dv).to(q.dtype)
-    return out
+        o = o.permute(0, 3, 1, 2, 4).reshape(b, qc, h, dv).to(q.dtype)
+        if sharded:
+            blocks.append(o)
+        else:
+            out[:, i * qc:(i + 1) * qc] = o
+    return torch.cat(blocks, dim=1) if sharded else out
 
 
 # ---------------------------------------------------------------------------
@@ -267,11 +297,21 @@ def decode_attention_roaring(q, k_cache, v_cache, kv_len, block_mask_words,
                              *, block_size=128, scale=None, softcap=0.0,
                              backend=None):
     """Paper-technique decode path: the Roaring block-visibility kernel on
-    CUDA tensors, its plain version on the CPU or under ``backend="ref"``."""
-    return kops.decode_attention(q, k_cache, v_cache, block_mask_words,
-                                 kv_len, block_size=block_size,
-                                 sm_scale=scale, softcap=softcap,
-                                 backend=backend)
+    CUDA tensors, its plain version on the CPU or under ``backend="ref"``.
+    Under a device mesh the kernel (a ``ctypes`` launch, no DTensor
+    strategy) runs on each device's shards (``ctx.local_map``): the batch
+    over the data axes, the KV heads and their query groups over the model
+    axis where it divides them."""
+    ms = ctx.model_axis_size()
+    head = "model" if ms > 1 and k_cache.shape[1] % ms == 0 else None
+    dp = ctx.dp_axes()
+    return ctx.local_map(
+        lambda q_, k_, v_, w_, n_: kops.decode_attention(
+            q_, k_, v_, w_, n_, block_size=block_size, sm_scale=scale,
+            softcap=softcap, backend=backend),
+        (q, {0: dp, 1: head}), (k_cache, {0: dp, 1: head}),
+        (v_cache, {0: dp, 1: head}), (block_mask_words, {0: dp}),
+        (kv_len, {0: dp}))
 
 
 def visible_block_ids(block_mask_words, kv_len, n_blocks, block_size, topk):
@@ -385,10 +425,31 @@ def attn_prefill(x, p, cfg, mixer, positions, k_cache, v_cache):
     the layer's caches (B, Hkv, S_max, hd) in place."""
     q, k, v = _project_qkv(x, p, cfg, positions)
     out = _attend(q, k, v, cfg, mixer)
-    s = x.shape[1]
-    k_cache[:, :, :s] = k.transpose(1, 2)
-    v_cache[:, :, :s] = v.transpose(1, 2)
+    dims = {0: 0, 1: 1, 2: 2, 3: 3}
+    ctx.write_local(_write_prefix, k_cache, (k.transpose(1, 2), dims))
+    ctx.write_local(_write_prefix, v_cache, (v.transpose(1, 2), dims))
     return out_proj(out, p.wo)
+
+
+def _write_prefix(cache, new):
+    """The prompt's entries into the cache's first positions, in place: a
+    KV cache (B, Hkv, S_max, hd) from (B, Hkv, S, hd), or an MLA cache
+    (B, S_max, c) from (B, S, c)."""
+    if cache.dim() == 4:
+        cache[:, :, :new.shape[2]] = new
+    else:
+        cache[:, :new.shape[1]] = new
+
+
+def _write_column(cache, new, pos):
+    """cache[b, ..., pos[b]] = new[b] for each row b, in place: a KV cache
+    (B, Hkv, S, hd) column from new (B, Hkv, hd), or an MLA cache (B, S,
+    c) row from new (B, c)."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    if cache.dim() == 4:
+        cache[rows, :, pos.long()] = new
+    else:
+        cache[rows, pos.long()] = new
 
 
 def attn_decode(x_tok, p, cfg, mixer, k_cache, v_cache, pos,
@@ -404,10 +465,10 @@ def attn_decode(x_tok, p, cfg, mixer, k_cache, v_cache, pos,
     every other mixer the dense path."""
     x = x_tok[:, None, :]
     q, k, v = _project_qkv(x, p, cfg, positions=pos[:, None])
-    rows = torch.arange(x.shape[0], device=x.device)
-    col = pos.long()
-    k_cache[rows, :, col] = k[:, 0]
-    v_cache[rows, :, col] = v[:, 0]
+    ctx.write_local(_write_column, k_cache, (k[:, 0], {0: 0, 1: 1}),
+                    (pos, {0: 0}))
+    ctx.write_local(_write_column, v_cache, (v[:, 0], {0: 0, 1: 1}),
+                    (pos, {0: 0}))
     q = q[:, 0]
     kv_len = pos + 1
     if (mixer == "global" and cfg.roaring_sparse_global
@@ -517,9 +578,8 @@ def mla_prefill(x, p, cfg, positions, ckv_cache, kr_cache):
     the prompt's ckv and k_rope into the caches (B, S_max, kv_lora) / (B,
     S_max, rope) in place, as JAX's ``_mixer_prefill`` fills them."""
     out, ckv, k_rope = _mla_attend(x, p, cfg, positions)
-    s = x.shape[1]
-    ckv_cache[:, :s] = ckv
-    kr_cache[:, :s] = k_rope
+    ctx.write_local(_write_prefix, ckv_cache, (ckv, {0: 0, 1: 1, 2: 2}))
+    ctx.write_local(_write_prefix, kr_cache, (k_rope, {0: 0, 1: 1, 2: 2}))
     return out
 
 
@@ -586,10 +646,10 @@ def mla_decode(x_tok, p, cfg, ckv_cache, kr_cache, pos, *, ctx_f32):
     x = x_tok[:, None, :]
     q_nope, q_rope = _mla_q(x, p, cfg, pos[:, None])
     ckv_new, kr_new = _mla_ckv(x, p, cfg, pos[:, None])
-    rows = torch.arange(x.shape[0], device=x.device)
-    col = pos.long()
-    ckv_cache[rows, col] = ckv_new[:, 0]
-    kr_cache[rows, col] = kr_new[:, 0]
+    ctx.write_local(_write_column, ckv_cache, (ckv_new[:, 0], {0: 0}),
+                    (pos, {0: 0}))
+    ctx.write_local(_write_column, kr_cache, (kr_new[:, 0], {0: 0}),
+                    (pos, {0: 0}))
     vout = mla_attend_absorbed(q_nope[:, 0], q_rope[:, 0], ckv_cache,
                                kr_cache, pos + 1, p, cfg, ctx_f32=ctx_f32)
     return out_proj(vout, p.wo)

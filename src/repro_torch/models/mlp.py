@@ -14,12 +14,17 @@ MoE dispatches (``cfg.moe_dispatch``):
 
   * "dense"   -- every expert runs on every token, combined with the
                  routing weights: the oracle.
-  * "scatter" -- capacity-bucketed dispatch (the configs' default): each
-                 token's k choices scatter into (E, capacity, d) buckets at
-                 their token-major, k-minor cumulative position, the experts
-                 run as one batched product, and the outputs gather back
-                 with the routing weights.  Choices past an expert's
-                 capacity are dropped, as in JAX, and counted in
+  * "scatter" -- capacity-bucketed dispatch (the configs' default),
+                 within data-parallel groups as in JAX: the T tokens split
+                 into G groups of T / G (G the product of the current
+                 mesh's data-parallel axis sizes, 1 off the mesh or unless
+                 it divides T); each group's k choices a token scatter
+                 into its (E, capacity, d) buckets at their token-major,
+                 k-minor cumulative position, the experts run as one
+                 batched product over every group's buckets, and the
+                 outputs gather back within the group with the routing
+                 weights.  The capacity is per group.  Choices past an
+                 expert's capacity are dropped, as in JAX, and counted in
                  ``dropped_fraction``.  At decode with B = 4, k = 2 and
                  E = 16 the capacity is one token an expert.
 
@@ -33,10 +38,12 @@ comes through the top-k weights and the load-balance loss's mean
 probabilities; the expert counts come from the top-k indices and carry
 none.
 
-The JAX package dispatches within data-parallel groups
-(``repro.dist.ctx.dp_axes()``), which outside a JAX mesh is one group.  The
-port runs in one process with no data-parallel mesh, so it always uses one
-group.
+Under a device mesh (DTensor activations) the buckets are sharded over
+the groups and the experts as in JAX (``ctx.constrain``), and each
+device scatters and gathers its own groups' tokens (``ctx.local_map``
+over the groups: the data-dependent scatter has no DTensor sharding
+strategy, and needs none, since groups are independent); the
+load-balance loss's expert counts are taken on replicated indices.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.dist import ctx
 from repro_torch.models.layers import cast, weight
 
 
@@ -162,9 +170,10 @@ def _routing(x2, p, cfg):
     w = w / torch.clamp_min(w.sum(dim=-1, keepdim=True), 1e-9)
     e = cfg.n_experts
     me = probs.mean(dim=0)                                    # (E,)
-    ce = torch.zeros(e, dtype=torch.float32, device=x2.device).index_add_(
-        0, idx.reshape(-1), torch.full((idx.numel(),), 1.0 / idx.numel(),
-                                       device=x2.device))
+    ce = ctx.local_map(lambda i: torch.zeros(
+        e, dtype=torch.float32, device=i.device).index_add_(
+        0, i.reshape(-1), torch.full((i.numel(),), 1.0 / i.numel(),
+                                     device=i.device)), (idx, {}))
     aux = e * torch.sum(me * ce)
     return w.to(x2.dtype), idx, aux
 
@@ -174,6 +183,51 @@ def _expert_ffn(xe, p):
     h = silu(torch.bmm(xe, cast(p.wg, xe)))
     h.mul_(torch.bmm(xe, cast(p.wu, xe)))
     return torch.bmm(h, cast(p.wd, xe))
+
+
+def _grouped_expert_ffn(buckets, p):
+    """buckets: (G, E, cap, d) -> (G, E, cap, d) through each expert's
+    SwiGLU.  Plain tensors go through one batched product a weight over
+    (E, G * cap, d); DTensors, whose sharded G cannot merge with cap, take
+    JAX's einsums ("gecd,edf->gecf")."""
+    g, e, cap, d = buckets.shape
+    if not ctx.is_dtensor(buckets):
+        xe = buckets.permute(1, 0, 2, 3).reshape(e, g * cap, d)
+        return _expert_ffn(xe, p).view(e, g, cap, d).permute(1, 0, 2, 3)
+    h = silu(torch.einsum("gecd,edf->gecf", buckets, cast(p.wg, buckets)))
+    h = h * torch.einsum("gecd,edf->gecf", buckets, cast(p.wu, buckets))
+    return torch.einsum("gecf,efd->gecd", h, cast(p.wd, buckets))
+
+
+def _dispatch(xg, idxg, e, cap):
+    """Each group's scatter into its buckets: xg (G, Tl, d), idxg (G, Tl,
+    K) -> (buckets (G, E, cap, d), keep (G, Tl*K), the bucket row of each
+    kept choice, 0 for a dropped one (G, Tl*K))."""
+    g, tl, d = xg.shape
+    k = idxg.shape[2]
+    flat_e = idxg.reshape(g, tl * k)                          # (G, Tl*K)
+    onehot = F.one_hot(flat_e, e)
+    pos = (torch.cumsum(onehot, dim=1) - 1).gather(
+        2, flat_e[..., None])[..., 0]
+    keep = pos < cap
+    slot = flat_e * cap + pos
+    # dropped choices write each group's spare last row, which is cut off
+    buckets = xg.new_zeros((g, e * cap + 1, d))
+    rows = torch.arange(g, device=xg.device)[:, None].expand(g, tl * k)
+    buckets[rows, torch.where(keep, slot, e * cap)] = xg[:, :, None].expand(
+        g, tl, k, d).reshape(g, tl * k, d)
+    return (buckets[:, :-1].view(g, e, cap, d), keep,
+            torch.where(keep, slot, 0))
+
+
+def _combine(ye, keep, src, w):
+    """Each group's gather back and weighted sum: ye (G, E*cap, d), keep
+    and src (G, Tl*K), the routing weights w (G, Tl, K) -> (G, Tl, d); a
+    dropped choice reads row 0 times 0."""
+    g, tl, k = w.shape
+    rows = torch.arange(g, device=ye.device)[:, None].expand(src.shape)
+    yk = ye[rows, src] * keep[..., None].to(ye.dtype)
+    return (yk.view(g, tl, k, -1) * w[..., None]).sum(dim=2)
 
 
 def moe(x, p, cfg):
@@ -191,23 +245,30 @@ def moe(x, p, cfg):
         y2 = torch.einsum("te,etd->td", comb, ye)
         dropped = torch.zeros((), dtype=torch.float32, device=x.device)
     else:
+        # dispatch LOCALLY within each data-parallel group, as JAX does
+        dpa = ctx.dp_axes()
+        sizes = ctx.axis_sizes()
+        groups = 1
+        for a in dpa:
+            groups *= sizes.get(a, 1)
+        if groups <= 1 or t % groups != 0:
+            groups = 1
+        tl = t // groups                                      # local tokens
         # JAX's own expression for the capacity, Python's round included
-        cap = int(max(1, round(cfg.capacity_factor * t * k / e)))
-        cap = min(cap, t)
-        flat_e = idx.reshape(-1)                              # (T*K,)
-        onehot = F.one_hot(flat_e, e)
-        pos = (torch.cumsum(onehot, dim=0) - 1).gather(
-            1, flat_e[:, None])[:, 0]
-        keep = pos < cap
-        slot = flat_e * cap + pos
-        # dropped choices write the spare last row, which is cut off
-        buckets = x2.new_zeros((e * cap + 1, d))
-        buckets[torch.where(keep, slot, e * cap)] = x2[:, None].expand(
-            t, k, d).reshape(t * k, d)
-        dropped = 1.0 - keep.float().mean()
-        ye = _expert_ffn(buckets[:-1].view(e, cap, d), p).view(e * cap, d)
-        yk = ye[torch.where(keep, slot, 0)] * keep[:, None].to(x.dtype)
-        y2 = (yk.view(t, k, d) * w[..., None]).sum(dim=1)
+        cap = int(max(1, round(cfg.capacity_factor * tl * k / e)))
+        cap = min(cap, tl)
+        buckets, keep, src = ctx.local_map(
+            lambda xg, ig: _dispatch(xg, ig, e, cap),
+            (x2.reshape(groups, tl, d), {0: dpa}),
+            (idx.reshape(groups, tl, k), {0: dpa}))
+        buckets = ctx.constrain(buckets, {0: dpa, 1: "model"})
+        dropped = 1.0 - keep.reshape(-1).float().mean()
+        ye = _grouped_expert_ffn(buckets, p).reshape(groups, e * cap, d)
+        # expert outputs back to their groups before the combine gather
+        ye = ctx.constrain(ye, {0: dpa})
+        y2 = ctx.local_map(_combine, (ye, {0: dpa}), (keep, {0: dpa}),
+                           (src, {0: dpa}),
+                           (w.reshape(groups, tl, k), {0: dpa})).reshape(t, d)
     if cfg.n_shared_experts:
         sp = p.shared
         hs = silu(x2 @ cast(sp.w_gate, x2)) * (x2 @ cast(sp.w_up, x2))

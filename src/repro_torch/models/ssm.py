@@ -57,6 +57,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist import ctx
 from repro_torch.models.layers import cast, fill, param, rms_norm, weight
 from repro_torch.models.mlp import gelu_tanh, silu
 
@@ -285,6 +286,34 @@ class MLSTM(nn.Module):
         self.down = weight((di, d), di ** -0.5, dtype, device, generator)
 
 
+class _LogSigmoid(torch.autograd.Function):
+    """``F.logsigmoid`` of a DTensor, whose backward op
+    (``log_sigmoid_backward``) has no DTensor sharding strategy: the
+    gradient is written out, g * sigmoid(-x)."""
+
+    @staticmethod
+    def forward(c, x):
+        c.save_for_backward(x)
+        return F.logsigmoid(x)
+
+    @staticmethod
+    def backward(c, g):
+        (x,) = c.saved_tensors
+        return g * torch.sigmoid(-x)
+
+
+def _logsigmoid(x):
+    """``F.logsigmoid``; a DTensor's through ``_LogSigmoid``."""
+    return _LogSigmoid.apply(x) if ctx.is_dtensor(x) else F.logsigmoid(x)
+
+
+def _on_batch_shards(fn, x):
+    """``fn(x)`` (a scan along dim 1); under a device mesh on each
+    device's batch shard: DTensor has no strategy for ``cummax``, nor, in
+    some torch versions, for the ``flip`` of ``cumsum``'s backward."""
+    return ctx.local_map(fn, (x, {0: ctx.dp_axes()}))
+
+
 def mlstm_init_state(cfg, batch, device):
     _, h, dh = _xlstm_dims(cfg)
     f32 = torch.float32
@@ -298,7 +327,7 @@ def mlstm_step(state, q, k, v, i_pre, f_pre):
     q, k, v (B, h, dh) and the gate inputs (B, h), all float32 -> (the new
     state, h (B, h, dh))."""
     C, n = state["C"], state["n"]
-    fm = F.logsigmoid(f_pre) + state["m"]
+    fm = _logsigmoid(f_pre) + state["m"]
     m_new = torch.maximum(fm, i_pre)
     i_g = torch.exp(i_pre - m_new)
     f_g = torch.exp(fm - m_new)
@@ -360,9 +389,10 @@ def mlstm_chunked(q, k, v, i_pre, f_pre, state, chunk):
     for c0 in range(0, s, chunk):
         sl = slice(c0, c0 + chunk)
         qt, kt, vt, it = q[:, sl], k[:, sl], v[:, sl], i_pre[:, sl]
-        Fc = torch.cumsum(F.logsigmoid(f_pre[:, sl]), dim=1)  # (B, L, h)
-        m = Fc + torch.maximum(m0[:, None],
-                               torch.cummax(it - Fc, dim=1).values)
+        Fc = _on_batch_shards(lambda t: torch.cumsum(t, dim=1),
+                              _logsigmoid(f_pre[:, sl]))      # (B, L, h)
+        m = Fc + torch.maximum(m0[:, None], _on_batch_shards(
+            lambda t: torch.cummax(t, dim=1).values, it - Fc))
         w0 = torch.exp(m0[:, None] + Fc - m)                  # (B, L, h)
         # log-weights (B, L_t, L_j, h) of token j in output t
         D = it[:, None] + Fc[:, :, None] - Fc[:, None] - m[:, :, None]
@@ -452,7 +482,7 @@ def slstm_step(p, state, wx):
     rec = torch.matmul(p.r, state["h"][:, None, :, :, None])[..., 0]
     pre = wx.float() + rec + p.b
     i_pre, f_pre, z_pre, o_pre = pre.unbind(1)
-    fm = F.logsigmoid(f_pre) + state["m"]
+    fm = _logsigmoid(f_pre) + state["m"]
     m_new = torch.maximum(fm, i_pre)
     i_g = torch.exp(i_pre - m_new)
     f_g = torch.exp(fm - m_new)

@@ -62,6 +62,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist import ctx
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
@@ -96,12 +97,19 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def _ce(logits, labels):
     """JAX's ``_ce``: logits (..., V) upcast to float32, label -1 masked ->
-    (the summed negative log likelihood, the count of labels)."""
-    logits = logits.float()
+    (the summed negative log likelihood, the count of labels).  Under a
+    device mesh the logits keep only their batch sharding, and the gold
+    logit is read on each batch shard: DTensor's vocab-sharded gather (a
+    masked partial) fails on the select after it (torch 2.13), and its
+    backward would fill a replicated, whole-batch zero gradient."""
+    dp = {0: ctx.dp_axes()}
+    logits = ctx.constrain(logits.float(), dp)
     mask = labels >= 0
     safe = torch.where(mask, labels, 0).long()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, safe[..., None], dim=-1)[..., 0]
+    gold = ctx.local_map(
+        lambda lg, ix: torch.take_along_dim(lg, ix[..., None], dim=-1)[
+            ..., 0], (logits, dp), (safe, dp))
     nll = torch.where(mask, lse - gold, 0.0)
     return nll.sum(), mask.sum(dtype=torch.int32)
 
@@ -381,6 +389,7 @@ class Transformer(nn.Module):
         masked -> (loss, {"ce_loss", "router_aux", "tokens"}),
         differentiable in the parameters."""
         x = self._embed(batch.get("tokens"), batch.get("frontend_embeds"))
+        x = ctx.constrain(x, {0: ctx.dp_axes()})    # JAX's _embed_inputs
         b, s = x.shape[:2]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=self.device).expand(b, s)
@@ -390,8 +399,12 @@ class Transformer(nn.Module):
         if pad < 0:
             raise ValueError(f"{labels.shape[1]} labels for a sequence of "
                              f"{s}")
-        if pad:               # the frontend tokens carry no labels
-            labels = torch.nn.functional.pad(labels, (pad, 0), value=-1)
+        if pad:               # the frontend tokens carry no labels; under a
+            # mesh padded on each batch shard (DTensor's pad fails in some
+            # torch versions)
+            labels = ctx.local_map(
+                lambda t: torch.nn.functional.pad(t, (pad, 0), value=-1),
+                (labels, {0: ctx.dp_axes()}))
         c = min(self.cfg.ce_chunk, s) if self.cfg.ce_chunk else s
         if s % c:
             raise ValueError(f"sequence {s} is not a multiple of ce_chunk "
@@ -406,12 +419,37 @@ class Transformer(nn.Module):
         total = loss + self.cfg.router_aux_coef * aux
         return total, {"ce_loss": loss, "router_aux": aux, "tokens": n}
 
-    def init_decode_state(self, batch: int, s_max: int) -> DecodeState:
-        dev = self.device
+    def init_decode_state(self, batch: int, s_max: int, *,
+                          device=None) -> DecodeState:
+        dev = self.device if device is None else device
         return DecodeState(
             torch.zeros(batch, dtype=torch.int32, device=dev),
             [block.init_state(batch, s_max, self.dtype, dev)
              for block in self.layers])
+
+    def placed_decode_state(self, batch: int, s_max: int, mesh):
+        """:meth:`init_decode_state` as DTensors on ``mesh``, placed by
+        ``dist.sharding.decode_state_shardings``, each device allocating
+        only its own shard (every leaf starts as one constant, read from a
+        one-token state on the host)."""
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.dist import sharding as SH
+        shapes = self.init_decode_state(batch, s_max, device="meta")
+        fills = dict(SH.leaves_with_path(
+            self.init_decode_state(1, 1, device="cpu")))
+        shardings = dict(SH.leaves_with_path(SH.decode_state_shardings(
+            shapes, mesh, pure_dp=ctx.pure_dp())))
+
+        def leaf(path, t):
+            s = shardings[path]
+            local = torch.full(s.shard_shape(t.shape),
+                               fills[path].reshape(-1)[0].item(),
+                               dtype=t.dtype, device=self.device)
+            return DTensor.from_local(local, mesh, s.placements(),
+                                      run_check=False, shape=t.shape,
+                                      stride=t.stride())
+        return SH.map_with_path(leaf, shapes)
 
     @torch.no_grad()
     def prefill(self, tokens=None, s_max: int | None = None, *,
@@ -421,11 +459,15 @@ class Transformer(nn.Module):
         decode state with every cache filled to F + S and every recurrent
         layer's state after them).  With a mamba layer, F + S longer than
         ``cfg.ssm_chunk`` must be a multiple of it."""
-        x = self._embed(tokens, frontend_embeds)
+        x = ctx.constrain(self._embed(tokens, frontend_embeds),
+                          {0: ctx.dp_axes()})
         b, s = x.shape[:2]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=self.device).expand(b, s)
-        state = self.init_decode_state(b, s_max or s)
+        if ctx.is_dtensor(x) and ctx.current_mesh() is not None:
+            state = self.placed_decode_state(b, s_max or s, x.device_mesh)
+        else:
+            state = self.init_decode_state(b, s_max or s)
         state.pos.fill_(s)
         for i, block in enumerate(self.layers):
             x, state.layers[i] = block.prefill(x, positions, state.layers[i])

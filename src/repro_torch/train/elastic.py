@@ -1,13 +1,14 @@
 """Elastic scaling: replan the mesh when hosts join or leave, and place
 restored state; the port of the JAX package's ``repro/train/elastic.py``.
 
-Checkpoints store whole leaves (train/checkpoint.py), so after a topology
-change the state is restored and placed again, with no format migration.
-``plan_mesh`` and ``rebatch_plan`` are pure Python, copied.  ``reshard``
-places a restored tree on one device.  The JAX package's
-``make_mesh_from_plan`` builds a (data, model) device mesh for its
-sharding rules; one process of the port has no such mesh (ROADMAP Queue 1
-item 7).
+Checkpoints store whole leaves (train/checkpoint.py), so re-sharding
+after a topology change is: plan a new mesh from the surviving card count
+(``plan_mesh``), build its ``DeviceMesh`` (``make_mesh_from_plan``),
+rebuild the shardings with the same rules engine (``dist.sharding``) and
+``reshard`` the restored tree onto them -- no format migration.
+``plan_mesh`` keeps the model axis fixed (TP degree is a property of the
+model, not the fleet) and gives the remainder to data/pod axes.
+``plan_mesh`` and ``rebatch_plan`` are pure Python, copied.
 """
 
 from __future__ import annotations
@@ -45,14 +46,43 @@ def plan_mesh(available_chips: int, model_parallel: int = 16,
     return MeshPlan(shape, names, used, available_chips - used)
 
 
-def reshard(tree, device):
-    """A (host or other-device) tree of tensors or arrays, nested dicts,
-    lists or tuples, placed on ``device``."""
+def make_mesh_from_plan(plan: MeshPlan, device_type: str | None = None):
+    """The ``DeviceMesh`` of ``plan``: its shape and axis names over the
+    default process group's first ``plan.used_chips`` ranks (the idle
+    ones are left out).  ``device_type`` defaults to "cuda" where a card
+    is present, else "cpu"."""
+    from torch.distributed.device_mesh import DeviceMesh
+    if device_type is None:
+        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    ranks = torch.arange(plan.used_chips).reshape(plan.shape)
+    return DeviceMesh(device_type, ranks, mesh_dim_names=plan.axis_names)
+
+
+def reshard(tree, shardings):
+    """Place a (host or other-device) tree of tensors or arrays -- nested
+    dicts, lists or tuples of whole leaves -- onto ``shardings``: a tree of
+    ``dist.sharding.Sharding`` of the same structure (each leaf becomes a
+    DTensor, ``distribute_tensor`` of the whole leaf on the mesh's device
+    type), or one ``torch.device`` (each leaf a plain tensor there)."""
+    if isinstance(shardings, (str, torch.device)):
+        device = shardings
+        if isinstance(tree, dict):
+            return {k: reshard(v, device) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(reshard(v, device) for v in tree)
+        return torch.as_tensor(tree).to(device)
+    from torch.distributed.tensor import distribute_tensor
     if isinstance(tree, dict):
-        return {k: reshard(v, device) for k, v in tree.items()}
+        return {k: reshard(v, shardings[k]) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(reshard(v, device) for v in tree)
-    return torch.as_tensor(tree).to(device)
+        return type(tree)(reshard(v, s) for v, s in zip(tree, shardings,
+                                                          strict=True))
+    mesh = shardings.mesh
+    x = tree.full_tensor() if hasattr(tree, "full_tensor") else \
+        torch.as_tensor(tree)
+    if x.device.type != "meta":
+        x = x.to(mesh.device_type)
+    return distribute_tensor(x, mesh, shardings.placements())
 
 
 def rebatch_plan(global_batch: int, old_dp: int, new_dp: int) -> dict:

@@ -55,7 +55,11 @@ qwen2.5-3b model (float32 masters, remat on), rerun bit-equal; two steps'
 losses against the CPU's; the same for the other families' reduced models
 (Mixtral, DeepSeek-V2, a two-layer Jamba pattern, xLSTM with either mLSTM
 form, HuBERT on an audio batch); and AdamW's update on the card from the
-CPU's inputs within 2 ulps of the CPU's.
+CPU's inputs within 2 ulps of the CPU's.  The device mesh: Qwen2.5-3B at
+full width and 2 layers, every leaf a DTensor on the (1, 1) mesh of an
+NCCL group of one, two steps bit-equal to the plain steps; and arena
+shards on (card, CPU), the sharded aggregates and ``similar(mesh=)``
+against the CPU's answers.
 
 These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip.  Run
 them on a GPU machine with ``PYTHONPATH=src python -m pytest -q -m cuda
@@ -1766,3 +1770,94 @@ def test_adamw_on_the_card_matches_the_cpu(cuda, clip):
             err = np.abs(card[name][k].cpu().numpy().astype(np.float64)
                          - want).max()
             assert err <= 2 * np.spacing(np.abs(want).max()), (name, k)
+
+
+# ---------------------------------------------------------------------------
+# the device mesh: the sharded step on an NCCL group of one, arena shards
+# on the card and the CPU
+# ---------------------------------------------------------------------------
+
+def test_sharded_step_on_an_nccl_group_of_one(cuda, monkeypatch):
+    """Qwen2.5-3B at full width, 2 layers, batch 1 x 256: every leaf a
+    DTensor on the (1, 1) mesh of an NCCL group of one; two steps' losses
+    and gradient norms bit-equal to the plain steps (each shard is the
+    whole tensor)."""
+    import dataclasses
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.dist import ctx
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TS
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    cfg = dataclasses.replace(configs.get_config("qwen2_5_3b"), n_layers=2)
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (1, 256), generator=gen,
+                         dtype=torch.int32).to(cuda)
+    batch = {"tokens": toks, "labels": toks}
+    dist.init_process_group("nccl", device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_local_mesh()
+        assert tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda"
+        out = []
+        for sharded in (False, True):
+            model = Transformer(cfg, device=cuda, param_dtype="float32",
+                                generator=torch.Generator(cuda)
+                                .manual_seed(0))
+            model.requires_grad_(True)
+            state = adamw.init_state(dict(model.named_parameters()))
+            b = dict(batch)
+            if sharded:
+                state, b = TS.shard_train_state(model, state, b, mesh)
+                assert all(ctx.is_dtensor(p) for p in model.parameters())
+            step = TS.make_train_step(cfg, adamw.AdamWConfig(
+                warmup_steps=1))
+            hist = []
+            for _ in range(2):
+                _, state, m = step(model, state, b)
+                hist.append([float(m[k].full_tensor() if ctx.is_dtensor(
+                    m[k]) else m[k]) for k in ("loss", "grad_norm")])
+            out.append(hist)
+            del model, state
+        assert out[0] == out[1]
+    finally:
+        dist.destroy_process_group()
+
+
+def test_shard_slabs_on_the_card_and_the_cpu(cuda):
+    """Arena shards on (card, CPU): one slab a shard on its device, the
+    rows a launch reads from the other device gathered to it; the sharded
+    aggregates and ``similar(mesh=)`` equal the one-device answers."""
+    from repro_torch.core import aggregate
+    from repro_torch.dist import WideMesh
+    host, card = _index_pair(cuda, True)
+    mesh = WideMesh([cuda, "cpu"])
+    shards = card.arena.shard_slabs(mesh)
+    assert shards.distinct
+    terms = ["t0", "t1", "t2", "t3", "t5"]
+    bms = [card.postings[t] for t in terms]
+    hb = [host.postings[t] for t in terms]
+    for name, kw in (("or_many", {}), ("and_many", {}), ("xor_many", {}),
+                     ("threshold_many", dict(t=2))):
+        got = getattr(aggregate, name)(bms, arena=card.arena, mesh=mesh,
+                                       **kw)
+        assert got == getattr(aggregate, name)(hb, device="cpu", **kw), name
+    for metric in METRICS:
+        for term in ("t0", "dup"):
+            got = card.similar(term, 5, metric, mesh=mesh)
+            want = host.similar(term, 5, metric)
+            assert [t for t, _ in got] == [t for t, _ in want]
+            assert np.float32([x for _, x in got]).tobytes() == \
+                np.float32([x for _, x in want]).tobytes()
+    assert shards._bufs[0].device.type == "cuda"
+    assert shards._bufs[1].device.type == "cpu"
+    assert sum(st.rows_gathered for st in shards.stats) > 0

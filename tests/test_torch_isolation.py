@@ -56,7 +56,11 @@ def test_package_files_exist():
                  "configs/__init__.py", "configs/gemma2_27b.py",
                  "serve/engine.py", "serve/kv_cache.py",
                  "serve/constrained.py", "launch/serve.py",
-                 "models/ssm.py", "core/scalar.py", "data/synth.py"):
+                 "models/ssm.py", "core/scalar.py", "data/synth.py",
+                 "dist/sharding.py", "launch/mesh.py", "launch/train.py",
+                 "launch/dryrun.py", "launch/perf.py", "launch/report.py",
+                 "train/elastic.py", "train/train_step.py",
+                 "core/arena.py"):
         assert PKG / name in FILES
     assert len(FILES) > 10 and all(f.is_file() for f in FILES)
 
@@ -89,6 +93,33 @@ def test_import_without_jax_loads_no_repro():
                           text=True, timeout=300, env=env)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "IMPORTED" in proc.stdout
+
+
+def test_import_loads_no_fake_process_group():
+    """Importing every module of the package adds no module of
+    ``torch.testing._internal`` to what ``import torch`` loads: the dry
+    run's fake process-group backend is imported only when a production
+    mesh is traced."""
+    mods = sorted(".".join(p.relative_to(PKG.parent).with_suffix("")
+                           .parts).removesuffix(".__init__")
+                  for p in PKG.rglob("*.py"))
+    code = (
+        "import sys, importlib\n"
+        "import torch\n"
+        "def internal():\n"
+        "    return {m for m in sys.modules\n"
+        "            if m.startswith('torch.testing._internal')}\n"
+        "before = internal()\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "extra = sorted(internal() - before)\n"
+        "assert not extra, extra\n"
+        "print('CLEAN')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "CLEAN" in proc.stdout
 
 
 def _no_gpu():
@@ -300,6 +331,9 @@ def test_similarity_kernel_route_does_not_fall_back_to_cpu():
                                   "kernels/_build.py", "kernels/ops.py",
                                   "core/pairwise.py", "core/tensor.py",
                                   "core/aggregate.py", "dist/ctx.py",
+                                  "dist/sharding.py", "launch/mesh.py",
+                                  "train/elastic.py",
+                                  "train/train_step.py",
                                   "kernels/block_sparse_attn.py",
                                   "models/layers.py",
                                   "models/transformer.py",

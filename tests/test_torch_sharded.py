@@ -222,8 +222,10 @@ def test_shard_slabs_grow_on_the_device():
 
 
 def test_shards_on_distinct_devices_raise():
+    """Shards on distinct devices each hold a slab; a meta device, which
+    holds no rows, cannot be one of them."""
     arena = BitmapArena(device=CPU)
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(ValueError, match="meta device"):
         arena.shard_slabs(WideMesh([CPU, "meta"]))
 
 
