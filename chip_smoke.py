@@ -393,12 +393,35 @@ toolkit (``nvcc``).  Phases, each timed:
    the 17 (a launch fails them); 18d launches phase 9's on its card
    shards.
 
+17c. After phase 17, a prefill's decode state in the dry run on the (16,
+   16) production mesh (PyTorch's fake process group in this process,
+   destroyed after): ``Transformer.placed_decode_state`` at
+   ``qwen2_5_3b-prefill_32k``'s shape (32 x 32,768) under the counter must
+   count exactly the state's per-device shard bytes by
+   ``dist.sharding.decode_state_shardings``, not the 38.7 GB global
+   shapes it reads; then Mixtral-8x7B's whole
+   prefill at 32 x 4,096 traced: the decode-state bytes live at the traced
+   peak (``peak.by_op["decode_state"]``) must equal the shard bytes, no
+   global ``zeros`` may be live there, and the argument bytes must equal
+   the rules' shard sizes.  No kernel launches.
+
+19. Last, the port's five examples (``examples/torch_*.py``) on the card at
+   their default sizes, each through its ``main`` in this process:
+   quickstart, query_server, train_tiny_lm (200 steps, checkpoints in a
+   temporary directory), constrained_serve and analytics_index.  Each
+   one's wall time and launches are printed; each must launch its path's
+   kernel (popcount, segment_reduce, decode_attention, segment_reduce;
+   the trainer's pipeline has its own), train_tiny_lm's mean loss over
+   its last 10 steps must be below that over its first 10, and the five
+   must finish within 90 s.
+
 Phases 10, 12, 13 and 14 share one serving driver (``_serve_phase``).
 
-Launch counts are set to 0 just before each of phases 3 to 18 (and each
-part of 11, 16 and 18) and read just after it; a kernel that a phase's
-path runs and that launched no time there fails the script, and so does
-any launch in phases 13 to 17 and 18a-c, whose paths run none: their prefills, decode
+Launch counts are set to 0 just before each of phases 3 to 19 (and each
+part of 11, 16 and 18, and each example of 19) and read just after it; a
+kernel that a phase's path runs and that launched no time there fails the
+script, and so does any launch in phases 13 to 17c and 18a-c, whose paths
+run none: their prefills, decode
 steps, checks, profiler windows, HuBERT's prefills, the training steps
 and the dry run's traces.  In
 phases 10, 12, 13 and 14 the counts are also set to 0 around the lexicon
@@ -6102,6 +6125,154 @@ def phase_distinct_shards(dev, ctx, sim_cases, failures):
 
 
 # ---------------------------------------------------------------------------
+# phase 17c: a prefill's decode state on a production mesh
+# ---------------------------------------------------------------------------
+
+STATE_CELL = ("qwen2_5_3b", "prefill_32k")   # 17c's placed state, whole
+STATE_TRACE = ("mixtral_8x7b", 4096)         # 17c's traced prefill, cut
+
+
+def phase_prefill_state(dev, seed, failures):
+    """Phase 17c: what a prefill's decode state costs one device of the
+    (16, 16) production mesh in the dry run (see the module docstring)."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.dist import ctx as dctx
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.op_analysis import OpAnalysis
+    from repro_torch.models.transformer import Transformer
+    _reset_counts()
+    out = {}
+    try:
+        mesh = dryrun.production_mesh("single")
+        arch, shape = STATE_CELL
+        cfg, spec = configs.get_config(arch), configs.SHAPES[shape]
+        local, whole = dryrun.state_bytes(cfg, spec, mesh)
+        model = Transformer(cfg, device="meta")
+        t = time.perf_counter()
+        with dctx.activate(mesh), OpAnalysis(torch.device("meta")) as oa, \
+                dctx.on_mesh(mesh):
+            model.placed_decode_state(spec.global_batch, spec.seq_len, mesh)
+        res = oa.result()
+        log(f"  17c {arch}-{shape} on 16 x 16: placed_decode_state counts "
+            f"temp {res['temp_bytes']} bytes, live {res['peak_by_op']} in "
+            f"{time.perf_counter() - t:.1f} s; the rules' shard "
+            f"{local} bytes of a global {whole} ({whole / 1e9:.2f} GB)")
+        if res["temp_bytes"] != local or \
+                res["peak_by_op"] != {"decode_state": local}:
+            failures.append(f"17c: {arch}-{shape}'s placed state counts "
+                            f"{res['peak_by_op']}, not its shard {local}")
+        out["placed"] = dict(cell=f"{arch}-{shape}", temp_bytes=res[
+            "temp_bytes"], shard_bytes=local, global_bytes=whole)
+        arch, seq = STATE_TRACE
+        cfg = configs.get_config(arch)
+        spec = configs.ShapeSpec(f"prefill_{seq}", seq,
+                                 configs.SHAPES["prefill_32k"].global_batch,
+                                 "prefill")
+        local, whole = dryrun.state_bytes(cfg, spec, mesh)
+        t = time.perf_counter()
+        res = dryrun.trace_cell(cfg, spec, mesh=mesh)
+        secs = time.perf_counter() - t
+        want = dryrun.shard_bytes(cfg, spec, mesh)
+        by_op, mem = res["peak"]["by_op"], res["memory"]
+        at_peak = by_op.get("decode_state", 0)
+        log(f"  17c {arch} prefill {spec.global_batch} x {seq} on 16 x 16: "
+            f"trace {secs:.1f} s, {res['ops']} ops; argument "
+            f"{mem['argument_bytes']} bytes (rules' {want}), temp "
+            f"{mem['temp_bytes']}; peak at {res['peak']['op']}, the decode "
+            f"state there {at_peak} bytes against its shard {local} (global "
+            f"{whole}); live at the peak by op {by_op}")
+        if at_peak != local or "zeros" in by_op:
+            failures.append(f"17c: the decode state live at {arch}'s "
+                            f"prefill peak is {at_peak} bytes, not its "
+                            f"shard {local} ({by_op})")
+        if mem["argument_bytes"] != want:
+            failures.append(f"17c: argument bytes {mem['argument_bytes']} "
+                            f"!= the rules' {want}")
+        out["traced"] = dict(cell=f"{arch}-prefill_{seq}", trace_s=secs,
+                             ops=res["ops"], memory=mem, rules_bytes=want,
+                             state_at_peak=at_peak, shard_bytes=local,
+                             global_bytes=whole, peak=res["peak"])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    out["launches"] = _all_counts()
+    if out["launches"]:
+        failures.append(f"17c: a kernel launched: {out['launches']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the port's examples
+# ---------------------------------------------------------------------------
+
+EXAMPLE_RUNS = ("torch_quickstart", "torch_query_server",
+                "torch_train_tiny_lm", "torch_constrained_serve",
+                "torch_analytics_index")
+EXAMPLES_LIMIT_S = 90.0
+# a kernel each example's path must launch on the card
+EXAMPLE_KERNELS = {"torch_quickstart": "popcount",
+                   "torch_query_server": "score",
+                   "torch_constrained_serve": "decode_attention",
+                   "torch_analytics_index": "segment_reduce"}
+
+
+def _example(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(dev, seed, failures):
+    """Phase 19: the five port examples at their default sizes on the card,
+    in this process through their ``main`` (see the module docstring)."""
+    import tempfile
+    out = {}
+    total = {}
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in EXAMPLE_RUNS:
+            argv = ["--ckpt-dir", str(Path(tmp) / "ckpt")] \
+                if name == "torch_train_tiny_lm" else []
+            log(f"  19 {name} {' '.join(argv)}")
+            _reset_counts()
+            t = time.perf_counter()
+            try:
+                res = _example(name).main(argv)
+                torch.cuda.synchronize(dev)
+            except Exception as e:      # one example's failure is recorded
+                failures.append(f"19 {name}: {type(e).__name__}: {e}")
+                log(f"  {failures[-1]}")
+                continue
+            secs = time.perf_counter() - t
+            launches = _all_counts()
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            out[name] = dict(seconds=secs, launches=launches)
+            log(f"  19 {name}: {secs:.2f} s, launches {launches}")
+            need = EXAMPLE_KERNELS.get(name)
+            if need and not launches.get(need):
+                failures.append(f"19 {name}: {need} launched no time")
+            if name == "torch_train_tiny_lm":
+                out[name].update(first10=res["first"], last10=res["last"],
+                                 steps=res["steps"])
+                if not res["last"] < res["first"]:
+                    failures.append(f"19 {name}: the loss did not fall: "
+                                    f"{res['first']} -> {res['last']}")
+    out["seconds"] = time.perf_counter() - t_all
+    out["launches"] = total
+    log(f"  19: the five examples in {out['seconds']:.1f} s "
+        f"(limit {EXAMPLES_LIMIT_S:.0f} s)")
+    if out["seconds"] > EXAMPLES_LIMIT_S:
+        failures.append(f"19: the examples took {out['seconds']:.1f} s, "
+                        f"past {EXAMPLES_LIMIT_S:.0f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def _build_all():
     """Build every kernel source at once, one nvcc each, in parallel.
@@ -6252,8 +6423,9 @@ def _kernel_line(main_path, sim, cases, topk_cases, max_err, topk_err,
              jamba_shape={k: jamba_case[k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                  "max_abs_err", "shape")})]
-    # launches in phases 13 to 18 (``later``: the counts by kernel), whose
-    # paths run no kernel of the port but 18d's card shards
+    # launches in phases 13 to 19 (``later``: the counts by kernel), whose
+    # paths run no kernel of the port but 18d's card shards and 19's
+    # examples
     count_key = {"similarity_score": "score", "similarity_select": "select",
                  "similarity_score_ids": "score_ids",
                  "topk_merge": "select_ids"}
@@ -6450,6 +6622,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     calibration = phase("17 (the dry run's peak memory against the card's)",
                         phase_dryrun_calibration, dev, args.seed, failures)
+    prefill_state = phase("17c (a prefill's decode state on the 16 x 16 "
+                          "mesh)", phase_prefill_state, dev, args.seed,
+                          failures)
 
     # phase 18 after phase 17 has released its models
     gc.collect()
@@ -6458,6 +6633,12 @@ def main() -> int:
                    "production meshes' dry run, the launcher)",
                    phase_device_mesh, dev, args.seed, failures)
     mesh18["18d"] = distinct
+
+    # phase 19 last: the examples, each on a card the phases before left
+    gc.collect()
+    torch.cuda.empty_cache()
+    examples = phase("19 (the port's five examples at their default sizes)",
+                     phase_examples, dev, args.seed, failures)
 
     kernels = _kernel_line(main_path, sim, cases, topk_cases, max_err,
                            topk_err, pair_cases, pair_err, pairwise,
@@ -6469,8 +6650,10 @@ def main() -> int:
                                    "15": training["launches"],
                                    "16": families["launches"],
                                    "17": calibration["launches"],
+                                   "17c": prefill_state["launches"],
                                    "18": mesh18["launches"],
-                                   "18d": distinct["launches"]})
+                                   "18d": distinct["launches"],
+                                   "19": examples["launches"]})
     REPORT.parent.mkdir(exist_ok=True)
     REPORT.write_text(json.dumps(dict(
         card=card, builds=builds, kernel_cases=cases,
@@ -6482,7 +6665,7 @@ def main() -> int:
         bsa_cases=bsa_cases, serving=serving, jamba=jamba,
         deepseek=deepseek, xlstm_hubert=xlstm, training=training,
         training_families=families, dryrun_calibration=calibration,
-        device_mesh=mesh18,
+        prefill_state=prefill_state, device_mesh=mesh18, examples=examples,
         bsa_launches_per_phase=bsa_per_phase,
         kernels=kernels["kernels"],
         phases_s=phases, failures=failures,

@@ -16,11 +16,13 @@ and 14 (xLSTM-350M and a HuBERT-xlarge prefill), the training phase 15
 ``chip_smoke.py``) and the parts of phase 16 (16a Mixtral-8x7B, 16b
 DeepSeek-V2, 16c HuBERT-xlarge, 16d Jamba's Mamba block, 16e xLSTM-350M;
 ``--steps`` sets the step count of all but 16d) and phase 17 (the dry
-run's predicted peak memory against the card's), 18 (the device mesh:
-the sharded train step, the production meshes' dry run, the launcher's
-``--distributed``) and 18d (arena shards on distinct devices, after
-phases 3 and 4 build its index and queries), each in a tree that has it,
-which print their end-to-end numbers in place of cases.
+run's predicted peak memory against the card's), 17c (a prefill's decode
+state in the dry run on the 16 x 16 mesh), 18 (the device mesh: the
+sharded train step, the production meshes' dry run, the launcher's
+``--distributed``), 18d (arena shards on distinct devices, after phases 3
+and 4 build its index and queries) and 19 (the port's five examples),
+each in a tree that has it, which print their end-to-end numbers in place
+of cases.
 
 Timing two trees on one card, in turns (parent, change, change, parent),
 takes one process per run, since each tree has its own ``repro_torch``:
@@ -50,7 +52,8 @@ PHASES = {"2": "phase_kernels", "2b": "phase_topk_kernels",
           "16a": "_phase16a_mixtral", "16b": "_phase16b_deepseek",
           "16c": "_phase16c_hubert", "16d": "_phase16d_mamba",
           "16e": "_phase16e_xlstm", "17": "phase_dryrun_calibration",
-          "18": "phase_device_mesh", "18d": "phase_distinct_shards"}
+          "17c": "phase_prefill_state", "18": "phase_device_mesh",
+          "18d": "phase_distinct_shards", "19": "phase_examples"}
 STEPPED = ("15", "16a", "16b", "16c", "16e")
 KEYS = ("case", "kernel", "rows", "equal", "ms", "plain_ms", "library_ms",
         "bound_ms", "bound_by", "event_ms")
@@ -107,8 +110,8 @@ def main() -> int:
     rep = dict(root=str(root), phase=args.phase, card=card,
                seconds=time.perf_counter() - t, failures=failures,
                ptxas=ptxas)
-    if args.phase.startswith(("16", "17", "18")):
-        rep["training"] = out                   # a part of 16, 17 or 18
+    if args.phase.startswith(("16", "17", "18", "19")):
+        rep["training"] = out                   # a part of 16, 17, 18, 19
     elif args.phase == "15":                    # the training phase
         rep["training"] = dict({k: out.get(k) for k in TRAINING_KEYS},
                                window={k: out["window"][k] for k in (

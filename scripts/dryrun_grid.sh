@@ -5,6 +5,9 @@
 #
 #     bash scripts/dryrun_grid.sh [OUT_DIR]      # default results/dryrun_mesh
 #
+#     SHAPES=prefill_32k bash scripts/dryrun_grid.sh results/prefill_mesh
+#
+# SHAPES (all by default) keeps the cells of the shapes it names.
 # Each process starts its own fake 256- or 512-rank process group
 # (launch.dryrun --mesh single|multi); a cell that runs past CELL_LIMIT
 # seconds (2,700 by default) is cut and recorded as failed ("error":
@@ -22,6 +25,13 @@ ALL=$(python -c "import sys; sys.path.insert(0,'src'); from repro_torch import c
 LIST=""
 for c in $ORDER; do for m in single multi; do LIST="$LIST $c:$m"; done; done
 for c in $ALL; do case " $ORDER " in *" $c "*) ;; *) for m in single multi; do LIST="$LIST $c:$m"; done;; esac; done
+if [ -n "${SHAPES:-}" ]; then
+  KEEP=""
+  for c in $LIST; do
+    for s in $SHAPES; do case "$c" in *":$s:"*) KEEP="$KEEP $c";; esac; done
+  done
+  LIST=$KEEP
+fi
 t0=$(date +%s)
 # one line "arch shape mesh" a run; sh gets them as $0 $1 $2
 LIMIT=${CELL_LIMIT:-2700}

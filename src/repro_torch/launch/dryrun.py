@@ -151,17 +151,30 @@ def shard_bytes(cfg, spec, mesh) -> int:
         trees += [(moments, m_shard), (moments, m_shard)]
     batch = C.input_specs(cfg, spec)
     trees.append((batch, SH.batch_shardings(batch, mesh, pure_dp=pdp)))
-    if spec.step == "decode":
-        state = model.init_decode_state(spec.global_batch, spec.seq_len)
-        trees.append((state, SH.decode_state_shardings(state, mesh,
-                                                       pure_dp=pdp)))
-    total = 0
+    total = state_bytes(cfg, spec, mesh)[0] if spec.step == "decode" else 0
     for tree, shardings in trees:
         flat = dict(SH.leaves_with_path(shardings))
         for path, t in SH.leaves_with_path(tree):
             n = math.prod(flat[path].shard_shape(t.shape))
             total += alloc_bytes(n * t.element_size())
     return total
+
+
+def state_bytes(cfg, spec, mesh) -> tuple[int, int]:
+    """(the per-device bytes of a cell's decode state on ``mesh``, each
+    leaf's local shard by ``dist.sharding.decode_state_shardings``; its
+    global bytes), as the allocator holds them: what a prefill leaves and
+    a decode step reads."""
+    spec = C.SHAPES[spec] if isinstance(spec, str) else spec
+    state = C.decode_state_specs(cfg, spec)
+    shard = dict(SH.leaves_with_path(SH.decode_state_shardings(
+        state, mesh, pure_dp=getattr(cfg, "pure_dp", False))))
+    local = whole = 0
+    for path, t in SH.leaves_with_path(state):
+        n = math.prod(shard[path].shard_shape(t.shape))
+        local += alloc_bytes(n * t.element_size())
+        whole += alloc_bytes(t.numel() * t.element_size())
+    return local, whole
 
 
 def fake_world(ranks: int) -> None:

@@ -73,6 +73,7 @@ counted.  One card has no collectives: there their counts are 0.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import weakref
@@ -263,6 +264,7 @@ class OpAnalysis(TorchDispatchMode):
         self._pinned: set[int] = set()
         self._objects: dict[int, weakref.ref] = {}
         self._memo: dict = {}
+        self.label: str | None = None   # set by :func:`labelled`
 
     # -- live bytes -------------------------------------------------------
     def _on_device(self, t) -> bool:
@@ -304,6 +306,7 @@ class OpAnalysis(TorchDispatchMode):
             return
         entry = self._storages.get(key)
         if entry is None:
+            op = self.label or op
             entry = self._storages[key] = [alloc_bytes(st.nbytes()), 0, op]
             self._add_live(entry[0], op)
         entry[1] += 1
@@ -456,3 +459,21 @@ def charge(label: str, *, flops=0.0, bytes=0.0, transcendentals=0.0):
         if isinstance(mode, OpAnalysis):
             mode.add(label, flops=flops, bytes=bytes,
                      transcendentals=transcendentals)
+
+
+@contextlib.contextmanager
+def labelled(name: str):
+    """Count the live bytes of the storages made inside the block under
+    ``name`` in every active :class:`OpAnalysis`'s ``peak_by_op``, in place
+    of the op that made them (none active: nothing happens).  The sharded
+    decode state's shards are counted so, as ``decode_state``."""
+    modes = [m for m in _get_current_dispatch_mode_stack()
+             if isinstance(m, OpAnalysis)]
+    prev = [m.label for m in modes]
+    for m in modes:
+        m.label = name
+    try:
+        yield
+    finally:
+        for m, p in zip(modes, prev, strict=True):
+            m.label = p

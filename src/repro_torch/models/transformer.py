@@ -431,13 +431,19 @@ class Transformer(nn.Module):
         """:meth:`init_decode_state` as DTensors on ``mesh``, placed by
         ``dist.sharding.decode_state_shardings``, each device allocating
         only its own shard (every leaf starts as one constant, read from a
-        one-token state on the host)."""
+        one-token state on the host).  The global shapes and the host
+        state are built outside any dispatch mode, so a counter
+        (``launch.op_analysis.OpAnalysis``) sees only the shards, which it
+        counts as ``decode_state``."""
         from torch.distributed.tensor import DTensor
+        from torch.utils._python_dispatch import _disable_current_modes
 
         from repro_torch.dist import sharding as SH
-        shapes = self.init_decode_state(batch, s_max, device="meta")
-        fills = dict(SH.leaves_with_path(
-            self.init_decode_state(1, 1, device="cpu")))
+        from repro_torch.launch.op_analysis import labelled
+        with _disable_current_modes():
+            shapes = self.init_decode_state(batch, s_max, device="meta")
+            fills = dict(SH.leaves_with_path(
+                self.init_decode_state(1, 1, device="cpu")))
         shardings = dict(SH.leaves_with_path(SH.decode_state_shardings(
             shapes, mesh, pure_dp=ctx.pure_dp())))
 
@@ -449,7 +455,8 @@ class Transformer(nn.Module):
             return DTensor.from_local(local, mesh, s.placements(),
                                       run_check=False, shape=t.shape,
                                       stride=t.stride())
-        return SH.map_with_path(leaf, shapes)
+        with labelled("decode_state"):
+            return SH.map_with_path(leaf, shapes)
 
     @torch.no_grad()
     def prefill(self, tokens=None, s_max: int | None = None, *,

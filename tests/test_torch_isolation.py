@@ -1,8 +1,8 @@
 """Faults a port can have that its results would not show:
 
 * an import of JAX or of the JAX package (``repro``) anywhere in
-  ``src/repro_torch/`` or ``chip_smoke.py``, including imports inside
-  functions;
+  ``src/repro_torch/``, ``chip_smoke.py`` or the port's examples
+  (``examples/torch_*.py``), including imports inside functions;
 * a quiet fall back to the CPU where the caller asked for the card (the
   default): here, with no GPU, the defaults must raise;
 * a caught kernel-launch or build failure: every ``except`` in the kernel
@@ -21,7 +21,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -63,6 +64,10 @@ def test_package_files_exist():
                  "core/arena.py"):
         assert PKG / name in FILES
     assert len(FILES) > 10 and all(f.is_file() for f in FILES)
+    assert [p.name for p in EXAMPLES] == [
+        f"torch_{n}.py" for n in ("analytics_index", "constrained_serve",
+                                  "query_server", "quickstart",
+                                  "train_tiny_lm")]
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(

@@ -262,6 +262,60 @@ def test_trace_cell_on_a_production_mesh(fake_world, arch, step):
     assert res["analysis"]["flops"] < one["analysis"]["flops"]
 
 
+# one-card counts of these cells, the same before and after the state's
+# global shapes left the mesh trace (argument, output, temp bytes; FLOPs)
+_ONE_CARD_PREFILL = {
+    "gemma2_27b": (4915712, 33587712, 58721792, 47785705472.0),
+    "deepseek_v2_236b": (1560064, 1999360, 32034304, 7109345280.0)}
+
+
+@pytest.mark.parametrize("arch,layers", [("gemma2_27b", 16),
+                                         ("deepseek_v2_236b", 3)])
+def test_prefill_counts_one_devices_state(fake_world, arch, layers):
+    """A prefill on a production mesh holds each device's shard of the
+    decode state and nothing of its global shape.  Gemma2 runs 16 layers
+    so the state is live at the peak (at 4 the replicated embedding
+    gather's peak comes before it); the peak holds the shards
+    (``decode_state``) and no ``zeros``, which made the global shapes.
+    On one card the state is a real output, counted whole as before."""
+    cfg = dataclasses.replace(C.get_config(arch, reduced=True),
+                              n_layers=layers)
+    spec = C.ShapeSpec("t", 256, 32, "prefill")
+    mesh = dryrun.production_mesh("single")
+    res = dryrun.trace_cell(cfg, spec, mesh=mesh)
+    local, whole = dryrun.state_bytes(cfg, spec, mesh)
+    assert 0 < local < whole
+    assert res["peak"]["by_op"]["decode_state"] == local
+    assert "zeros" not in res["peak"]["by_op"]
+    assert res["memory"]["argument_bytes"] == \
+        dryrun.shard_bytes(cfg, spec, mesh)
+    one = dryrun.trace_cell(cfg, spec)
+    m = one["memory"]
+    assert (m["argument_bytes"], m["output_bytes"], m["temp_bytes"],
+            one["analysis"]["flops"]) == _ONE_CARD_PREFILL[arch]
+    assert one["peak"]["by_op"]["zeros"] == whole
+
+
+def test_placed_state_counts_only_the_shards(fake_world):
+    """``placed_decode_state`` under the counter allocates the shards and
+    nothing else: its temp bytes are the local shard bytes exactly, all
+    labelled ``decode_state``."""
+    from repro_torch.launch.op_analysis import OpAnalysis
+    from repro_torch.models.transformer import Transformer
+    cfg = C.get_config("gemma2_27b", reduced=True)
+    spec = C.ShapeSpec("t", 256, 32, "prefill")
+    mesh = dryrun.production_mesh("single")
+    model = Transformer(cfg, device="meta")
+    with ctx.activate(mesh), OpAnalysis(torch.device("meta")) as oa, \
+            ctx.on_mesh(mesh):
+        state = model.placed_decode_state(32, 256, mesh)
+    local, _ = dryrun.state_bytes(cfg, spec, mesh)
+    res = oa.result()
+    assert res["temp_bytes"] == local
+    assert res["peak_by_op"] == {"decode_state": local}
+    assert state.layers[0]["k"].shape == (32, cfg.n_kv_heads, 256, cfg.hd)
+
+
 # ---------------------------------------------------------------------------
 # the grouped MoE dispatch, against the JAX package's
 # ---------------------------------------------------------------------------
